@@ -1,49 +1,77 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
-Drives the port's main path once at full size: the benchmark workload of
-bench.py — 1920x1080 camera rays over the 10,244-triangle benchmark
-scene, depth 1, the forward render plus the gradient of sum(color^2)
-with respect to every float scene parameter, with backend "auto" (which
-resolves to mxtile). Phases, any failure exits non-zero:
+Drives the port's main paths at full size, through `trace_rays` /
+`render` with backend "auto", and holds every CUDA kernel on them
+against its plain PyTorch version:
 
+A. the flagship (bench.py): 1920x1080 camera rays over the 10,244-triangle
+   benchmark scene, depth 1, forward and the gradient of sum(color^2)
+   with respect to every float scene leaf; "auto" resolves to mxtile
+   (kernels K1, K2);
+B. the Cornell box (bench.py's Cornell leg), 1024x768, depth 1: "auto"
+   resolves to the fused whole-frame kernel K3, whose backward
+   re-derives the frame on the lane route (K4);
+C. BASELINE config 4: mixed_scene(), 1920x1080, depth 4: "auto" resolves
+   to K3, whose backward re-derives the frame through chunked mxtile (K1,
+   K2);
+D. the Cornell box with light_mode="reference_cpp", 1024x768, forward:
+   "auto" resolves to the lane kernel K4.
+
+Phases, any failure exits non-zero (no phase catches its own failure):
 1. device: needs a CUDA device (there is no CPU path); prints the card's
    name and power limit (nvidia-smi), the torch and CUDA versions, and
    turns TF32 off;
-2. build: builds the CUDA kernels from csrc/ with nvcc, timed;
+2. build: builds the three CUDA sources from csrc/ with nvcc, one process
+   each, all started together; prints each kernel's registers, spills
+   and shared memory;
 3. kernels: each kernel against its plain PyTorch version on the inputs
-   the main path gives it (captured from one forward of the frame), with
-   the bars of tests/test_rt_mxu.py, and the time of each (CUDA events);
-4. main path: forward + backward with every kernel's launch counter set
-   to 0 first, checks (finite image and gradients, counters > 0, a small
-   render agreeing with the plain `jnp` backend), then forward and
-   fwd+bwd times from CUDA events over warm iterations with the ray ids
-   varied per iteration, and the peak device memory; then the forward's
-   layers timed alone on the frame's wavefronts;
+   its main paths give it, with the bars of the JAX package's tests, and
+   the time of each (CUDA events): K1/K2 on the flagship's wavefronts and
+   on every wavefront of config 4's chunked backward, K3 on the Cornell
+   and config-4 frames, K4 on Cornell's camera and shadow wavefronts;
+4. main paths A-D: for each, every kernel's launch counter set to 0 just
+   before a run and read just after (forward, then forward + backward),
+   checks (finite, non-black image, finite gradients, counters > 0, a
+   small frame agreeing with the plain `jnp` backend), then forward and
+   fwd+bwd times from CUDA events (median of 5, ray ids varied per
+   iteration) and the peak device memory; the layers of the flagship's
+   forward, and of the Cornell and config-4 steps, timed alone;
 5. prints {"kernels": [...]} and, as the last line, the result line.
 
 Usage: python3 chip_smoke.py   (from the repository root)
+       python3 chip_smoke.py --profile   (instead: one fwd+bwd step each of
+       the flagship, Cornell and config 4 under torch.profiler: device
+       operations, device time, busy share of the step, costliest kernels)
 """
 
+import argparse
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 from esctp1raytracer_tpu_torch.core.camera import Camera
 from esctp1raytracer_tpu_torch.core.render import RenderConfig, render, resolve_backend, trace_rays
-from esctp1raytracer_tpu_torch.kernels import _build, rt_mxu
+from esctp1raytracer_tpu_torch.kernels import _build, fused_pallas, lane_pallas, rt_mxu
 from esctp1raytracer_tpu_torch.parallel.sharding import float_params, merge_params
-from esctp1raytracer_tpu_torch.scene.builders import bench_scene
+from esctp1raytracer_tpu_torch.scene.builders import bench_scene, cornell_box, mixed_scene
 
-WIDTH, HEIGHT = 1920, 1080
-SOURCE = "esctp1raytracer_tpu_torch/csrc/rt_mxu.cu"
-KERNELS = {  # wrapper in kernels/rt_mxu.py: (its plain version, the TPU kernel it replaces)
-    "mxu_kernel": (rt_mxu._mxu_search_plain, "esctp1raytracer_tpu/kernels/rt_mxu.py:153"),
-    "mxu_occl_kernel": (rt_mxu._mxu_occl_plain, "esctp1raytracer_tpu/kernels/rt_mxu.py:215"),
+CSRC = "esctp1raytracer_tpu_torch/csrc/"
+TPU = "esctp1raytracer_tpu/kernels/"
+# wrapper name: (module, plain version, its CUDA source, the TPU kernel it replaces)
+KERNELS = {
+    "mxu_kernel": (rt_mxu, rt_mxu._mxu_search_plain, "rt_mxu.cu", TPU + "rt_mxu.py:153"),
+    "mxu_occl_kernel": (rt_mxu, rt_mxu._mxu_occl_plain, "rt_mxu.cu", TPU + "rt_mxu.py:215"),
+    "fused_kernel": (fused_pallas, fused_pallas._fused_plain, "fused.cu",
+                     TPU + "fused_pallas.py:162"),
+    "lane_kernel": (lane_pallas, lane_pallas._lane_search_plain, "lane.cu",
+                    TPU + "lane_pallas.py:69"),
 }
+SOURCES = ("rt_mxu", "lane", "fused")
 
 
 def check(ok, msg):
@@ -67,6 +95,20 @@ def cuda_ms(fn, iters=1):
     return start.elapsed_time(end) / iters
 
 
+def wrapper(name):
+    return getattr(KERNELS[name][0], name)
+
+
+def reset_counts():
+    for name in KERNELS:
+        wrapper(name).launches = 0
+
+
+def read_counts():
+    torch.cuda.synchronize()
+    return {name: wrapper(name).launches for name in KERNELS}
+
+
 def device_phase():
     check(torch.cuda.is_available(),
           "torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
@@ -84,93 +126,233 @@ def device_phase():
 
 def build_phase():
     t0 = time.perf_counter()
-    rt_mxu._lib()
-    lib = _build.build("rt_mxu")
-    say(f"build: {time.perf_counter() - t0:.2f} s -> {lib.name}")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            say("  ptxas:", line.strip())
+    with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source, in parallel
+        libs = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
+    for mod in (rt_mxu, lane_pallas, fused_pallas):
+        mod._lib()
+    say(f"build: {time.perf_counter() - t0:.2f} s (three sources in parallel)")
+    for name, lib in libs.items():
+        say(f"  {lib.name}")
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                say("    ptxas:", line.strip())
 
 
-def capture_wavefronts(o, d, scene, ids, cfg):
-    """The primary and shadow wavefronts of one forward of the frame, as the
-    search and occlusion hooks receive them: {name: (o, d, tris, eps, t_limit)}."""
-    seen = {}
+def camera(eye, w, h, dev):
+    return Camera.look_at(eye, (0.0, 1.0, 0.0), vfov=60.0, aspect=w / h, device=dev)
 
-    def search(oo, dd, tris, eps, t_limit=None):
-        seen["primary"] = (oo, dd, tris, eps, t_limit)
-        return rt_mxu.mxu_tile_search(oo, dd, tris, eps, t_limit)
 
-    def occlusion(oo, dd, t_limit, tris, eps):
-        seen["shadow"] = (oo, dd, tris, eps, t_limit)
-        return rt_mxu.mxu_tile_occlusion(oo, dd, t_limit, tris, eps)
+def rays(cam, w, h):
+    o, d = (x.reshape(-1, 3).contiguous() for x in cam.ray_grid(w, h))
+    return o, d, torch.arange(o.shape[0], dtype=torch.int64, device=o.device)
 
-    search.occlusion = occlusion
+
+# --------------------------------------------------------------------------
+# Phase 3: each kernel against its plain version on its main path's inputs
+# --------------------------------------------------------------------------
+
+
+def capture_wavefronts(o, d, scene, ids, cfg, search, occlusion=None):
+    """The wavefronts the search and occlusion hooks receive in one forward,
+    in call order: [(occl, o, d, tris, eps, t_limit), ...], with occl False
+    for a closest-hit search and True for an any-hit query."""
+    seen = []
+
+    def spy(oo, dd, tris, eps, t_limit=None):
+        seen.append((False, oo, dd, tris, eps, t_limit))
+        return search(oo, dd, tris, eps, t_limit)
+
+    if occlusion is not None:
+        def occl(oo, dd, t_limit, tris, eps):
+            seen.append((True, oo, dd, tris, eps, t_limit))
+            return occlusion(oo, dd, t_limit, tris, eps)
+
+        spy.occlusion = occl
     with torch.no_grad():
-        trace_rays(o, d, scene, ids, cfg, tri_search=search)
+        trace_rays(o, d, scene, ids, cfg, tri_search=spy)
     torch.cuda.synchronize()
     return seen
 
 
-def kernel_args(seen):
-    """Each kernel's arguments, packed from the wavefronts the way
-    mxu_tile_search / mxu_tile_occlusion pack them (one segment here)."""
-    args = {}
+def search_agreement(name, out_k, out_p):
+    """Closest-hit outputs (t, idx) of a kernel and of its plain version, held
+    to the bars of the JAX package's tests: winners agree on >= 99.9% of the
+    rays, and t to a relative 1e-5 where they agree. Returns (agreement,
+    max abs t error, max relative t error, hit share)."""
+    (t_k, i_k), (t_p, i_p) = out_k, out_p
+    same = i_k == i_p
+    agree = same.float().mean().item()
+    hit = same & (t_p < 1e29)
+    err = (t_k - t_p).abs()[hit]
+    max_abs = err.max().item() if err.numel() else 0.0
+    rel = (err / t_p[hit].abs().clamp(min=1.0)).max().item() if err.numel() else 0.0
+    check(agree >= 0.999, f"{name}: winner agreement {agree} < 0.999")
+    check(rel < 1e-5, f"{name}: relative t error {rel} >= 1e-5")
+    return agree, max_abs, rel, (i_k >= 0).float().mean().item()
+
+
+def time_pair(name, fn_k, fn_p, iters_k, iters_p, card, what):
+    fn_k()
+    ms = cuda_ms(fn_k, iters_k)
+    plain_ms = cuda_ms(fn_p, iters_p)
+    say(f"{name} [{what}]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms  [{card}]")
+    return ms, plain_ms
+
+
+def mxtile_args(wavefront):
+    """K1's or K2's arguments on one captured wavefront: (wrapper name, args)."""
+    occl, oo, dd, tris, eps, t_limit = wavefront
+    (tfq, aabbs, _), = list(rt_mxu._segments(tris, occl)[0])
+    rf, gids, cnt, tl, _, _ = rt_mxu._prep_mxu(oo, dd, aabbs, t_limit)
+    eps = rt_mxu._eps_tensor(eps, oo.device)
+    if occl:
+        return "mxu_occl_kernel", (eps, gids, cnt, rf, tl, tfq)
+    return "mxu_kernel", (eps, gids, cnt, rf, tfq)
+
+
+def mxtile_agreement(name, args, label):
+    """K1 or K2 against its plain version on args, with the bars of the JAX
+    package's tests (K2: occlusion agrees on >= 99.9% of the rays). Returns
+    (agreement, max abs error, max relative t error or None, hit share)."""
+    out_k, out_p = wrapper(name)(*args), KERNELS[name][1](*args)
+    if name == "mxu_kernel":
+        return search_agreement(label, out_k, out_p)
+    agree = (out_k == out_p).float().mean().item()
+    check(agree >= 0.999, f"{label}: occlusion agreement {agree} < 0.999")
+    return agree, float((out_k - out_p).abs().max().item()), None, out_k.float().mean().item()
+
+
+def mxtile_kernels(card, seen, results):
+    """K1 and K2 on the flagship's camera and shadow wavefronts."""
     with torch.no_grad():
-        for attr, wave, occl in (("mxu_kernel", "primary", False),
-                                 ("mxu_occl_kernel", "shadow", True)):
-            oo, dd, tris, eps, t_limit = seen[wave]
-            (tfq, aabbs, _), = list(rt_mxu._segments(tris, occl)[0])
-            rf, gids, cnt, tl, _, _ = rt_mxu._prep_mxu(oo, dd, aabbs, t_limit)
-            eps = rt_mxu._eps_tensor(eps, oo.device)
-            args[attr] = (eps, gids, cnt, rf, tl, tfq) if occl else (eps, gids, cnt, rf, tfq)
-    torch.cuda.synchronize()
-    return args
+        for wavefront in seen[:2]:
+            name, args = mxtile_args(wavefront)
+            agree, max_abs, rel, share = mxtile_agreement(name, args, name)
+            if rel is None:
+                say(f"{name}: occlusion agrees {agree:.6f}, occluded {share:.4f}")
+            else:
+                say(f"{name}: winners agree {agree:.6f}, max abs t err {max_abs:.3e}, "
+                    f"max rel t err {rel:.3e}, hits {share:.4f}")
+            gids, cnt = args[1], args[2]
+            say(f"{name}: groups {gids.shape[0]}, blocks {gids.shape[1]}, mean list "
+                f"{cnt.float().mean().item():.2f} (max {int(cnt.max())})")
+            ms, plain_ms = time_pair(name, lambda: wrapper(name)(*args),
+                                     lambda: KERNELS[name][1](*args), 20, 2, card,
+                                     "flagship 1080p")
+            results[name].update(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                                 at="flagship 1920x1080, depth 1")
 
 
-def kernel_phase(card, seen):
-    captured = kernel_args(seen)
-    results = {}
-    for name, (plain, replaces) in KERNELS.items():
-        args = captured[name]
-        wrapper = getattr(rt_mxu, name)
-        out_k = wrapper(*args)
-        torch.cuda.synchronize()
-        out_p = plain(*args)
-        torch.cuda.synchronize()
-        g, nsub = args[1].shape
-        cnt = args[2]
-        if name == "mxu_kernel":
-            (t_k, i_k), (t_p, i_p) = out_k, out_p
-            same = i_k == i_p
-            agree = same.float().mean().item()
-            hit = same & (t_p < 1e29)
-            err = (t_k - t_p).abs()[hit]
-            max_abs = err.max().item() if err.numel() else 0.0
-            rel = (err / t_p[hit].abs().clamp(min=1.0)).max().item() if err.numel() else 0.0
-            say(f"{name}: winners agree {agree:.6f}, max abs t err {max_abs:.3e}, "
-                f"max rel t err {rel:.3e}, hits {(i_k >= 0).float().mean().item():.4f}")
-            check(agree >= 0.999, f"{name}: winner agreement {agree} < 0.999")
-            check(rel < 1e-5, f"{name}: relative t error {rel} >= 1e-5")
+def mxtile_backward_kernels(card, scene, cam, w, h, cfg, results):
+    """K1 and K2 on every wavefront of config 4's backward re-derivation:
+    `_bwd_cfg`'s chunked mxtile, each 262,144-ray chunk of the frame's camera
+    rays and their reflections at bounces 0-3. Every wavefront is held
+    against the plain versions; the first of each kernel in the chunk that
+    holds the frame's centre is timed."""
+    o, d, ids = rays(cam, w, h)
+    fb = fused_pallas._bwd_cfg(scene, cfg, o.shape[0])
+    check(fb.backend == "mxtile" and fb.ray_chunk > 0,
+          f"config 4's backward runs {fb.backend!r} in chunks of {fb.ray_chunk}, "
+          "not chunked mxtile")
+    chunk, centre = fb.ray_chunk, o.shape[0] // 2
+    stats = {name: dict(wavefronts=0, min_agreement=1.0, max_abs_err=0.0)
+             for name in ("mxu_kernel", "mxu_occl_kernel")}
+    for i in range(0, o.shape[0], chunk):
+        sl = slice(i, i + chunk)
+        seen = capture_wavefronts(o[sl], d[sl], scene, ids[sl], fb.replace(ray_chunk=0),
+                                  rt_mxu.mxu_tile_search, rt_mxu.mxu_tile_occlusion)
+        line, bounce = [], -1
+        with torch.no_grad():
+            for wavefront in seen:
+                name, args = mxtile_args(wavefront)
+                bounce += name == "mxu_kernel"
+                label = f"{name} [config 4 backward, rays {i}+, bounce {bounce}]"
+                agree, max_abs, rel, share = mxtile_agreement(name, args, label)
+                s = stats[name]
+                s["wavefronts"] += 1
+                s["min_agreement"] = min(s["min_agreement"], agree)
+                s["max_abs_err"] = max(s["max_abs_err"], max_abs)
+                line.append(f"b{bounce} {'K2' if rel is None else 'K1'} {agree:.6f}"
+                            + ("" if rel is None else f"/{rel:.1e}") + f"/{share:.3f}")
+                if "ms" not in s and i <= centre < i + chunk:
+                    s["ms"], s["plain_ms"] = time_pair(
+                        name, lambda: wrapper(name)(*args), lambda: KERNELS[name][1](*args),
+                        20, 2, card, f"config 4 backward, rays {i}+, bounce {bounce}")
+        say(f"config 4 backward, rays {i}+ (agreement/rel t err/hit or occluded share): "
+            + ", ".join(line))
+    for name, s in stats.items():
+        check(s["wavefronts"] > 0, f"config 4's backward gave {name} no wavefront")
+        results[name]["config4_backward"] = dict(
+            s, at=f"config 4 backward, {-(-o.shape[0] // chunk)} chunks of {chunk} rays "
+                  f"x {cfg.depth} bounces")
+        say(f"{name} [config 4 backward]: {s['wavefronts']} wavefronts, min agreement "
+            f"{s['min_agreement']:.6f}, max abs err {s['max_abs_err']:.3e}")
+
+
+def lane_kernels(card, o, d, scene, ids, results):
+    """K4 on the Cornell frame's camera and shadow wavefronts (lane route)."""
+    seen = capture_wavefronts(o, d, scene, ids, RenderConfig(backend="lane"),
+                              lane_pallas.lane_tri_search)
+    check(len(seen) == 2, f"lane route made {len(seen)} searches, want 2 (camera, shadow)")
+    plain = KERNELS["lane_kernel"][1]
+    for k, what in enumerate(("camera", "shadow")):
+        _, oo, dd, tris, eps, _ = seen[k]
+        with torch.no_grad():
+            args = (torch.tensor([eps], dtype=torch.float32, device=oo.device),
+                    lane_pallas.valid_prefix(tris.valid),
+                    lane_pallas.lane_tri_constants(tris).contiguous(),
+                    oo.contiguous(), dd.contiguous())
+            agree, max_abs, rel, share = search_agreement(
+                f"lane_kernel ({what})", lane_pallas.lane_kernel(*args), plain(*args))
+            say(f"lane_kernel ({what}): winners agree {agree:.6f}, max abs t err {max_abs:.3e}, "
+                f"max rel t err {rel:.3e}, hits {share:.4f}")
+            ms, plain_ms = time_pair("lane_kernel", lambda: lane_pallas.lane_kernel(*args),
+                                     lambda: plain(*args), 20, 3, card,
+                                     f"Cornell 1024x768 {what} wavefront")
+        entry = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+        if what == "camera":
+            results["lane_kernel"].update(entry, at="Cornell 1024x768 camera wavefront")
         else:
-            agree = (out_k == out_p).float().mean().item()
-            max_abs = float((out_k - out_p).abs().max().item())
-            say(f"{name}: occlusion agrees {agree:.6f}, occluded {out_k.float().mean().item():.4f}")
-            check(agree >= 0.999, f"{name}: occlusion agreement {agree} < 0.999")
-        ms = cuda_ms(lambda: wrapper(*args), 20)
-        plain_ms = cuda_ms(lambda: plain(*args), 2)
-        say(f"{name}: groups {g}, blocks {nsub}, mean list {cnt.float().mean().item():.2f} "
-            f"(max {int(cnt.max())}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms  [{card}]")
-        results[name] = {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-                         "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
-    return results
+            results["lane_kernel"]["shadow_wavefront"] = entry
 
 
-def main_path_phase(card, o, d, scene, cfg, results):
-    check(resolve_backend(RenderConfig(backend="auto"), scene) == "mxtile",
-          "backend 'auto' does not resolve to mxtile on the benchmark scene")
-    num_rays = o.shape[0]
-    ids = torch.arange(num_rays, dtype=torch.int64, device=o.device)
+def fused_kernel_check(card, o, d, scene, ids, cfg, what, iters_p=1):
+    """K3 on a whole frame: the image bars of tests/test_fused.py."""
+    with torch.no_grad():
+        tables = [t.contiguous() for t in fused_pallas.fused_tables(scene)]
+        kw = dict(seed=cfg.seed, eps=float(cfg.eps), shadow_eps=float(cfg.shadow_eps),
+                  depth=cfg.depth, lights=scene.lights.num_lights, faces=scene.lights.max_faces)
+        a = fused_pallas.fused_kernel(o, d, ids, *tables, **kw)
+        p = fused_pallas._fused_plain(o, d, ids, *tables, **kw)
+        diff = (a - p).abs()
+        flipped = diff.amax(dim=1) > 1e-2
+        share = flipped.float().mean().item()
+        rest = diff[~flipped].max().item()
+        max_abs = diff.max().item()
+        g = tables[4].shape[1] // 6
+        say(f"fused_kernel [{what}]: G {g}, depth {cfg.depth}; pixels off by > 1e-2: "
+            f"{share:.6f}, max abs err of the rest {rest:.3e}, max abs err "
+            f"{max_abs:.3e}, image mean {a.mean().item():.4f}")
+        check(bool(torch.isfinite(a).all()), f"fused_kernel [{what}]: non-finite pixel")
+        check(share <= 2e-3, f"fused_kernel [{what}]: {share} of pixels flipped > 0.002")
+        check(rest <= 3e-5, f"fused_kernel [{what}]: max abs err {rest} > 3e-5")
+        ms, plain_ms = time_pair("fused_kernel", lambda: fused_pallas.fused_kernel(o, d, ids,
+                                                                                  *tables, **kw),
+                                 lambda: fused_pallas._fused_plain(o, d, ids, *tables, **kw),
+                                 10, iters_p, card, what)
+    return dict(max_abs_err=max_abs, max_abs_err_unflipped=rest, ms=ms, plain_ms=plain_ms,
+                flipped_share=share)
+
+
+# --------------------------------------------------------------------------
+# Phase 4: the main paths
+# --------------------------------------------------------------------------
+
+
+def make_step(scene, o, d, ids, cfg):
+    """step(i, backward): one frame of the rays with their ids shifted by i,
+    through `trace_rays`, and the gradient of sum(color^2) with respect to
+    every float scene leaf -> (color, loss, grads or None)."""
     base = float_params(scene)
 
     def step(i, backward=True):
@@ -183,53 +365,73 @@ def main_path_phase(card, o, d, scene, cfg, results):
         return color, loss, [torch.zeros_like(p) if g is None else g
                              for p, g in zip(params, grads)]
 
-    for name in KERNELS:
-        getattr(rt_mxu, name).launches = 0
-    color, loss, grads = step(0)
-    torch.cuda.synchronize()
-    launches = {name: getattr(rt_mxu, name).launches for name in KERNELS}
-    say(f"main path fwd+bwd: launches {launches}, loss {loss.item():.6e}")
-    for attr, n in launches.items():
-        check(n > 0, f"{attr} was not launched by the main path")
-        results[attr]["launches"] = n
-    check(tuple(color.shape) == (num_rays, 3), f"color shape {tuple(color.shape)}")
-    check(bool(torch.isfinite(color).all()), "non-finite pixel")
-    check(color.mean().item() > 0.01, "image is black")
-    check(all(bool(torch.isfinite(g).all()) for g in grads), "non-finite gradient")
-    check(sum(bool((g != 0).any()) for g in grads) >= 8, "too few gradients are non-zero")
+    return step
+
+
+def path_phase(card, label, scene, cam, w, h, cfg, expect, fwd_kernels, bwd_kernels, results,
+               min_nonzero=8, small=(192, 108)):
+    """Drive one main path: forward, then fwd+bwd, each with the launch
+    counters reset just before and read just after; checks and timings."""
+    check(resolve_backend(cfg, scene) == expect,
+          f"{label}: backend {cfg.backend!r} resolves to {resolve_backend(cfg, scene)!r}, "
+          f"not {expect!r}")
+    step = make_step(scene, *rays(cam, w, h), cfg)
+    runs = [("forward", fwd_kernels, False)] + ([("fwd+bwd", bwd_kernels, True)]
+                                               if bwd_kernels else [])
+    for what, need, backward in runs:
+        reset_counts()
+        with torch.set_grad_enabled(backward):
+            color, loss, grads = step(0, backward)
+        counts = read_counts()
+        say(f"{label} {what}: launches {counts}, loss {loss.item():.6e}")
+        for name in need:
+            check(counts[name] > 0, f"{label} {what}: {name} was not launched")
+        for name, n in counts.items():
+            results[name]["launches"] += n
+        check(tuple(color.shape) == (w * h, 3), f"{label}: color shape {tuple(color.shape)}")
+        check(bool(torch.isfinite(color).all()), f"{label}: non-finite pixel")
+        check(color.mean().item() > 0.01, f"{label}: image is black")
+        if backward:
+            check(all(bool(torch.isfinite(g).all()) for g in grads), f"{label}: non-finite grad")
+            nonzero = sum(bool((g != 0).any()) for g in grads)
+            say(f"{label}: {nonzero} of {len(grads)} float leaves have a non-zero gradient")
+            check(nonzero >= min_nonzero, f"{label}: {nonzero} non-zero gradients < {min_nonzero}")
 
     # A small frame through the kernels against the plain `jnp` backend.
-    w, h = 192, 108
-    small = Camera.look_at((0.0, 2.0, 6.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=w / h,
-                           device=o.device)
-    a = render(scene, small, w, h, cfg)
-    b = render(scene, small, w, h, cfg.replace(backend="jnp"))
+    sw, sh = small
+    a = render(scene, cam, sw, sh, cfg)
+    b = render(scene, cam, sw, sh, cfg.replace(backend="jnp"))
     diff = (a - b).abs()
-    say(f"small frame vs jnp backend: mean |diff| {diff.mean().item():.3e}, "
+    say(f"{label}: small frame {sw}x{sh} vs jnp backend: mean |diff| {diff.mean().item():.3e}, "
         f"share > 1e-2 {(diff > 1e-2).float().mean().item():.5f}")
     check(diff.mean().item() < 1e-4 and (diff > 1e-2).float().mean().item() < 5e-3,
-          "small frame disagrees with the jnp backend")
+          f"{label}: small frame disagrees with the jnp backend")
 
     with torch.no_grad():
         step(1, backward=False)
         fwd = [cuda_ms(lambda: step(2 + k, backward=False)) for k in range(5)]
-    step(7)
-    torch.cuda.reset_peak_memory_stats()
-    fb = [cuda_ms(lambda: step(8 + k)) for k in range(5)]
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    f_ms, fb_ms = statistics.median(fwd), statistics.median(fb)
-    say(f"forward    : {f_ms:.2f} ms median of {[round(x, 2) for x in fwd]} "
-        f"= {num_rays / f_ms / 1e3:.3f} Mrays/s  [{card}]")
-    say(f"forward+bwd: {fb_ms:.2f} ms median of {[round(x, 2) for x in fb]} "
-        f"= {num_rays / fb_ms / 1e3:.3f} Mrays/s  [{card}]")
-    say(f"peak device memory (fwd+bwd): {peak:.2f} GiB  [{card}]")
+    timing = {"forward_ms": statistics.median(fwd)}
+    say(f"{label} forward    : {timing['forward_ms']:.2f} ms median of "
+        f"{[round(x, 2) for x in fwd]} = {w * h / timing['forward_ms'] / 1e3:.3f} Mrays/s"
+        f"  [{card}]")
+    if bwd_kernels:
+        step(7)
+        torch.cuda.reset_peak_memory_stats()
+        fb = [cuda_ms(lambda: step(8 + k)) for k in range(5)]
+        timing["fwd_bwd_ms"] = statistics.median(fb)
+        timing["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        say(f"{label} forward+bwd: {timing['fwd_bwd_ms']:.2f} ms median of "
+            f"{[round(x, 2) for x in fb]} = {w * h / timing['fwd_bwd_ms'] / 1e3:.3f} Mrays/s"
+            f"  [{card}]")
+        say(f"{label} peak device memory (fwd+bwd): {timing['peak_gib']:.2f} GiB  [{card}]")
+    return timing
 
 
 def layer_phase(card, seen):
-    """Where the forward's time goes: each layer of the search and the
-    occlusion alone on the frame's wavefronts (CUDA events, median of 3)."""
-    po, pd, tris, eps, ptl = seen["primary"]
-    so, sd, _, _, stl = seen["shadow"]
+    """Where the flagship forward's time goes: each layer of the search and
+    the occlusion alone on the frame's wavefronts (CUDA events, median of 3)."""
+    _, po, pd, tris, eps, ptl = seen[0]
+    _, so, sd, _, _, stl = seen[1]
     (_, ab_p, _), = list(rt_mxu._segments(tris, False)[0])
     segs, ov_buf, _ = rt_mxu._segments(tris, True)
     (_, ab_s, _), = list(segs)
@@ -248,20 +450,132 @@ def layer_phase(card, seen):
             say(f"layer {name:34s} {t:8.3f} ms  [{card}]")
 
 
+def fused_layer_phase(card, label, scene, cam, w, h, cfg):
+    """Where a fused path's time goes: the tables, K3 alone, and the
+    backward's re-derivation forward alone on its route (CUDA events,
+    median of 3)."""
+    o, d, ids = rays(cam, w, h)
+    with torch.no_grad():
+        tables = [t.contiguous() for t in fused_pallas.fused_tables(scene)]
+        kw = dict(seed=cfg.seed, eps=float(cfg.eps), shadow_eps=float(cfg.shadow_eps),
+                  depth=cfg.depth, lights=scene.lights.num_lights, faces=scene.lights.max_faces)
+        fb = fused_pallas._bwd_cfg(scene, cfg, o.shape[0])
+        layers = {
+            "fused_tables (per call)": lambda: fused_pallas.fused_tables(scene),
+            "K3 alone": lambda: fused_pallas.fused_kernel(o, d, ids, *tables, **kw),
+            f"backward's re-derivation, forward only ({fb.backend}, chunk {fb.ray_chunk})":
+                lambda: trace_rays(o, d, scene, ids, fb),
+        }
+        for name, fn in layers.items():
+            fn()
+            t = statistics.median(cuda_ms(fn) for _ in range(3))
+            say(f"layer {label}: {name:58s} {t:8.3f} ms  [{card}]")
+
+
+def profile_phase(card, cases):
+    """Where each path's fwd+bwd step goes on the card. Per path: the host's
+    wall time per step without the profiler (median of 3), then one step
+    under torch.profiler: the device operations it ran (kernels, copies,
+    fills), their summed device time, the share of the step's wall time the
+    card was busy (one stream, so the operations do not overlap), and the
+    costliest operations by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for label, (scene, cam, w, h, cfg) in cases.items():
+        step = make_step(scene, *rays(cam, w, h), cfg)
+        step(0)
+        walls = []
+        for k in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(1 + k)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(4)
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - t0) * 1e3
+        ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        check(len(ops) > 0, f"profile {label}: the profiler recorded no device operation")
+        by_name = {}
+        for e in ops:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        busy = sum(ms for ms, _ in by_name.values())
+        wall = statistics.median(walls)
+        say(f"profile {label}: {len(ops)} device operations and {busy:.2f} ms of device time "
+            f"per fwd+bwd step; wall {wall:.2f} ms per step without the profiler (median of "
+            f"{[round(x, 2) for x in walls]}), {prof_wall:.2f} ms under it; device busy "
+            f"{busy / prof_wall:.1%} of the profiled step, {busy / wall:.1%} of the median "
+            f"unprofiled one  [{card}]")
+        for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+            say(f"profile {label}:   {ms:8.2f} ms x {n:5d}  {name[:100]}")
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="instead of the smoke run: build, then profile one fwd+bwd step "
+                             "of the flagship, Cornell and config 4 under torch.profiler")
+    args = parser.parse_args()
     card = device_phase()
     build_phase()
     dev = torch.device("cuda")
-    scene = bench_scene().to(dev)
-    cam = Camera.look_at((0.0, 2.0, 6.0), (0.0, 1.0, 0.0), vfov=60.0,
-                         aspect=WIDTH / HEIGHT, device=dev)
-    o, d = (x.reshape(-1, 3) for x in cam.ray_grid(WIDTH, HEIGHT))
-    ids = torch.arange(o.shape[0], dtype=torch.int64, device=dev)
-    cfg = RenderConfig(backend="auto", ray_chunk=0, block_size=512, depth=1)
-    seen = capture_wavefronts(o, d, scene, ids, cfg)
-    results = kernel_phase(card, seen)
-    main_path_phase(card, o, d, scene, cfg, results)
+    results = {name: {"name": name, "route": "cuda", "source": CSRC + src, "replaces": rep,
+                      "launches": 0}
+               for name, (_, _, src, rep) in KERNELS.items()}
+
+    # Scenes and frames of the four paths.
+    flag = bench_scene().to(dev)
+    flag_cam = camera((0.0, 2.0, 6.0), 1920, 1080, dev)
+    corn = cornell_box().to(dev)
+    corn_cam = camera((0.0, 1.0, 2.0), 1024, 768, dev)
+    mixed = mixed_scene().to(dev)
+    mixed_cam = camera((0.0, 2.5, 7.0), 1920, 1080, dev)
+    auto = RenderConfig(backend="auto")
+    d4 = auto.replace(depth=4)
+    if args.profile:
+        profile_phase(card, {"flagship": (flag, flag_cam, 1920, 1080, auto),
+                             "Cornell": (corn, corn_cam, 1024, 768, auto),
+                             "config 4": (mixed, mixed_cam, 1920, 1080, d4)})
+        return
+
+    # Phase 3: kernels vs plain versions on their paths' inputs.
+    o, d, ids = rays(flag_cam, 1920, 1080)
+    seen = capture_wavefronts(o, d, flag, ids, auto, rt_mxu.mxu_tile_search,
+                              rt_mxu.mxu_tile_occlusion)
+    mxtile_kernels(card, seen, results)
+    o, d, ids = rays(corn_cam, 1024, 768)
+    results["fused_kernel"].update(fused_kernel_check(card, o, d, corn, ids, auto,
+                                                      "Cornell 1024x768, depth 1"),
+                                   at="Cornell 1024x768, depth 1")
+    lane_kernels(card, o, d, corn, ids, results)
+    o, d, ids = rays(mixed_cam, 1920, 1080)
+    results["fused_kernel"]["config4"] = fused_kernel_check(
+        card, o, d, mixed, ids, d4, "config 4, mixed 1920x1080, depth 4")
+    del o, d, ids
+    mxtile_backward_kernels(card, mixed, mixed_cam, 1920, 1080, d4, results)
+
+    # Phase 4: the main paths.
+    k12, k3 = ["mxu_kernel", "mxu_occl_kernel"], ["fused_kernel"]
+    paths = {
+        "flagship": path_phase(card, "flagship", flag, flag_cam, 1920, 1080, auto, "mxtile",
+                               k12, k12, results),
+        # Cornell's float leaves that can carry gradient: v0, v1, v2, ka, kd, ks, ke.
+        "cornell": path_phase(card, "Cornell", corn, corn_cam, 1024, 768, auto, "fused", k3,
+                              k3 + ["lane_kernel"], results, min_nonzero=7, small=(128, 96)),
+        "config4": path_phase(card, "config 4", mixed, mixed_cam, 1920, 1080, d4, "fused", k3,
+                              k3 + k12, results),
+        "cornell_reference_cpp": path_phase(
+            card, "Cornell reference_cpp", corn, corn_cam, 1024, 768,
+            auto.replace(light_mode="reference_cpp"), "lane", ["lane_kernel"], None, results,
+            small=(128, 96)),
+    }
     layer_phase(card, seen)
+    fused_layer_phase(card, "Cornell", corn, corn_cam, 1024, 768, auto)
+    fused_layer_phase(card, "config 4", mixed, mixed_cam, 1920, 1080, d4)
+    say(json.dumps({"paths": paths}))
     say(json.dumps({"kernels": [results[name] for name in KERNELS]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,11 @@
 
 The package mirrors the JAX package's module paths and public names. It
 imports `torch` and `numpy` only; its CUDA kernels (`csrc/`) are built
-with nvcc at first use and bound with ctypes. Ported so far: the slice
-that renders and differentiates the benchmark workload on the `jnp`,
-`mxu` and `mxtile` backends (see ROADMAP.md for what is still to port).
+with nvcc at first use and bound with ctypes. Ported so far: rendering
+and differentiating on the `jnp`, `mxu`, `mxtile`, `lane` and `fused`
+backends (and `auto` wherever it resolves to one of them), both light
+modes, and the benchmark, Cornell and BASELINE config 1, 2 and 4 scenes
+(see ROADMAP.md for what is still to port).
 """
 
 from esctp1raytracer_tpu_torch.scene.types import (
@@ -17,7 +19,15 @@ from esctp1raytracer_tpu_torch.scene.types import (
     scene_from_numpy,
     scene_to_numpy,
 )
-from esctp1raytracer_tpu_torch.scene.builders import bench_scene, scene_from_mesh
+from esctp1raytracer_tpu_torch.scene.builders import (
+    bench_scene,
+    cornell_box,
+    cornell_variant,
+    mixed_scene,
+    scene_from_mesh,
+    sphere_plane_scene,
+    ten_sphere_scene,
+)
 from esctp1raytracer_tpu_torch.core.camera import Camera
 from esctp1raytracer_tpu_torch.core.render import RenderConfig, render, trace_rays
 
@@ -32,6 +42,11 @@ __all__ = [
     "scene_to_numpy",
     "scene_from_mesh",
     "bench_scene",
+    "cornell_box",
+    "cornell_variant",
+    "mixed_scene",
+    "sphere_plane_scene",
+    "ten_sphere_scene",
     "Camera",
     "render",
     "trace_rays",

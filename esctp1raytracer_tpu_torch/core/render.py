@@ -5,11 +5,15 @@ Counterpart of `esctp1raytracer_tpu/core/render.py`, with the same
 
   "jnp"    — broadcast Möller–Trumbore over the padded table (tensor ops);
   "mxu"    — the same search as the feature contraction (tensor ops);
-  "mxtile" — the hand-written CUDA search kernels (kernels/rt_mxu.py);
-  "auto"   — the fused whole-frame kernel when eligible, else by size;
-  "lane", "tile", "fused" — kernels not ported yet: they raise
-  NotImplementedError naming their ROADMAP.md entry, and so does "auto"
-  whenever it resolves to one of them. No backend quietly runs another.
+  "mxtile" — the hand-written CUDA search kernels K1/K2 (kernels/rt_mxu.py);
+  "lane"   — the ray-lane CUDA search kernel K4 (kernels/lane_pallas.py);
+  "fused"  — the whole-frame CUDA kernel K3 (kernels/fused_pallas.py) when
+             `fused_supported`, else the lane/tile fallback;
+  "auto"   — fused when eligible, else lane < 4096 triangles <= mxtile <=
+             32,768 < tile;
+  "tile"   — not ported yet: it raises NotImplementedError naming its
+             ROADMAP.md entry, and so does "auto" whenever it resolves to
+             it. No backend quietly runs another.
 """
 
 from __future__ import annotations
@@ -22,19 +26,13 @@ import torch
 from esctp1raytracer_tpu_torch.core.camera import Camera
 from esctp1raytracer_tpu_torch.core.intersect import EPS, any_hit, closest_hit
 from esctp1raytracer_tpu_torch.core.shading import shade
-from esctp1raytracer_tpu_torch.kernels import rt_mxu
+from esctp1raytracer_tpu_torch.kernels import lane_pallas, rt_mxu
+from esctp1raytracer_tpu_torch.kernels.fused_pallas import (
+    _fallback_cfg, fused_supported, fused_trace_diff,
+)
 from esctp1raytracer_tpu_torch.scene.types import Scene
 
-# The fused whole-frame kernel's static gate (esctp1raytracer_tpu/kernels/
-# fused_pallas.py:fused_supported), copied so routing matches the JAX package.
-FUSED_TRI_LIMIT = 2048
-FUSED_DEPTH_LIMIT = 4
-FUSED_SPHERE_LIMIT = 32
-FUSED_LIGHT_FACE_LIMIT = 64
-
 _NOT_PORTED = {
-    "fused": "ROADMAP.md Queue 2, K3 (kernels/fused_pallas.py whole-frame kernel)",
-    "lane": "ROADMAP.md Queue 2, K4 (kernels/lane_pallas.py ray-lane kernel)",
     "tile": "ROADMAP.md Queue 2, K5/K6 (kernels/rt_tile.py tile kernels)",
 }
 
@@ -55,23 +53,6 @@ class RenderConfig:
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
-
-
-def fused_supported(scene: Scene, depth: int, light_mode: str) -> bool:
-    """Static gate of the fused whole-frame kernel (pure Python on shapes)."""
-    return (
-        1 <= depth <= FUSED_DEPTH_LIMIT
-        and light_mode == "area"
-        and scene.lights.num_lights >= 1
-        and scene.triangles.capacity <= FUSED_TRI_LIMIT
-        and scene.spheres.capacity <= FUSED_SPHERE_LIMIT
-        and scene.lights.num_lights * scene.lights.max_faces <= FUSED_LIGHT_FACE_LIMIT
-    )
-
-
-def _fallback_cfg(scene: Scene, cfg: RenderConfig) -> RenderConfig:
-    """The non-fused backend for an explicit "fused" the gate refuses."""
-    return cfg.replace(backend="lane" if scene.triangles.capacity <= 4096 else "tile")
 
 
 def _auto_backend(scene: Scene = None) -> str:
@@ -115,6 +96,8 @@ def _search_fns(cfg: RenderConfig, scene: Scene = None):
         raise _not_ported(backend)
     if backend == "mxtile":
         return rt_mxu.mxu_tile_search, True
+    if backend == "lane":
+        return lane_pallas.lane_tri_search, True
     if backend == "mxu":
         return None, True
     if backend == "jnp":
@@ -130,10 +113,6 @@ def trace_rays(o, d, scene: Scene, ray_ids: torch.Tensor, cfg: RenderConfig,
     reflections. With cfg.ray_chunk > 0 the rays go through in chunks of
     that size; the counter-based RNG makes the result chunk-independent.
     """
-    if cfg.light_mode != "area":
-        raise NotImplementedError(
-            f"light_mode={cfg.light_mode!r} is not ported yet (ROADMAP.md Queue 1, "
-            "item 6: core/shading.py reference_cpp sampling)")
     r = o.shape[0]
     if cfg.ray_chunk and cfg.ray_chunk < r:
         inner = cfg.replace(ray_chunk=0)
@@ -141,12 +120,14 @@ def trace_rays(o, d, scene: Scene, ray_ids: torch.Tensor, cfg: RenderConfig,
                              ray_ids[i:i + cfg.ray_chunk], inner, tri_search)
                   for i in range(0, r, cfg.ray_chunk)]
         return torch.cat(chunks)
-    if tri_search is None:
-        if resolve_backend(cfg, scene) == "fused":
-            raise _not_ported("fused")
-        backend = _canon_backend(cfg.backend)
-        if backend == "fused":  # the gate refused: the lane/tile fallback
+    if _canon_backend(cfg.backend) in ("fused", "auto"):
+        if tri_search is None and fused_supported(scene, cfg.depth, cfg.light_mode):
+            # The whole-frame kernel, differentiable through its backward's
+            # re-derivation on a non-fused route.
+            return fused_trace_diff(o, d, scene, ray_ids, cfg)
+        if cfg.backend == "fused":  # refused by the gate, or a search is injected
             cfg = _fallback_cfg(scene, cfg)
+    if tri_search is None:
         tri_search, use_mxu = _search_fns(cfg, scene)
     else:  # an injected search replaces the backend's own
         use_mxu = _canon_backend(cfg.backend) != "jnp"

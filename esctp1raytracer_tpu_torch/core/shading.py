@@ -1,7 +1,8 @@
 """Phong/Blinn shading with sampled area lights and shadow rays.
 
-Counterpart of `esctp1raytracer_tpu/core/shading.py` (area-light mode):
-per light source, one random face and one parallelogram point on it, a
+Counterpart of `esctp1raytracer_tpu/core/shading.py`, both light modes:
+per light source, one random face and one parallelogram point on it (or
+the reference C++ path's corner point, light_mode="reference_cpp"), a
 shadow ray from the backed-off hit point, and
 (ka*0.5 + ke)/L + (kd*max(d,0) + ks*dot(N,H)^Ns)/L where the light is
 visible and d > 0. Draws come from the counter-based hash on the global
@@ -88,13 +89,14 @@ def sample_lights(scene: Scene, seed: int, ray_ids: torch.Tensor, bounce: int = 
                   mode: str = "area") -> Tuple[torch.Tensor, torch.Tensor, int]:
     """One sample point per (ray, light source): (P [R, L, 3], light_tri [R, L], L).
 
-    Random face of the source, then the parallelogram point
+    mode="area": random face of the source, then the parallelogram point
     v0 + (v1-v0) r1 + (v2-v0) r2, with stream ids (bounce*1024 + l)*4.
+    mode="reference_cpp": the reference C++ path's degenerate sampling
+    (quirk 2): the drawn face id indexes the de-indexed corner array, so P
+    is corner `face % 3` of face `face // 3`; r1 and r2 are drawn, unused.
     """
-    if mode != "area":
-        raise NotImplementedError(
-            f"light_mode={mode!r} is not ported yet (ROADMAP.md Queue 1, item 6: "
-            "core/shading.py reference_cpp sampling)")
+    if mode not in ("area", "reference_cpp"):
+        raise ValueError(f"unknown light_mode {mode!r}")
     lights = scene.lights
     L = lights.num_lights
     num_rays = ray_ids.shape[0]
@@ -111,10 +113,17 @@ def sample_lights(scene: Scene, seed: int, ray_ids: torch.Tensor, bounce: int = 
 
     # tri_idx [L, F]; want [R, L] = tri_idx[l, face[r, l]].
     F = lights.max_faces
-    tri = torch.gather(lights.tri_idx[None].expand(num_rays, L, F), 2,
-                       face[:, :, None].long())[:, :, 0]
+    tri_idx = lights.tri_idx[None].expand(num_rays, L, F)
+    tri = torch.gather(tri_idx, 2, face[:, :, None].long())[:, :, 0]
 
     tris = scene.triangles
+    if mode == "reference_cpp":
+        src_tri = torch.gather(tri_idx, 2, (face // 3)[:, :, None].long())[:, :, 0]
+        corner = (face % 3)[:, :, None]
+        p = torch.where(corner == 0, take_rows(tris.v0, src_tri),
+                        torch.where(corner == 1, take_rows(tris.v1, src_tri),
+                                    take_rows(tris.v2, src_tri)))
+        return p, tri, L
     light_packed = torch.cat([tris.v0, tris.v1, tris.v2], dim=1)
     if L * F <= 16:
         # Small light tables: gather the [L, F, 9] corners once and pick

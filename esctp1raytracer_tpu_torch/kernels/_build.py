@@ -6,6 +6,11 @@ sources and flags, so an edit rebuilds) and loads it with ctypes. The
 ptxas report (registers, shared memory, spills) is kept beside the
 library as `<name>-<hash>.log`. Nothing is built when a module is
 imported, and nothing but the repository's own sources goes in.
+
+Every source exports `<name>_error_string(int)`, and every entry point
+returns cudaGetLastError(): `check_launch` raises on a refused launch.
+`check_tensors` validates a wrapper's tensors before their pointers go
+to the kernel.
 """
 
 from __future__ import annotations
@@ -22,6 +27,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # No -use_fast_math: the kernels need IEEE division.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# Per-source flags. The lane and fused kernels round every product and sum
+# on its own, as their plain PyTorch versions do: contracted FMAs moved
+# last-ulp values that four bounces of reflections grew past the image bar.
+SOURCE_FLAGS = {"lane": ["-fmad=false"], "fused": ["-fmad=false"]}
 
 
 def _nvcc() -> str:
@@ -38,7 +47,8 @@ def _nvcc() -> str:
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu unless an up-to-date library exists; returns its path."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = NVCC_FLAGS + SOURCE_FLAGS.get(name, [])
+    digest = hashlib.sha256(" ".join(flags).encode())
     for dep in sorted(CSRC.glob("*.cu*")):
         digest.update(dep.name.encode() + dep.read_bytes())
     lib = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
@@ -46,7 +56,7 @@ def build(name: str) -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
@@ -57,4 +67,26 @@ def build(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu."""
-    return ctypes.CDLL(str(build(name)))
+    lib = ctypes.CDLL(str(build(name)))
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return lib
+
+
+def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
+    """Raise if an entry point of csrc/<name>.cu returned a CUDA error."""
+    if err:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+
+
+def check_tensors(want: dict, device) -> None:
+    """Raise ValueError unless each {name: (tensor, dtype, shape)} lies on
+    `device` with that dtype and shape, contiguous."""
+    for name, (x, dtype, shape) in want.items():
+        if x.device != device or x.dtype != dtype or tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{name}: want {dtype} {tuple(shape)} on {device}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")

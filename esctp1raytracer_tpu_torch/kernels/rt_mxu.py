@@ -166,8 +166,6 @@ def _lib():
         for fn in (lib.rt_mxu_search, lib.rt_mxu_occl):
             fn.argtypes = [vp] * 7 + [ci, ci, vp]
             fn.restype = ci
-        lib.rt_mxu_error_string.argtypes = [ci]
-        lib.rt_mxu_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
 
@@ -183,12 +181,7 @@ def _check(eps, ids, cnt, rf, tfq, tl=None):
             "tfq": (tfq, torch.float32, (nsub, 16, 4 * SUB))}
     if tl is not None:
         want["tl"] = (tl, torch.float32, (g, RAY_TILE))
-    for name, (x, dtype, shape) in want.items():
-        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(f"{name}: want {dtype} {shape} on {dev}, "
-                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _build.check_tensors(want, dev)
     if rf.data_ptr() % 16 or tfq.data_ptr() % 16:
         raise ValueError("rf and tfq must be 16-byte aligned (float4 loads)")
     return g, nsub
@@ -196,10 +189,7 @@ def _check(eps, ids, cnt, rf, tfq, tl=None):
 
 def _launch(fn, tensors, g, nsub, device):
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(*(t.data_ptr() for t in tensors), g, nsub, stream)
-    if err:
-        msg = _lib().rt_mxu_error_string(err).decode()
-        raise RuntimeError(f"mxtile kernel launch failed: {msg} ({err})")
+    _build.check_launch(_lib(), "rt_mxu", fn(*(t.data_ptr() for t in tensors), g, nsub, stream))
 
 
 def mxu_kernel(eps, ids, cnt, rf, tfq):

@@ -1,17 +1,19 @@
-"""Scene flattening + the procedural builders the benchmark scene needs.
+"""Scene flattening + procedural scene builders.
 
 Host-side numpy, ported from `esctp1raytracer_tpu/scene/builders.py`:
 `scene_from_mesh` flattens meshes into one padded SoA triangle table with
 per-triangle material and a compacted light-face table; `icosphere_mesh`,
 `_ground_plane`, `_area_light` and `make_spheres` build the pieces.
-`bench_scene()` is the benchmark workload's scene (two subdivision-4
-icospheres, a ground plane and an area light: 10,244 triangles, 10,752
-once padded). Tables are built on the CPU; move them with `.to(device)`.
+Scenes: `bench_scene()` (the benchmark workload: two subdivision-4
+icospheres, a ground plane and an area light, 10,244 triangles), the
+Cornell box and its variants (`cornell_box`, `cornell_variant`), and the
+BASELINE configs 1, 2 and 4 (`sphere_plane_scene`, `ten_sphere_scene`,
+`mixed_scene`). Tables are built on the CPU; move them with `.to(device)`.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -151,6 +153,206 @@ def _quad_mesh(name: str, quad: Sequence[Sequence[float]], material: Material) -
     return MeshData(name=name, vertices=tris, normals=None, uv=None, material=material)
 
 
+# --- Canonical Cornell box (public-domain data, Williams College 2011) ----
+
+_CORNELL_MATERIALS = {
+    "floor": Material.make(ka=(0.725, 0.71, 0.68), kd=(0.725, 0.71, 0.68), ns=10.0),
+    "ceiling": Material.make(ka=(0.725, 0.71, 0.68), kd=(0.725, 0.71, 0.68), ns=10.0),
+    "backWall": Material.make(ka=(0.725, 0.71, 0.68), kd=(0.725, 0.71, 0.68), ns=10.0),
+    "rightWall": Material.make(ka=(0.14, 0.45, 0.091), kd=(0.14, 0.45, 0.091), ns=10.0),
+    "leftWall": Material.make(ka=(0.63, 0.065, 0.05), kd=(0.63, 0.065, 0.05), ns=10.0),
+    "shortBox": Material.make(ka=(0.725, 0.71, 0.68), kd=(0.725, 0.71, 0.68), ns=10.0),
+    "tallBox": Material.make(ka=(0.725, 0.71, 0.68), kd=(0.725, 0.71, 0.68), ns=10.0),
+    "light": Material.make(ka=(0.78, 0.78, 0.78), kd=(0.78, 0.78, 0.78),
+                           ke=(17.0, 12.0, 4.0), ns=10.0),
+}
+
+_CORNELL_QUADS: List[Tuple[str, Tuple]] = [
+    ("floor", ((-1.01, 0.0, 0.99), (1.0, 0.0, 0.99), (1.0, 0.0, -1.04), (-0.99, 0.0, -1.04))),
+    ("ceiling", ((-1.02, 1.99, 0.99), (-1.02, 1.99, -1.04), (1.0, 1.99, -1.04), (1.0, 1.99, 0.99))),
+    ("backWall", ((-0.99, 0.0, -1.04), (1.0, 0.0, -1.04), (1.0, 1.99, -1.04), (-1.02, 1.99, -1.04))),
+    ("rightWall", ((1.0, 0.0, -1.04), (1.0, 0.0, 0.99), (1.0, 1.99, 0.99), (1.0, 1.99, -1.04))),
+    ("leftWall", ((-1.01, 0.0, 0.99), (-0.99, 0.0, -1.04), (-1.02, 1.99, -1.04), (-1.02, 1.99, 0.99))),
+    ("shortBox", ((0.53, 0.6, 0.75), (0.7, 0.6, 0.17), (0.13, 0.6, 0.0), (-0.05, 0.6, 0.57))),
+    ("shortBox", ((-0.05, 0.0, 0.57), (-0.05, 0.6, 0.57), (0.13, 0.6, 0.0), (0.13, 0.0, 0.0))),
+    ("shortBox", ((0.53, 0.0, 0.75), (0.53, 0.6, 0.75), (-0.05, 0.6, 0.57), (-0.05, 0.0, 0.57))),
+    ("shortBox", ((0.7, 0.0, 0.17), (0.7, 0.6, 0.17), (0.53, 0.6, 0.75), (0.53, 0.0, 0.75))),
+    ("shortBox", ((0.13, 0.0, 0.0), (0.13, 0.6, 0.0), (0.7, 0.6, 0.17), (0.7, 0.0, 0.17))),
+    ("shortBox", ((0.53, 0.0, 0.75), (0.7, 0.0, 0.17), (0.13, 0.0, 0.0), (-0.05, 0.0, 0.57))),
+    ("tallBox", ((-0.53, 1.2, 0.09), (0.04, 1.2, -0.09), (-0.14, 1.2, -0.67), (-0.71, 1.2, -0.49))),
+    ("tallBox", ((-0.53, 0.0, 0.09), (-0.53, 1.2, 0.09), (-0.71, 1.2, -0.49), (-0.71, 0.0, -0.49))),
+    ("tallBox", ((-0.71, 0.0, -0.49), (-0.71, 1.2, -0.49), (-0.14, 1.2, -0.67), (-0.14, 0.0, -0.67))),
+    ("tallBox", ((-0.14, 0.0, -0.67), (-0.14, 1.2, -0.67), (0.04, 1.2, -0.09), (0.04, 0.0, -0.09))),
+    ("tallBox", ((0.04, 0.0, -0.09), (0.04, 1.2, -0.09), (-0.53, 1.2, 0.09), (-0.53, 0.0, 0.09))),
+    ("tallBox", ((-0.53, 0.0, 0.09), (0.04, 0.0, -0.09), (-0.14, 0.0, -0.67), (-0.71, 0.0, -0.49))),
+    ("light", ((-0.24, 1.98, 0.16), (-0.24, 1.98, -0.22), (0.23, 1.98, -0.22), (0.23, 1.98, 0.16))),
+]
+
+
+def _quad_tris(quads) -> np.ndarray:
+    """Fan-triangulate quads into [2 * len(quads), 3, 3] corners."""
+    tris = []
+    for q in quads:
+        qa = np.asarray(q, np.float32)
+        tris.append(qa[[0, 1, 2]])
+        tris.append(qa[[0, 2, 3]])
+    return np.stack(tris)
+
+
+def cornell_meshes(faithful_shapes: bool = True) -> List[MeshData]:
+    """The Cornell-Original scene as MeshData.
+
+    faithful_shapes=True keeps the reference loader's shape grouping of
+    CornellBox-Original.obj: the shortBox quads precede their `g` statement
+    and land in the leftWall shape (a red short box), and the "shortBox"
+    shape holds the tallBox quads with the tallBox material.
+    """
+    if not faithful_shapes:
+        return _cornell_shell()
+    shape_plan = [
+        ("floor", ["floor"], "floor"),
+        ("ceiling", ["ceiling"], "ceiling"),
+        ("backWall", ["backWall"], "backWall"),
+        ("rightWall", ["rightWall"], "rightWall"),
+        ("leftWall", ["leftWall", "shortBox"], "leftWall"),
+        ("shortBox", ["tallBox"], "tallBox"),
+        ("light", ["light"], "light"),
+    ]
+    return [MeshData(name=shape, uv=None, normals=None, material=_CORNELL_MATERIALS[mat],
+                     vertices=_quad_tris([q for n, q in _CORNELL_QUADS if n in members]))
+            for shape, members, mat in shape_plan]
+
+
+def cornell_box(pad_multiple: int = DEFAULT_PAD_MULTIPLE,
+                faithful_shapes: bool = True) -> Scene:
+    """The canonical benchmark scene: 36 triangles, one area light."""
+    return scene_from_mesh(cornell_meshes(faithful_shapes), pad_multiple=pad_multiple)
+
+
+# --- Cornell variants (procedural equivalents of the reference's model files)
+
+_MIRROR_MATERIAL = Material.make(  # CornellBox-Mirror.mtl tallBox
+    ka=(0.01, 0.01, 0.01), kd=(0.01, 0.01, 0.01), ks=(0.95, 0.95, 0.95), ns=1000.0)
+_GLOSSY_MATERIAL = Material.make(  # CornellBox-Glossy.mtl shortBox
+    ka=(0.525, 0.51, 0.48), kd=(0.525, 0.51, 0.48), ks=(0.8, 0.8, 0.8), ns=40.0)
+_WATER_MATERIAL = Material.make(  # CornellBox-Water.mtl water
+    ka=(0.01, 0.01, 0.01), kd=(0.30, 0.30, 0.70), ks=(0.01, 0.01, 0.01), ns=200.0)
+_LEFT_SPHERE_MATERIAL = Material.make(  # CornellBox-Sphere.mtl leftSphere
+    ka=(0.01, 0.01, 0.01), kd=(0.01, 0.01, 0.01), ks=(0.95, 0.95, 0.95), ns=1024.0)
+_RIGHT_SPHERE_MATERIAL = Material.make(  # CornellBox-Sphere.mtl rightSphere
+    ka=(0.01, 0.01, 0.01), kd=(0.30, 0.30, 0.30), ks=(0.01, 0.01, 0.01), ns=1024.0)
+_WHITE_LIGHT = Material.make(ka=(0.78, 0.78, 0.78), kd=(0.78, 0.78, 0.78),
+                             ke=(10.0, 10.0, 10.0), ns=10.0)
+
+
+def _wall(rgb, ns=10.0):
+    return Material.make(ka=rgb, kd=rgb, ns=ns)
+
+
+# Wall/light swaps of the empty-box variants (walls + light panel, no boxes).
+_EMPTY_OVERRIDES = {
+    "empty_co": {  # orange left wall, cyan right wall
+        "leftWall": _wall((0.953, 0.357, 0.212)),
+        "rightWall": _wall((0.486, 0.631, 0.663)),
+        "light": _WHITE_LIGHT,
+    },
+    "empty_rg": {},  # original red/green walls, original light
+    "empty_white": {
+        **{g: _wall((1.0, 1.0, 1.0))
+           for g in ("floor", "ceiling", "backWall", "leftWall", "rightWall")},
+        "light": _WHITE_LIGHT,
+    },
+    "empty_squashed": {  # red left wall, blue right wall
+        "rightWall": _wall((0.161, 0.133, 0.427)),
+        "light": _WHITE_LIGHT,
+    },
+}
+
+
+def _cornell_shell(material_overrides=None, drop_groups=()) -> List[MeshData]:
+    """Cornell meshes (clean grouping) with per-group material swaps."""
+    overrides = material_overrides or {}
+    order = []
+    for name, _ in _CORNELL_QUADS:
+        if name not in drop_groups and name not in order:
+            order.append(name)
+    return [MeshData(name=name, normals=None, uv=None,
+                     vertices=_quad_tris([q for n, q in _CORNELL_QUADS if n == name]),
+                     material=overrides.get(name, _CORNELL_MATERIALS[name]))
+            for name in order]
+
+
+def water_surface_mesh(n: int = 64, amplitude: float = 0.05, y: float = 0.35,
+                       extent: float = 0.99,
+                       material: Optional[Material] = None) -> MeshData:
+    """A sine-wave water heightfield with analytic smooth normals."""
+    mat = material or _WATER_MATERIAL
+    xs = np.linspace(-extent, extent, n + 1, dtype=np.float32)
+    zs = np.linspace(-extent, extent, n + 1, dtype=np.float32)
+    X, Z = np.meshgrid(xs, zs, indexing="ij")
+    kx, kz = np.float32(2.5 * np.pi), np.float32(2.0 * np.pi)
+    Y = y + amplitude * np.sin(kx * X) * np.cos(kz * Z)
+    dYdx = amplitude * kx * np.cos(kx * X) * np.cos(kz * Z)
+    dYdz = -amplitude * kz * np.sin(kx * X) * np.sin(kz * Z)
+    P = np.stack([X, Y, Z], axis=-1).astype(np.float32)  # [n+1, n+1, 3]
+    N = np.stack([-dYdx, np.ones_like(Y), -dYdz], axis=-1)
+    N = (N / np.linalg.norm(N, axis=-1, keepdims=True)).astype(np.float32)
+
+    def corners(A):
+        a, b, c, d = A[:-1, :-1], A[1:, :-1], A[1:, 1:], A[:-1, 1:]
+        t1 = np.stack([a, b, c], axis=2)
+        t2 = np.stack([a, c, d], axis=2)
+        return np.concatenate([t1, t2], axis=2).reshape(-1, 3, A.shape[-1])
+
+    return MeshData(name="water", vertices=corners(P), normals=corners(N), uv=None,
+                    material=mat)
+
+
+CORNELL_VARIANTS = ("original", "mirror", "glossy", "sphere", "water", "empty_co",
+                    "empty_rg", "empty_white", "empty_squashed", "empty_nolight")
+
+
+def cornell_variant(name: str = "original") -> Scene:
+    """Procedural equivalents of the reference's Cornell model variants.
+
+    original | mirror (tallBox -> 0.95 specular, Ns 1000) | glossy (shortBox
+    -> 0.8 specular, Ns 40) | sphere (boxes -> two analytic spheres) | water
+    (boxes -> dense sine heightfield) | empty_co / empty_rg / empty_white
+    (walls + light, no boxes) | empty_squashed (y squash + shallow water) |
+    empty_nolight (no emissive geometry).
+    """
+    if name == "original":
+        return cornell_box()
+    if name == "mirror":
+        return scene_from_mesh(_cornell_shell({"tallBox": _MIRROR_MATERIAL}))
+    if name == "glossy":
+        return scene_from_mesh(_cornell_shell({"shortBox": _GLOSSY_MATERIAL}))
+    no_boxes = ("shortBox", "tallBox")
+    if name == "sphere":
+        spheres = make_spheres(
+            centers=[(0.446, 0.332, 0.377), (-0.42, 0.33, -0.3)],
+            radii=[0.325, 0.325],
+            materials=[_LEFT_SPHERE_MATERIAL, _RIGHT_SPHERE_MATERIAL],
+        )
+        return scene_from_mesh(_cornell_shell(drop_groups=no_boxes), spheres=spheres)
+    if name == "water":
+        return scene_from_mesh(_cornell_shell(drop_groups=no_boxes) + [water_surface_mesh()])
+    if name in _EMPTY_OVERRIDES:
+        meshes = _cornell_shell(_EMPTY_OVERRIDES[name], drop_groups=no_boxes)
+        if name == "empty_squashed":
+            ys = np.asarray([1.0, 1.59 / 1.99, 1.0], np.float32)
+            meshes = [MeshData(name=m.name, vertices=m.vertices * ys, normals=None, uv=None,
+                               material=m.material) for m in meshes]
+            meshes.append(water_surface_mesh(n=16, amplitude=0.02, y=0.22))
+        return scene_from_mesh(meshes)
+    if name == "empty_nolight":
+        return scene_from_mesh(_cornell_shell(drop_groups=no_boxes + ("light",)))
+    raise ValueError(f"unknown cornell variant {name!r}; expected one of "
+                     + "|".join(CORNELL_VARIANTS))
+
+
+# --- BASELINE.json procedural configs -------------------------------------
+
 def _ground_plane(y: float = 0.0, half: float = 50.0,
                   material: Optional[Material] = None) -> MeshData:
     mat = material or Material.make(ka=(0.5, 0.5, 0.5), kd=(0.5, 0.5, 0.5), ns=10.0)
@@ -167,6 +369,34 @@ def _area_light(center=(0.0, 5.0, 0.0), half: float = 1.0,
     )
     mat = Material.make(ka=(0.78, 0.78, 0.78), kd=(0.78, 0.78, 0.78), ke=ke, ns=10.0)
     return _quad_mesh("light", quad, mat)
+
+
+def sphere_plane_scene() -> Scene:
+    """BASELINE config 1: single sphere + ground plane (256², depth 1)."""
+    spheres = make_spheres(
+        centers=[(0.0, 1.0, 0.0)],
+        radii=[1.0],
+        materials=[Material.make(ka=(0.7, 0.2, 0.2), kd=(0.7, 0.2, 0.2),
+                                 ks=(0.2, 0.2, 0.2), ns=32.0)],
+    )
+    meshes = [_ground_plane(), _area_light(center=(0.0, 6.0, 2.0), half=1.5)]
+    return scene_from_mesh(meshes, spheres=spheres)
+
+
+def ten_sphere_scene(seed: int = 0) -> Scene:
+    """BASELINE config 2: 10-sphere Phong scene with shadows (512², depth 2)."""
+    rng = np.random.RandomState(seed)
+    centers, radii, mats = [], [], []
+    for i in range(10):
+        angle = 2.0 * np.pi * i / 10.0
+        r = 0.35 + 0.25 * rng.rand()
+        centers.append((3.0 * np.cos(angle), r, 3.0 * np.sin(angle)))
+        radii.append(r)
+        color = rng.rand(3).astype(np.float32) * 0.7 + 0.2
+        mats.append(Material.make(ka=color, kd=color, ks=(0.3, 0.3, 0.3), ns=64.0))
+    spheres = make_spheres(centers, radii, mats)
+    meshes = [_ground_plane(), _area_light(center=(0.0, 7.0, 0.0), half=2.0)]
+    return scene_from_mesh(meshes, spheres=spheres)
 
 
 def icosphere_mesh(subdivisions: int = 4, radius: float = 1.0,
@@ -216,6 +446,31 @@ def icosphere_mesh(subdivisions: int = 4, radius: float = 1.0,
     mat = material or Material.make(ka=(0.4, 0.4, 0.7), kd=(0.4, 0.4, 0.7),
                                     ks=(0.3, 0.3, 0.3), ns=32.0)
     return MeshData(name="icosphere", vertices=tri, normals=normals, uv=None, material=mat)
+
+
+def mixed_scene() -> Scene:
+    """BASELINE config 4: spheres + mesh, depth-4 reflections, differentiable
+    (1,284 triangles, 1,536 once padded; 3 spheres)."""
+    spheres = make_spheres(
+        centers=[(2.2, 0.8, 0.0), (-2.2, 0.6, 0.5), (0.0, 0.5, 2.4)],
+        radii=[0.8, 0.6, 0.5],
+        materials=[
+            Material.make(ka=(0.2, 0.2, 0.25), kd=(0.3, 0.3, 0.35),
+                          ks=(0.7, 0.7, 0.7), ns=128.0),
+            Material.make(ka=(0.6, 0.2, 0.2), kd=(0.6, 0.2, 0.2),
+                          ks=(0.3, 0.3, 0.3), ns=32.0),
+            Material.make(ka=(0.2, 0.5, 0.2), kd=(0.2, 0.5, 0.2),
+                          ks=(0.4, 0.4, 0.4), ns=64.0),
+        ],
+    )
+    meshes = [
+        icosphere_mesh(subdivisions=3, radius=0.9, center=(0.0, 0.9, -1.5),
+                       material=Material.make(ka=(0.4, 0.4, 0.7), kd=(0.4, 0.4, 0.7),
+                                              ks=(0.5, 0.5, 0.5), ns=64.0)),
+        _ground_plane(),
+        _area_light(center=(0.0, 7.0, 1.0), half=2.0),
+    ]
+    return scene_from_mesh(meshes, spheres=spheres)
 
 
 def bench_scene() -> Scene:

@@ -2,12 +2,15 @@
 
 Marked `cuda`: a CUDA kernel has no CPU mode, so these skip where
 `torch.cuda.is_available()` is false. On a machine with the card:
-`python -m pytest tests/test_torch_cuda.py -q` (builds the kernels with
-nvcc at first use). Bars as in tests/test_torch_rt_mxu.py: winner
-agreement >= 99.9% and relative t error < 1e-5 where winners agree
-(CUDA-core FMAs vs a float32 bmm sum in other orders); occlusion
-agreement >= 99.9%; the rendered image within the test_rt_mxu.py image
-bars of the CPU port.
+`python -m pytest --noconftest tests/test_torch_cuda.py -q` (builds the
+kernels with nvcc at first use). Bars:
+* K1, K4 (tests/test_torch_rt_mxu.py): winner agreement >= 99.9% and t
+  within 1e-5 of max(|t|, 1) where winners agree (FMA-contracted sums vs
+  the plain version's separately rounded ones); K2: occlusion agreement
+  >= 99.9%;
+* K3 (tests/test_fused.py:38-46): at most 0.2% of pixels off by more than
+  1e-2, the rest within 3e-5;
+* rendered images within the test_rt_mxu.py image bars of the CPU port.
 """
 
 import numpy as np
@@ -18,7 +21,8 @@ torch = pytest.importorskip("torch")
 from esctp1raytracer_tpu_torch.core.camera import Camera  # noqa: E402
 from esctp1raytracer_tpu_torch.core.intersect import EPS, closest_hit  # noqa: E402
 from esctp1raytracer_tpu_torch.core.render import RenderConfig, render  # noqa: E402
-from esctp1raytracer_tpu_torch.kernels import rt_mxu  # noqa: E402
+from esctp1raytracer_tpu_torch.kernels import fused_pallas, lane_pallas, rt_mxu  # noqa: E402
+from esctp1raytracer_tpu_torch.parallel.sharding import float_params, merge_params  # noqa: E402
 from esctp1raytracer_tpu_torch.scene import builders as b  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -104,3 +108,94 @@ def test_wrapper_rejects_bad_inputs(dev, scene):
         rt_mxu.mxu_kernel(eps, ids, cnt, rf, tfq.transpose(1, 2).contiguous().transpose(1, 2))
     with pytest.raises(ValueError, match="tfq"):
         rt_mxu.mxu_kernel(eps, ids, cnt, rf, tfq.cpu())
+
+
+CORNELL_CAM = Camera.look_at((0.0, 1.0, 2.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=4 / 3)
+MIXED_CAM = Camera.look_at((0.0, 2.5, 7.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=4 / 3)
+
+
+def _lane_args(scene, o, d):
+    tris = scene.triangles
+    return (torch.tensor([EPS], device=o.device), lane_pallas.valid_prefix(tris.valid),
+            lane_pallas.lane_tri_constants(tris).contiguous(), o.contiguous(), d.contiguous())
+
+
+@pytest.mark.parametrize("name", ["cornell", "icospheres"])
+def test_lane_kernel_matches_plain(dev, scene, name):
+    sc = (b.cornell_box() if name == "cornell" else scene).to(dev)
+    cam = CORNELL_CAM if name == "cornell" else CAM
+    o, d = (x.reshape(-1, 3) for x in cam.to(dev).ray_grid(160, 117))  # not a block multiple
+    args = _lane_args(sc, o, d)
+    n0 = lane_pallas.lane_kernel.launches
+    t, idx = lane_pallas.lane_kernel(*args)
+    torch.cuda.synchronize()
+    assert lane_pallas.lane_kernel.launches == n0 + 1
+    t2, idx2 = lane_pallas._lane_search_plain(*args)
+    same = idx == idx2
+    assert same.float().mean().item() >= 0.999
+    rel = (t - t2).abs()[same] / t2.abs()[same].clamp(min=1.0)
+    assert rel.max().item() < 1e-5
+    assert (idx >= 0).float().mean().item() > 0.3
+
+
+@pytest.mark.parametrize("name,cam,depth", [("cornell", CORNELL_CAM, 1),
+                                            ("mixed", MIXED_CAM, 4),
+                                            ("mirror", CORNELL_CAM, 2)])
+def test_fused_kernel_matches_plain(dev, name, cam, depth):
+    build = {"cornell": b.cornell_box, "mixed": b.mixed_scene,
+             "mirror": lambda: b.cornell_variant("mirror")}[name]
+    sc = build().to(dev)
+    o, d = (x.reshape(-1, 3).contiguous() for x in cam.to(dev).ray_grid(96, 71))
+    ids = torch.arange(o.shape[0], device=dev) + 5
+    tables = [t.contiguous() for t in fused_pallas.fused_tables(sc)]
+    kw = dict(seed=1, eps=EPS, shadow_eps=1e-4, depth=depth, lights=sc.lights.num_lights,
+              faces=sc.lights.max_faces)
+    n0 = fused_pallas.fused_kernel.launches
+    a = fused_pallas.fused_kernel(o, d, ids, *tables, **kw)
+    torch.cuda.synchronize()
+    assert fused_pallas.fused_kernel.launches == n0 + 1
+    p = fused_pallas._fused_plain(o, d, ids, *tables, **kw)
+    a, p = a.cpu().numpy(), p.cpu().numpy()
+    assert np.isfinite(a).all() and a.sum() > 1.0
+    diff = np.abs(a - p).max(-1)
+    flipped = diff > 1e-2
+    assert flipped.mean() <= 2e-3 and np.abs(a - p)[~flipped].max() <= 3e-5
+
+
+def test_fused_route_on_card_matches_cpu_and_differentiates(dev):
+    scene = b.cornell_box()
+    cfg = RenderConfig(backend="auto")
+    a = render(scene, CORNELL_CAM, 48, 36, cfg).numpy()
+    n0 = (fused_pallas.fused_kernel.launches, lane_pallas.lane_kernel.launches)
+    sc = scene.to(dev)
+    params = [p.detach().clone().requires_grad_(True) for p in float_params(sc)]
+    o, d = (x.reshape(-1, 3) for x in CORNELL_CAM.to(dev).ray_grid(48, 36))
+    from esctp1raytracer_tpu_torch.core.render import trace_rays
+
+    color = trace_rays(o, d, merge_params(sc, params), torch.arange(o.shape[0], device=dev), cfg)
+    grads = torch.autograd.grad((color * color).sum(), params)
+    torch.cuda.synchronize()
+    assert fused_pallas.fused_kernel.launches == n0[0] + 1
+    assert lane_pallas.lane_kernel.launches > n0[1]  # the backward's lane route
+    diff = np.abs(color.detach().cpu().numpy().reshape(36, 48, 3) - a)
+    assert diff.mean() < 1e-4 and (diff > 1e-2).mean() < 5e-3
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert sum(bool((g != 0).any()) for g in grads) >= 6
+
+
+def test_lane_and_fused_wrappers_reject_bad_inputs(dev):
+    sc = b.cornell_box().to(dev)
+    o, d = (x.reshape(-1, 3).contiguous() for x in CORNELL_CAM.to(dev).ray_grid(16, 16))
+    eps, n, tcs, o, d = _lane_args(sc, o, d)
+    with pytest.raises(ValueError, match="n_tris"):
+        lane_pallas.lane_kernel(eps, n.long(), tcs, o, d)
+    with pytest.raises(ValueError, match="tcs"):
+        lane_pallas.lane_kernel(eps, n, tcs.cpu(), o, d)
+    tables = [t.contiguous() for t in fused_pallas.fused_tables(sc)]
+    kw = dict(seed=0, eps=EPS, shadow_eps=1e-4, depth=1, lights=1, faces=2)
+    with pytest.raises(ValueError, match="limits"):
+        fused_pallas.fused_kernel(o, d, torch.arange(256, device=dev), *tables,
+                                  **dict(kw, depth=5))
+    with pytest.raises(ValueError, match="counts"):
+        fused_pallas.fused_kernel(o, d, torch.arange(256, device=dev), *tables[:5],
+                                  tables[5].long(), tables[6], **kw)

@@ -32,9 +32,21 @@ scene = b.scene_from_mesh([b.icosphere_mesh(1, 1.0, (0.0, 1.0, 0.0)), b._ground_
 cam = rt.Camera.look_at((0.0, 2.0, 6.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=1.0)
 img = rt.render(scene, cam, 16, 12, rt.RenderConfig(backend="mxtile"))
 assert img.shape == (12, 16, 3) and bool(torch.isfinite(img).all()) and float(img.max()) > 0
-# The render went through the kernel wrappers' CPU path: no launch counted.
+# The fused route (auto), differentiated: its backward takes the lane route.
+from esctp1raytracer_tpu_torch.kernels import fused_pallas, lane_pallas
+from esctp1raytracer_tpu_torch.parallel.sharding import float_params, merge_params
+
+corn = rt.cornell_box()
+params = [p.clone().requires_grad_(True) for p in float_params(corn)]
+ccam = rt.Camera.look_at((0.0, 1.0, 2.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=4 / 3)
+cimg = rt.render(merge_params(corn, params), ccam, 16, 12, rt.RenderConfig(backend="auto"))
+(cimg * cimg).sum().backward()
+assert float(cimg.max()) > 0 and all(bool(torch.isfinite(p.grad).all())
+                                     for p in params if p.grad is not None)
+# The renders went through the kernel wrappers' CPU path: no launch counted.
 assert rt_mxu.mxu_kernel.launches == 0 and rt_mxu.mxu_occl_kernel.launches == 0
-assert rt_mxu._LIB is None  # nothing was built or loaded
+assert fused_pallas.fused_kernel.launches == 0 and lane_pallas.lane_kernel.launches == 0
+assert rt_mxu._LIB is None and fused_pallas._LIB is None and lane_pallas._LIB is None
 
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "jaxlib", "esctp1raytracer_tpu.")))

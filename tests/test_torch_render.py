@@ -169,16 +169,52 @@ def test_resolve_backend_matches_jax(capacity, lit, spheres, over, expected):
     assert pr.resolve_backend(pr.RenderConfig(**over), ps) == expected
 
 
-@pytest.mark.parametrize("over,match", [
-    (dict(backend="auto"), "K3"),           # lit, <= 2048 triangles, depth 1
-    (dict(backend="fused"), "K3"),
-    (dict(backend="lane"), "K4"),
-    (dict(backend="tile"), "K5"),
-    (dict(backend="auto", depth=5), "K4"),  # auto falls to the lane kernel
-    (dict(backend="mxtile", light_mode="reference_cpp"), "reference_cpp"),
-])
-def test_unported_routes_raise(scenes, over, match):
+def test_unported_routes_raise(scenes):
     _, ps = scenes
     _, pc = cameras(8, 6)
-    with pytest.raises(NotImplementedError, match=match):
-        pr.render(ps, pc, 8, 6, pr.RenderConfig(**over))
+    with pytest.raises(NotImplementedError, match="K5"):
+        pr.render(ps, pc, 8, 6, pr.RenderConfig(backend="tile"))
+
+
+def _same_rays_frames(js, ps, w, h, over, eye=VIEW["lookfrom"]):
+    """JAX and port traces of the same rays (JAX's camera, as numpy)."""
+    cam = JCamera.look_at(eye, VIEW["lookat"], vfov=VIEW["vfov"], aspect=w / h)
+    o, d = (np.array(x).reshape(-1, 3) for x in cam.ray_grid(w, h))
+    ids = np.arange(o.shape[0])
+    a = np.asarray(j_trace_rays(jnp.asarray(o), jnp.asarray(d), js,
+                                jnp.asarray(ids, jnp.uint32), JRenderConfig(**over)))
+    b = pr.trace_rays(torch.from_numpy(o), torch.from_numpy(d), ps, torch.from_numpy(ids),
+                      pr.RenderConfig(**over)).numpy()
+    return a, b
+
+
+@pytest.mark.parametrize("over,route", [
+    (dict(backend="auto"), "fused"),           # lit, <= 2048 triangles, depth 1
+    (dict(backend="fused"), "fused"),
+    (dict(backend="lane"), "lane"),
+    (dict(backend="auto", depth=5), "lane"),  # past the fused depth limit
+    (dict(backend="mxtile", light_mode="reference_cpp"), "mxtile"),
+])
+def test_ported_routes_match_jax(scenes, over, route):
+    """The routes that raised before K3, K4 and reference_cpp sampling were
+    ported now render, and agree with JAX (tests/test_fused.py's bars)."""
+    js, ps = scenes
+    assert pr.resolve_backend(pr.RenderConfig(**over), ps) == route
+    a, b = _same_rays_frames(js, ps, 16, 12, over)
+    assert np.isfinite(b).all() and b.max() > 0.1
+    diff = np.abs(a - b).max(-1)
+    flipped = diff > 1e-2
+    assert flipped.mean() <= 2e-3 and np.abs(a - b)[~flipped].max() <= 3e-5
+
+
+@pytest.mark.parametrize("backend", ["jnp", "lane"])
+def test_reference_cpp_sampling_matches_jax(backend):
+    """light_mode="reference_cpp" (the C++ path's corner sampling, quirk 2)
+    on the Cornell box: the image of the reference's golden renders."""
+    js = jb.cornell_box()
+    ps = to_port(js)
+    over = dict(backend=backend, light_mode="reference_cpp")
+    a, b = _same_rays_frames(js, ps, 20, 15, over, eye=(0.0, 1.0, 2.0))
+    assert_images_agree(a, b)
+    area, _ = _same_rays_frames(js, ps, 20, 15, dict(backend=backend), eye=(0.0, 1.0, 2.0))
+    assert np.abs(area - b).max() > 1e-2  # corner samples, not area samples

@@ -78,6 +78,21 @@ class TestScene:
         assert int(ps.triangles.valid.sum()) == 10_244
         assert_same_tables(jax_leaves(js), scene_to_numpy(ps))
 
+    @pytest.mark.parametrize("build", [
+        "cornell_box", "cornell_box_clean",
+        *(f"cornell_variant:{v}" for v in pb.CORNELL_VARIANTS),
+        "sphere_plane_scene", "ten_sphere_scene", "mixed_scene",
+    ])
+    def test_scene_builders_match_jax(self, build):
+        name, _, arg = build.partition(":")
+        if name == "cornell_box_clean":
+            js, ps = jb.cornell_box(faithful_shapes=False), pb.cornell_box(faithful_shapes=False)
+        elif arg:
+            js, ps = getattr(jb, name)(arg), getattr(pb, name)(arg)
+        else:
+            js, ps = getattr(jb, name)(), getattr(pb, name)()
+        assert_same_tables(jax_leaves(js), scene_to_numpy(ps))
+
     def test_numpy_round_trip(self):
         js = jb.scene_from_mesh(_meshes(jb))
         d = jax_leaves(js)
