@@ -15,32 +15,45 @@ C. BASELINE config 4: mixed_scene(), 1920x1080, depth 4: "auto" resolves
    to K3, whose backward re-derives the frame through chunked mxtile (K1,
    K2);
 D. the Cornell box with light_mode="reference_cpp", 1024x768, forward:
-   "auto" resolves to the lane kernel K4.
+   "auto" resolves to the lane kernel K4;
+E. BASELINE config 5: random_scene(100_000) (100,004 triangles, 784
+   sub-blocks of 128), 3840x2160, depth 1: "auto" resolves to the tile
+   kernels K5 (camera rays) and K6 (shadow rays); forward and fwd+bwd
+   each run the 8,294,400-ray frame as one wavefront;
+F. random_scene(500_000), 1920x1080, depth 1: "auto" resolves to tile,
+   through four 131,072-triangle segments (`_sliced`).
 
 Phases, any failure exits non-zero (no phase catches its own failure):
 1. device: needs a CUDA device (there is no CPU path); prints the card's
    name and power limit (nvidia-smi), the torch and CUDA versions, and
    turns TF32 off;
-2. build: builds the three CUDA sources from csrc/ with nvcc, one process
+2. build: builds the four CUDA sources from csrc/ with nvcc, one process
    each, all started together; prints each kernel's registers, spills
    and shared memory;
 3. kernels: each kernel against its plain PyTorch version on the inputs
    its main paths give it, with the bars of the JAX package's tests, and
    the time of each (CUDA events): K1/K2 on the flagship's wavefronts and
    on every wavefront of config 4's chunked backward, K3 on the Cornell
-   and config-4 frames, K4 on Cornell's camera and shadow wavefronts;
-4. main paths A-D: for each, every kernel's launch counter set to 0 just
+   and config-4 frames, K4 on Cornell's camera and shadow wavefronts, K5
+   and K6 on config 5's camera and shadow wavefronts and, per segment, on
+   the 500k soup's (the kernel on the whole wavefront, held against the
+   plain version on a 262,144-ray slice across the horizon rows, where the
+   lists are longest; for the 500k soup, the plain segments combined are
+   also held against the entry points' own output); the layers of config
+   5's forward timed alone;
+4. main paths A-F: for each, every kernel's launch counter set to 0 just
    before a run and read just after (forward, then forward + backward),
    checks (finite, non-black image, finite gradients, counters > 0, a
    small frame agreeing with the plain `jnp` backend), then forward and
    fwd+bwd times from CUDA events (median of 5, ray ids varied per
    iteration) and the peak device memory; the layers of the flagship's
    forward, and of the Cornell and config-4 steps, timed alone;
-5. prints {"kernels": [...]} and, as the last line, the result line.
+5. prints the wall time, {"kernels": [...]} and, as the last line, the
+   result line.
 
 Usage: python3 chip_smoke.py   (from the repository root)
        python3 chip_smoke.py --profile   (instead: one fwd+bwd step each of
-       the flagship, Cornell and config 4 under torch.profiler: device
+       the flagship, Cornell, config 4 and config 5 under torch.profiler: device
        operations, device time, busy share of the step, costliest kernels)
 """
 
@@ -56,9 +69,11 @@ import torch
 
 from esctp1raytracer_tpu_torch.core.camera import Camera
 from esctp1raytracer_tpu_torch.core.render import RenderConfig, render, resolve_backend, trace_rays
-from esctp1raytracer_tpu_torch.kernels import _build, fused_pallas, lane_pallas, rt_mxu
+from esctp1raytracer_tpu_torch.kernels import _build, fused_pallas, lane_pallas, rt_mxu, rt_tile
 from esctp1raytracer_tpu_torch.parallel.sharding import float_params, merge_params
-from esctp1raytracer_tpu_torch.scene.builders import bench_scene, cornell_box, mixed_scene
+from esctp1raytracer_tpu_torch.scene.builders import (
+    bench_scene, cornell_box, mixed_scene, random_scene,
+)
 
 CSRC = "esctp1raytracer_tpu_torch/csrc/"
 TPU = "esctp1raytracer_tpu/kernels/"
@@ -70,8 +85,12 @@ KERNELS = {
                      TPU + "fused_pallas.py:162"),
     "lane_kernel": (lane_pallas, lane_pallas._lane_search_plain, "lane.cu",
                     TPU + "lane_pallas.py:69"),
+    "tile_kernel": (rt_tile, rt_tile._tile_search_plain, "rt_tile.cu", TPU + "rt_tile.py:241"),
+    "tile_occl_kernel": (rt_tile, rt_tile._tile_occl_plain, "rt_tile.cu",
+                         TPU + "rt_tile.py:328"),
 }
-SOURCES = ("rt_mxu", "lane", "fused")
+SOURCES = ("rt_mxu", "lane", "fused", "rt_tile")
+TILE_SLICE = 262_144  # rays of config 5's wavefronts held against the plain versions
 
 
 def check(ok, msg):
@@ -128,9 +147,9 @@ def build_phase():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source, in parallel
         libs = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
-    for mod in (rt_mxu, lane_pallas, fused_pallas):
+    for mod in (rt_mxu, lane_pallas, fused_pallas, rt_tile):
         mod._lib()
-    say(f"build: {time.perf_counter() - t0:.2f} s (three sources in parallel)")
+    say(f"build: {time.perf_counter() - t0:.2f} s ({len(SOURCES)} sources in parallel)")
     for name, lib in libs.items():
         say(f"  {lib.name}")
         for line in lib.with_suffix(".log").read_text().splitlines():
@@ -344,6 +363,150 @@ def fused_kernel_check(card, o, d, scene, ids, cfg, what, iters_p=1):
                 flipped_share=share)
 
 
+def tile_args(wavefront):
+    """K5's or K6's arguments on one captured wavefront: (wrapper name, args)."""
+    occl, oo, dd, tris, eps, t_limit = wavefront
+    tc, aabbs, _, _, _ = rt_tile.tri_constants_sub(tris, exclude_oversized=occl)
+    rays_, ids_, cnt = rt_tile._prep(oo, dd, aabbs, t_limit)
+    return ("tile_occl_kernel" if occl else "tile_kernel",
+            (rt_tile._eps_tensor(eps, oo.device), rays_, ids_, cnt, tc))
+
+
+def heavy_slice(cnts, r, w):
+    """TILE_SLICE rays of whole image rows (whole bundles) of an r-ray,
+    w-wide wavefront, centred on the row whose bundles have the longest
+    mean list, summed over `cnts` (one per segment): (ray slice, bundle
+    slice, heaviest row, its summed mean list)."""
+    rows = sum(c[:r // rt_tile.COHERENT].reshape(-1, w // rt_tile.COHERENT).float().mean(1)
+               for c in cnts)
+    heavy = int(rows.argmax())
+    start = min(max(heavy * w - TILE_SLICE // 2, 0), r - TILE_SLICE)
+    start -= start % rt_tile.COHERENT
+    return (slice(start, start + TILE_SLICE),
+            slice(start // rt_tile.COHERENT, (start + TILE_SLICE) // rt_tile.COHERENT),
+            heavy, rows.max().item())
+
+
+def list_stats(cnt, bs):
+    return (f"mean list {cnt.float().mean().item():.2f} (max {int(cnt.max())}), on the slice "
+            f"{cnt[bs].float().mean().item():.2f} (max {int(cnt[bs].max())})")
+
+
+def tile_kernels(card, seen, w, results):
+    """K5 and K6 on config 5's camera and shadow wavefronts. Each kernel runs
+    on the whole wavefront; its output on TILE_SLICE rays of whole image
+    rows, centred on the row with the longest mean list, is held against
+    the plain version on the same slice (the bars of tests/test_rt_mxu.py).
+    Timed: the kernel on the whole wavefront, kernel and plain on the slice."""
+    for wavefront in seen[:2]:
+        with torch.no_grad():
+            name, args = tile_args(wavefront)
+            eps, rays_, ids_, cnt, tc = args
+            r = wavefront[1].shape[0]
+            rs, bs, heavy, mean = heavy_slice([cnt], r, w)
+            start = rs.start
+            sargs = (eps, rays_[rs], ids_[bs], cnt[bs], tc)
+            whole = wrapper(name)(*args)
+            plain = KERNELS[name][1](*sargs)
+            say(f"{name} [config 5]: {cnt.shape[0]} bundles x {tc.shape[0]} sub-blocks, "
+                f"{list_stats(cnt, bs)}; heaviest row {heavy} (mean {mean:.2f}); slice rays "
+                f"{start}+{TILE_SLICE}")
+            if name == "tile_kernel":
+                agree, max_abs, rel, share = search_agreement(
+                    name, (whole[0][rs], whole[1][rs]), plain)
+                say(f"{name}: winners agree {agree:.6f}, max abs t err {max_abs:.3e}, "
+                    f"max rel t err {rel:.3e}, hits {share:.4f} (slice), "
+                    f"{(whole[1][:r] >= 0).float().mean().item():.4f} (whole)")
+            else:
+                agree = (whole[rs] == plain).float().mean().item()
+                max_abs = float((whole[rs] - plain).abs().max().item())
+                check(agree >= 0.999, f"{name}: occlusion agreement {agree} < 0.999")
+                say(f"{name}: occlusion agrees {agree:.6f}, occluded {whole[rs].float().mean().item():.4f}"
+                    f" (slice), {whole[:r].float().mean().item():.4f} (whole)")
+            del whole, plain
+            ms, plain_ms = time_pair(name, lambda: wrapper(name)(*sargs),
+                                     lambda: KERNELS[name][1](*sargs), 10, 1, card,
+                                     f"config 5 slice of {TILE_SLICE} rays")
+            whole_ms = cuda_ms(lambda: wrapper(name)(*args), 3)
+            say(f"{name} [config 5 whole wavefront, {r} rays]: kernel {whole_ms:.3f} ms  [{card}]")
+        results[name].update(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, whole_ms=whole_ms,
+                             at=f"config 5 3840x2160 {'shadow' if name != 'tile_kernel' else 'camera'}"
+                                f" wavefront, slice of {TILE_SLICE} rays from ray {start}")
+
+
+def tile_segment_kernels(card, seen, w, results):
+    """K5 and K6 on the 500k soup's camera and shadow wavefronts, for each of
+    `_sliced`'s segments: the kernel runs on the whole wavefront against the
+    segment's table, and its output on TILE_SLICE rays of whole image rows,
+    centred on the row with the longest mean list over all segments, is held
+    against the plain version (the bars of tests/test_rt_mxu.py). The plain
+    outputs, combined as the entry points combine segments (first-wins for
+    the search; OR, and the oversized sweep, for the occlusion), are then
+    held against `tile_tri_search` / `tile_occlusion` on the whole wavefront.
+    Timed: the kernel on the whole wavefront, the plain version on the slice."""
+    for occl, oo, dd, tris, eps, t_limit in seen[:2]:
+        name = "tile_occl_kernel" if occl else "tile_kernel"
+        what = "shadow" if occl else "camera"
+        r, eps_t = oo.shape[0], rt_tile._eps_tensor(eps, oo.device)
+        with torch.no_grad():
+            segs, ov_buf, _ = rt_tile._sliced(tris, exclude_oversized=occl)
+            segs = [(tc, rt_tile._prep(oo, dd, aabbs, t_limit), perm_k)
+                    for tc, aabbs, perm_k in segs]
+            rs, bs, heavy, mean = heavy_slice([prep[2] for _, prep, _ in segs], r, w)
+            s = dict(segments=len(segs), min_agreement=1.0, max_abs_err=0.0, ms=[], plain_ms=[])
+            comb = None
+            for k, (tc, (rays_, ids_, cnt), perm_k) in enumerate(segs):
+                label = f"{name} [500k soup {what}, segment {k}]"
+                args = (eps_t, rays_, ids_, cnt, tc)
+                sargs = (eps_t, rays_[rs], ids_[bs], cnt[bs], tc)
+                whole = wrapper(name)(*args)
+                s["ms"].append(cuda_ms(lambda: wrapper(name)(*args)))
+                out = []
+                s["plain_ms"].append(cuda_ms(lambda: out.append(KERNELS[name][1](*sargs))))
+                plain, = out
+                if occl:
+                    agree = (whole[rs] == plain).float().mean().item()
+                    max_abs = float((whole[rs] - plain).abs().max().item())
+                    check(agree >= 0.999, f"{label}: occlusion agreement {agree} < 0.999")
+                    comb = plain > 0 if comb is None else comb | (plain > 0)
+                else:
+                    agree, max_abs, _, _ = search_agreement(
+                        label, (whole[0][rs], whole[1][rs]), plain)
+                    t_k, i_k = plain[0], rt_tile._orig(plain[1], perm_k)
+                    if comb is None:
+                        comb = (t_k, i_k)
+                    else:
+                        better = t_k < comb[0]
+                        comb = (torch.where(better, t_k, comb[0]), torch.where(better, i_k, comb[1]))
+                s["min_agreement"] = min(s["min_agreement"], agree)
+                s["max_abs_err"] = max(s["max_abs_err"], max_abs)
+                say(f"{label}: {cnt.shape[0]} bundles x {tc.shape[0]} sub-blocks, "
+                    f"{list_stats(cnt, bs)}; agreement {agree:.6f}, max abs err {max_abs:.3e}; "
+                    f"kernel {s['ms'][-1]:.3f} ms whole, plain {s['plain_ms'][-1]:.3f} ms on the "
+                    f"slice  [{card}]")
+                del whole, plain
+            if occl:
+                comb = comb | rt_tile._oversized_occl(oo[rs], dd[rs], t_limit[rs], ov_buf, eps)
+                entry = rt_tile.tile_occlusion(oo, dd, t_limit, tris, eps)[rs]
+                s["combined_agreement"] = (entry == comb).float().mean().item()
+                check(s["combined_agreement"] >= 0.999,
+                      f"{name} [500k soup]: tile_occlusion agrees {s['combined_agreement']} "
+                      "< 0.999 with the combined plain segments")
+            else:
+                t_e, i_e = rt_tile.tile_tri_search(oo, dd, tris, eps, t_limit)
+                s["combined_agreement"] = search_agreement(
+                    f"{name} [500k soup]: tile_tri_search vs the combined plain segments",
+                    (t_e[rs], i_e[rs]), comb)[0]
+            del segs
+        say(f"{name} [500k soup {what}]: {s['segments']} segments, heaviest row {heavy} (summed "
+            f"mean list {mean:.2f}), slice rays {rs.start}+{TILE_SLICE}: min agreement "
+            f"{s['min_agreement']:.6f}, max abs err {s['max_abs_err']:.3e}; the entry point vs "
+            f"the combined plain segments {s['combined_agreement']:.6f}")
+        results[name]["soup500k"] = dict(
+            s, at=f"random_scene(500_000) 1920x1080 {what} wavefront, per segment; slice of "
+                  f"{TILE_SLICE} rays from ray {rs.start}")
+
+
 # --------------------------------------------------------------------------
 # Phase 4: the main paths
 # --------------------------------------------------------------------------
@@ -369,9 +532,10 @@ def make_step(scene, o, d, ids, cfg):
 
 
 def path_phase(card, label, scene, cam, w, h, cfg, expect, fwd_kernels, bwd_kernels, results,
-               min_nonzero=8, small=(192, 108)):
+               min_nonzero=8, small=(192, 108), reps=5, min_launches=1):
     """Drive one main path: forward, then fwd+bwd, each with the launch
-    counters reset just before and read just after; checks and timings."""
+    counters reset just before and read just after; checks, and timings
+    over `reps` steps."""
     check(resolve_backend(cfg, scene) == expect,
           f"{label}: backend {cfg.backend!r} resolves to {resolve_backend(cfg, scene)!r}, "
           f"not {expect!r}")
@@ -385,7 +549,8 @@ def path_phase(card, label, scene, cam, w, h, cfg, expect, fwd_kernels, bwd_kern
         counts = read_counts()
         say(f"{label} {what}: launches {counts}, loss {loss.item():.6e}")
         for name in need:
-            check(counts[name] > 0, f"{label} {what}: {name} was not launched")
+            check(counts[name] >= min_launches,
+                  f"{label} {what}: {name} launched {counts[name]} times, < {min_launches}")
         for name, n in counts.items():
             results[name]["launches"] += n
         check(tuple(color.shape) == (w * h, 3), f"{label}: color shape {tuple(color.shape)}")
@@ -409,15 +574,18 @@ def path_phase(card, label, scene, cam, w, h, cfg, expect, fwd_kernels, bwd_kern
 
     with torch.no_grad():
         step(1, backward=False)
-        fwd = [cuda_ms(lambda: step(2 + k, backward=False)) for k in range(5)]
-    timing = {"forward_ms": statistics.median(fwd)}
+        torch.cuda.reset_peak_memory_stats()
+        fwd = [cuda_ms(lambda: step(2 + k, backward=False)) for k in range(reps)]
+    timing = {"forward_ms": statistics.median(fwd),
+              "forward_peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     say(f"{label} forward    : {timing['forward_ms']:.2f} ms median of "
         f"{[round(x, 2) for x in fwd]} = {w * h / timing['forward_ms'] / 1e3:.3f} Mrays/s"
         f"  [{card}]")
+    say(f"{label} peak device memory (forward): {timing['forward_peak_gib']:.2f} GiB  [{card}]")
     if bwd_kernels:
-        step(7)
+        step(2 + reps)
         torch.cuda.reset_peak_memory_stats()
-        fb = [cuda_ms(lambda: step(8 + k)) for k in range(5)]
+        fb = [cuda_ms(lambda: step(3 + reps + k)) for k in range(reps)]
         timing["fwd_bwd_ms"] = statistics.median(fb)
         timing["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         say(f"{label} forward+bwd: {timing['fwd_bwd_ms']:.2f} ms median of "
@@ -448,6 +616,51 @@ def layer_phase(card, seen):
             fn()
             t = statistics.median(cuda_ms(fn) for _ in range(3))
             say(f"layer {name:34s} {t:8.3f} ms  [{card}]")
+
+
+def gib_above(fn):
+    """fn()'s peak device memory above what was allocated before it, GiB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def tile_layer_phase(card, seen):
+    """Where config 5's forward goes: each layer of the tile search and the
+    occlusion alone on the frame's wavefronts (CUDA events, median of 3),
+    and the peak memory of each cull pre-pass."""
+    _, po, pd, tris, eps, ptl = seen[0]
+    _, so, sd, _, _, stl = seen[1]
+    tc_p, ab_p, _, _, _ = rt_tile.tri_constants_sub(tris)
+    tc_s, ab_s, _, ov_buf, _ = rt_tile.tri_constants_sub(tris, exclude_oversized=True)
+    eps_t = rt_tile._eps_tensor(eps, po.device)
+    with torch.no_grad():
+        for what, (oo, dd, ab, tl) in {"primary": (po, pd, ab_p, ptl),
+                                       "shadow": (so, sd, ab_s, stl)}.items():
+            gib = gib_above(lambda: rt_tile._prep(oo, dd, ab, tl))
+            say(f"layer config 5: cull pre-pass, {what}: peak {gib:.2f} GiB above its inputs "
+                f"({oo.shape[0] // rt_tile.COHERENT * ab.shape[1] * 4 / 2**30:.2f} GiB of it "
+                f"the lists), chunks of {rt_tile._PREPASS_ELEMS // ab.shape[1] // 128 * 128} "
+                f"rays  [{card}]")
+        prim = rt_tile._prep(po, pd, ab_p, ptl)
+        shad = rt_tile._prep(so, sd, ab_s, stl)
+        layers = {
+            "cluster sort + pack (per search)": lambda: rt_tile.tri_constants_sub(tris),
+            "cull pre-pass, primary": lambda: rt_tile._prep(po, pd, ab_p, ptl),
+            "K5 alone": lambda: rt_tile.tile_kernel(eps_t, *prim, tc_p),
+            "tile_tri_search (incl. K5)": lambda: rt_tile.tile_tri_search(po, pd, tris, eps, ptl),
+            "cull pre-pass, shadow": lambda: rt_tile._prep(so, sd, ab_s, stl),
+            "K6 alone": lambda: rt_tile.tile_occl_kernel(eps_t, *shad, tc_s),
+            "oversized any-hit sweep": lambda: rt_tile._oversized_occl(so, sd, stl, ov_buf, eps),
+            "tile_occlusion (incl. K6)": lambda: rt_tile.tile_occlusion(so, sd, stl, tris, eps),
+        }
+        for name, fn in layers.items():
+            fn()
+            t = statistics.median(cuda_ms(fn) for _ in range(3))
+            say(f"layer config 5: {name:34s} {t:8.3f} ms  [{card}]")
 
 
 def fused_layer_phase(card, label, scene, cam, w, h, cfg):
@@ -517,8 +730,10 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="instead of the smoke run: build, then profile one fwd+bwd step "
-                             "of the flagship, Cornell and config 4 under torch.profiler")
+                             "of the flagship, Cornell, config 4 and config 5 under "
+                             "torch.profiler")
     args = parser.parse_args()
+    t_start = time.perf_counter()
     card = device_phase()
     build_phase()
     dev = torch.device("cuda")
@@ -526,19 +741,23 @@ def main():
                       "launches": 0}
                for name, (_, _, src, rep) in KERNELS.items()}
 
-    # Scenes and frames of the four paths.
+    # Scenes and frames of the six paths.
     flag = bench_scene().to(dev)
     flag_cam = camera((0.0, 2.0, 6.0), 1920, 1080, dev)
     corn = cornell_box().to(dev)
     corn_cam = camera((0.0, 1.0, 2.0), 1024, 768, dev)
     mixed = mixed_scene().to(dev)
     mixed_cam = camera((0.0, 2.5, 7.0), 1920, 1080, dev)
+    soup = random_scene(100_000).to(dev)
+    soup_cam = camera((0.0, 18.0, 45.0), 3840, 2160, dev)
+    soup_cam_1080 = camera((0.0, 18.0, 45.0), 1920, 1080, dev)
     auto = RenderConfig(backend="auto")
     d4 = auto.replace(depth=4)
     if args.profile:
         profile_phase(card, {"flagship": (flag, flag_cam, 1920, 1080, auto),
                              "Cornell": (corn, corn_cam, 1024, 768, auto),
-                             "config 4": (mixed, mixed_cam, 1920, 1080, d4)})
+                             "config 4": (mixed, mixed_cam, 1920, 1080, d4),
+                             "config 5": (soup, soup_cam, 3840, 2160, auto)})
         return
 
     # Phase 3: kernels vs plain versions on their paths' inputs.
@@ -556,9 +775,28 @@ def main():
         card, o, d, mixed, ids, d4, "config 4, mixed 1920x1080, depth 4")
     del o, d, ids
     mxtile_backward_kernels(card, mixed, mixed_cam, 1920, 1080, d4, results)
+    o, d, ids = rays(soup_cam, 3840, 2160)
+    seen5 = capture_wavefronts(o, d, soup, ids, auto, rt_tile.tile_tri_search,
+                               rt_tile.tile_occlusion)
+    check(len(seen5) == 2, f"config 5 made {len(seen5)} searches, want 2 (camera, shadow)")
+    del o, d, ids
+    tile_kernels(card, seen5, 3840, results)
+    tile_layer_phase(card, seen5)
+    del seen5  # ~0.5 GiB that would count in every later path's peak memory
+    soup500 = random_scene(500_000).to(dev)
+    nseg = -(-soup500.triangles.capacity // rt_tile.TILE_TRI_LIMIT)
+    check(nseg == 4, f"random_scene(500_000) goes through {nseg} segments, not 4")
+    o, d, ids = rays(soup_cam_1080, 1920, 1080)
+    seen500 = capture_wavefronts(o, d, soup500, ids, auto, rt_tile.tile_tri_search,
+                                 rt_tile.tile_occlusion)
+    check(len(seen500) == 2, f"the 500k soup made {len(seen500)} searches, want 2")
+    del o, d, ids
+    tile_segment_kernels(card, seen500, 1920, results)
+    del seen500
 
     # Phase 4: the main paths.
     k12, k3 = ["mxu_kernel", "mxu_occl_kernel"], ["fused_kernel"]
+    k56 = ["tile_kernel", "tile_occl_kernel"]
     paths = {
         "flagship": path_phase(card, "flagship", flag, flag_cam, 1920, 1080, auto, "mxtile",
                                k12, k12, results),
@@ -571,11 +809,18 @@ def main():
             card, "Cornell reference_cpp", corn, corn_cam, 1024, 768,
             auto.replace(light_mode="reference_cpp"), "lane", ["lane_kernel"], None, results,
             small=(128, 96)),
+        "config5": path_phase(card, "config 5", soup, soup_cam, 3840, 2160, auto, "tile", k56,
+                              k56, results),
     }
+    del soup
+    paths["soup500k"] = path_phase(card, "soup 500k", soup500, soup_cam_1080, 1920, 1080, auto,
+                                   "tile", k56, k56, results, reps=3, min_launches=nseg)
+    del soup500
     layer_phase(card, seen)
     fused_layer_phase(card, "Cornell", corn, corn_cam, 1024, 768, auto)
     fused_layer_phase(card, "config 4", mixed, mixed_cam, 1920, 1080, d4)
     say(json.dumps({"paths": paths}))
+    say(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [results[name] for name in KERNELS]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,10 @@
 The package mirrors the JAX package's module paths and public names. It
 imports `torch` and `numpy` only; its CUDA kernels (`csrc/`) are built
 with nvcc at first use and bound with ctypes. Ported so far: rendering
-and differentiating on the `jnp`, `mxu`, `mxtile`, `lane` and `fused`
-backends (and `auto` wherever it resolves to one of them), both light
-modes, and the benchmark, Cornell and BASELINE config 1, 2 and 4 scenes
-(see ROADMAP.md for what is still to port).
+and differentiating on every backend (`jnp`, `mxu`, `mxtile`, `lane`,
+`fused`, `tile` and `auto`), both light modes, and the benchmark, Cornell
+and BASELINE config 1 to 5 scenes (see ROADMAP.md for what is still to
+port).
 """
 
 from esctp1raytracer_tpu_torch.scene.types import (
@@ -23,7 +23,9 @@ from esctp1raytracer_tpu_torch.scene.builders import (
     bench_scene,
     cornell_box,
     cornell_variant,
+    mesh_scene,
     mixed_scene,
+    random_scene,
     scene_from_mesh,
     sphere_plane_scene,
     ten_sphere_scene,
@@ -44,7 +46,9 @@ __all__ = [
     "bench_scene",
     "cornell_box",
     "cornell_variant",
+    "mesh_scene",
     "mixed_scene",
+    "random_scene",
     "sphere_plane_scene",
     "ten_sphere_scene",
     "Camera",

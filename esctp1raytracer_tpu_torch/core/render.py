@@ -7,13 +7,13 @@ Counterpart of `esctp1raytracer_tpu/core/render.py`, with the same
   "mxu"    — the same search as the feature contraction (tensor ops);
   "mxtile" — the hand-written CUDA search kernels K1/K2 (kernels/rt_mxu.py);
   "lane"   — the ray-lane CUDA search kernel K4 (kernels/lane_pallas.py);
+  "tile"   — the tile CUDA search kernels K5/K6 (kernels/rt_tile.py);
   "fused"  — the whole-frame CUDA kernel K3 (kernels/fused_pallas.py) when
              `fused_supported`, else the lane/tile fallback;
   "auto"   — fused when eligible, else lane < 4096 triangles <= mxtile <=
-             32,768 < tile;
-  "tile"   — not ported yet: it raises NotImplementedError naming its
-             ROADMAP.md entry, and so does "auto" whenever it resolves to
-             it. No backend quietly runs another.
+             32,768 < tile.
+
+Every backend is ported, and no backend quietly runs another.
 """
 
 from __future__ import annotations
@@ -26,15 +26,11 @@ import torch
 from esctp1raytracer_tpu_torch.core.camera import Camera
 from esctp1raytracer_tpu_torch.core.intersect import EPS, any_hit, closest_hit
 from esctp1raytracer_tpu_torch.core.shading import shade
-from esctp1raytracer_tpu_torch.kernels import lane_pallas, rt_mxu
+from esctp1raytracer_tpu_torch.kernels import lane_pallas, rt_mxu, rt_tile
 from esctp1raytracer_tpu_torch.kernels.fused_pallas import (
     _fallback_cfg, fused_supported, fused_trace_diff,
 )
 from esctp1raytracer_tpu_torch.scene.types import Scene
-
-_NOT_PORTED = {
-    "tile": "ROADMAP.md Queue 2, K5/K6 (kernels/rt_tile.py tile kernels)",
-}
 
 
 @dataclass(frozen=True)
@@ -82,18 +78,13 @@ def resolve_backend(cfg: RenderConfig, scene: Scene = None) -> str:
     return backend
 
 
-def _not_ported(backend: str):
-    return NotImplementedError(
-        f"backend {backend!r} is not ported to PyTorch yet: {_NOT_PORTED[backend]}")
-
-
 def _search_fns(cfg: RenderConfig, scene: Scene = None):
     """(tri_search, use_mxu) for a concrete or "auto" backend."""
     backend = _canon_backend(cfg.backend)
     if backend == "auto":
         backend = _auto_backend(scene)
-    if backend in _NOT_PORTED:
-        raise _not_ported(backend)
+    if backend == "tile":
+        return rt_tile.tile_tri_search, True
     if backend == "mxtile":
         return rt_mxu.mxu_tile_search, True
     if backend == "lane":

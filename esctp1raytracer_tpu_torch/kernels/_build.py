@@ -27,10 +27,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # No -use_fast_math: the kernels need IEEE division.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# Per-source flags. The lane and fused kernels round every product and sum
-# on its own, as their plain PyTorch versions do: contracted FMAs moved
-# last-ulp values that four bounces of reflections grew past the image bar.
-SOURCE_FLAGS = {"lane": ["-fmad=false"], "fused": ["-fmad=false"]}
+# Per-source flags. The kernels that share lane_plane.cuh's per-pair test
+# round every product and sum on its own, as their plain PyTorch versions
+# do: contracted FMAs moved last-ulp values that four bounces of
+# reflections grew past the image bar.
+SOURCE_FLAGS = {name: ["-fmad=false"] for name in ("lane", "fused", "rt_tile")}
 
 
 def _nvcc() -> str:

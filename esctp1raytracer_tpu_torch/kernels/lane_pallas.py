@@ -58,20 +58,28 @@ def valid_prefix(valid: torch.Tensor) -> torch.Tensor:
     return (torch.amax(torch.where(valid, iota, -1)) + 1).reshape(1).to(torch.int32)
 
 
-def lane_plane_hits(o, d, c, eps):
-    """The kernel's per-pair test: o, d [R, 1] columns x constants c [B, 13]
-    -> (t [R, B] with BIG where rejected, ok [R, B])."""
-    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
-    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-    nx, ny, nz, nv0 = c[:, 0], c[:, 1], c[:, 2], c[:, 3]
-    det = -(dx * nx + dy * ny + dz * nz)
+def plane_pair(o, d, c, eps):
+    """The per-pair test of csrc/lane_plane.cuh:plane_hit, broadcast: ray
+    components o = (ox, oy, oz), d = (dx, dy, dz) against the 12 constant
+    rows c[0..11] (normal, n.v0, w_u, b_u, w_v, b_v) -> (t, ok)."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    det = -(dx * c[0] + dy * c[1] + dz * c[2])
     ok_det = torch.abs(det) >= eps
     inv = 1.0 / torch.where(ok_det, det, 1.0)
-    t = ((ox * nx + oy * ny + oz * nz) - nv0) * inv
+    t = ((ox * c[0] + oy * c[1] + oz * c[2]) - c[3]) * inv
     px, py, pz = ox + t * dx, oy + t * dy, oz + t * dz
-    u = c[:, 4] * px + c[:, 5] * py + c[:, 6] * pz + c[:, 7]
-    v = c[:, 8] * px + c[:, 9] * py + c[:, 10] * pz + c[:, 11]
+    u = c[4] * px + c[5] * py + c[6] * pz + c[7]
+    v = c[8] * px + c[9] * py + c[10] * pz + c[11]
     ok = ok_det & (torch.minimum(u, v) >= eps) & (u + v <= 1.0) & (t >= eps)
+    return t, ok
+
+
+def lane_plane_hits(o, d, c, eps):
+    """The kernel's per-pair test: o, d [R, 3] x constants c [B, 13]
+    -> (t [R, B] with BIG where rejected, ok [R, B])."""
+    t, ok = plane_pair((o[:, 0:1], o[:, 1:2], o[:, 2:3]), (d[:, 0:1], d[:, 1:2], d[:, 2:3]),
+                       [c[:, i] for i in range(12)], eps)
     return torch.where(ok, t, BIG), ok
 
 

@@ -38,7 +38,9 @@ import torch
 from esctp1raytracer_tpu_torch.core.intersect import BIG, NO_HIT, ray_features, tri_features
 from esctp1raytracer_tpu_torch.kernels import _build
 from esctp1raytracer_tpu_torch.kernels.cull import block_cull_mask
-from esctp1raytracer_tpu_torch.kernels.rt_tile import _clustered_tables, _oversized_occl
+from esctp1raytracer_tpu_torch.kernels.rt_tile import (
+    _clustered_tables, _eps_tensor, _oversized_occl,
+)
 from esctp1raytracer_tpu_torch.scene.types import TriangleBuffer
 
 RAY_TILE = 128  # rays per group = threads per CUDA block
@@ -265,10 +267,6 @@ def _segments(tris: TriangleBuffer, exclude_oversized: bool):
             yield tfq, aabbs, perm[sl]
 
     return gen(), ov_buf, ov_orig
-
-
-def _eps_tensor(eps, device):
-    return torch.as_tensor(eps, dtype=torch.float32, device=device).reshape(1)
 
 
 def mxu_tile_search(o, d, tris: TriangleBuffer, eps, t_limit=None):

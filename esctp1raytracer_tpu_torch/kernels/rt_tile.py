@@ -1,28 +1,70 @@
-"""Oversized-triangle handling shared by the tile kernels.
+"""Tile search: 8-ray bundles x 128-triangle sub-blocks (the `tile` backend).
 
-Only the part of `esctp1raytracer_tpu/kernels/rt_tile.py` that the mxtile
-path uses is ported here: the cluster sort with oversized segregation
-(`_clustered_tables`) and the tensor-op sweep over the oversized set
-(`_oversized_hits`, `_oversized_occl`). The tile kernels themselves
-(`_tile_kernel`, `_occl_tile_kernel`) are not ported yet.
+Counterpart of `esctp1raytracer_tpu/kernels/rt_tile.py`. Triangles are
+cluster-sorted (Morton order, oversized ones segregated) and packed into
+sub-blocks of SUB = 128, each a [16, 128] slab of plane/barycentric
+constants: the table `tc` [NSUB, 16, 128] holds per triangle the normal,
+n.v0, w_u, b_u, w_v, b_v and keep (13 rows, padded to 16); dropped
+triangles have a zero normal, so det == 0 rejects them. Rays go in
+bundles of COHERENT = 8; a slab-test pre-pass gives every bundle an
+ascending list of the sub-blocks one of its rays can hit (`ids`) and
+their number (`cnt`). Two kernels, hand-written in CUDA
+(`csrc/rt_tile.cu`), then sweep those lists:
 
-Oversized triangles (ground planes, area lights) sort into a trailing
-block. For the occlusion pass they are also excluded from the kernel's
-table and swept here, at most OVER_CAP of them: their shared block AABB
-could never be culled by a shadow ray's t-limit, while out here the floor
-fails the direction test and the light's tight box fails the t-window.
+* `tile_kernel` (K5): closest hit per ray -- minimum t, ties to the
+  lowest sorted index;
+* `tile_occl_kernel` (K6): any hit with eps <= t < t_limit per ray.
+
+Each kernel has a plain PyTorch version beside it (`_tile_search_plain`,
+`_tile_occl_plain`) with the same lists, visit order and tie rule. A
+wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel or raises. Each wrapper counts its kernel launches
+in its `launches` attribute. The per-pair test is the one K3 and K4 use
+(`lane_pallas.plane_pair`, `csrc/lane_plane.cuh`).
+
+The closest-hit search culls with its caller's `t_limit` (a sphere hit,
+say) but never clamps t to it, as the JAX kernel does: a kept sub-block
+may still return a hit beyond the limit. Oversized triangles (ground
+planes, area lights) stay in the search table; the occlusion excludes up
+to OVER_CAP of them and sweeps them with tensor ops instead
+(`_oversized_occl`): their shared box could never be culled by a shadow
+ray's t-limit, while out here the floor fails the direction test and the
+light's tight box fails the t-window. Tables over TILE_TRI_LIMIT
+triangles go through in segments, combined first-wins.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
 
 from esctp1raytracer_tpu_torch.accel.clusters import build_clusters
+from esctp1raytracer_tpu_torch.core.intersect import BIG, NO_HIT
+from esctp1raytracer_tpu_torch.kernels import _build
+from esctp1raytracer_tpu_torch.kernels.cull import block_cull_mask
+from esctp1raytracer_tpu_torch.kernels.lane_pallas import plane_pair
 from esctp1raytracer_tpu_torch.scene.types import TriangleBuffer
 
+RAY_GROUP = 128  # rays are padded to a multiple of this, as in the JAX package
+COHERENT = 8  # rays per bundle = one warp's rays in the kernels
+SUB = 128  # triangles per sub-block
+TILE_TRI_LIMIT = 131_072  # triangles per segment: NSUB <= 1024
 OVER_CAP = 128
+ROWS = 16  # constant rows per sub-block (13 used)
+RAY_W = 8  # floats per ray: o, d, t_limit, pad
+# The cull pre-pass holds ~40 bytes per (ray, sub-block) pair of slab
+# temporaries at its peak (kernels/cull.py), so it streams in ray chunks
+# of about this many pairs: 64M pairs keep the peak near 2.7 GB, and
+# config 5 (8.3M rays x 784 sub-blocks) runs in 98 chunks. Any chunk that
+# is a multiple of COHERENT gives the same lists.
+_PREPASS_ELEMS = 64 * 1024 * 1024
+# The oversized sweep holds ~10 [rays, OVER_CAP] temporaries: 512k rays at
+# a time keep them near 2.7 GB (config 5's 8.3M rays in one go: ~43 GB).
+_SWEEP_RAYS = 1 << 19
+
+_INT_BIG = 2**31 - 1
 
 
 def _clustered_tables(tris: TriangleBuffer):
@@ -82,6 +124,342 @@ def _oversized_hits(o, d, ov_buf: TriangleBuffer, eps):
 
 
 def _oversized_occl(o, d, t_limit, ov_buf: TriangleBuffer, eps):
-    """One-pass any-hit over the excluded set: [R] bool."""
-    t, ok = _oversized_hits(o, d, ov_buf, eps)
-    return torch.any(ok & (t < t_limit[:, None]), dim=1)
+    """One-pass any-hit over the excluded set: [R] bool, in chunks of
+    _SWEEP_RAYS rays (each ray's answer is its own)."""
+    out = []
+    for i in range(0, max(o.shape[0], 1), _SWEEP_RAYS):
+        sl = slice(i, i + _SWEEP_RAYS)
+        t, ok = _oversized_hits(o[sl], d[sl], ov_buf, eps)
+        out.append(torch.any(ok & (t < t_limit[sl, None]), dim=1))
+    return torch.cat(out)
+
+
+# --------------------------------------------------------------------------
+# Packing
+# --------------------------------------------------------------------------
+
+
+def _pad_sorted(sorted_tris: TriangleBuffer, perm, exclude, capacity: int):
+    """Pad the sorted table with invalid triangles to `capacity`."""
+    pad = capacity - sorted_tris.capacity
+    if not pad:
+        return sorted_tris, perm, exclude
+    filler = TriangleBuffer.empty(pad, device=perm.device)
+    sorted_tris = sorted_tris.map(lambda name, a: torch.cat([a, getattr(filler, name)]))
+    return (sorted_tris, torch.cat([perm, perm.new_full((pad,), NO_HIT)]),
+            torch.cat([exclude, exclude.new_zeros((pad,))]))
+
+
+def _pack_sub(sorted_tris: TriangleBuffer, exclude=None):
+    """Pack constants at SUB granularity: tc [NSUB, 16, 128], aabbs [8, NSUB].
+
+    Invalid or excluded triangles get a zero normal (det == 0 rejects
+    them; their w rows are NaN, as in the JAX package, and never read
+    past the det test) and an inverted box.
+    """
+    npad = sorted_tris.capacity
+    keep = sorted_tris.valid
+    if exclude is not None:
+        keep = keep & ~exclude
+    v0 = sorted_tris.v0
+    e1 = sorted_tris.v1 - v0
+    e2 = sorted_tris.v2 - v0
+    nrm = torch.linalg.cross(e1, e2)
+    nrm = torch.where(keep[:, None], nrm, 0.0)
+    nn = torch.sum(nrm * nrm, dim=-1, keepdim=True)
+    w_u = torch.linalg.cross(e2, nrm) / nn
+    w_v = torch.linalg.cross(nrm, e1) / nn
+    rows = [
+        nrm[:, 0], nrm[:, 1], nrm[:, 2], torch.sum(nrm * v0, dim=-1),
+        w_u[:, 0], w_u[:, 1], w_u[:, 2], -torch.sum(w_u * v0, dim=-1),
+        w_v[:, 0], w_v[:, 1], w_v[:, 2], -torch.sum(w_v * v0, dim=-1),
+        keep.to(torch.float32),
+    ]
+    table = torch.cat([torch.stack(rows), nrm.new_zeros((ROWS - len(rows), npad))])
+    nsub = npad // SUB
+    tc = table.reshape(ROWS, nsub, SUB).permute(1, 0, 2).contiguous()  # [NSUB, 16, 128]
+
+    v = torch.stack([v0, sorted_tris.v1, sorted_tris.v2], dim=1)
+    bmin = torch.where(keep[:, None], torch.amin(v, dim=1), 1e30)
+    bmax = torch.where(keep[:, None], torch.amax(v, dim=1), -1e30)
+    blk_min = torch.amin(bmin.reshape(nsub, SUB, 3), dim=1)
+    blk_max = torch.amax(bmax.reshape(nsub, SUB, 3), dim=1)
+    aabbs = torch.cat([blk_min.T, blk_max.T, torch.zeros_like(blk_min.T[:2])], dim=0)
+    return tc, aabbs
+
+
+def _sliced(tris: TriangleBuffer, exclude_oversized: bool = False):
+    """Cluster-sort, pad and pack the table in segments: one, padded to a
+    multiple of SUB, up to TILE_TRI_LIMIT triangles; else TILE_TRI_LIMIT-sized
+    ones.
+
+    Returns (generator of (tc [NSUB, 16, 128], aabbs [8, NSUB], perm_k
+    [NSUB * 128] padded with -1), ov_buf, ov_orig). With exclude_oversized
+    the tables reject the (up to OVER_CAP) oversized triangles, and the
+    caller ORs in `_oversized_occl(ov_buf)` once, outside the segment loop.
+    """
+    sorted_tris, perm, exclude, ov_buf, ov_orig = _clustered_tables(tris)
+    nseg = -(-tris.capacity // TILE_TRI_LIMIT)
+    capacity = nseg * TILE_TRI_LIMIT if nseg > 1 else tris.capacity + (-tris.capacity) % SUB
+    sorted_tris, perm, exclude = _pad_sorted(sorted_tris, perm, exclude, capacity)
+    seg = capacity // nseg
+
+    def segments():
+        for k in range(nseg):
+            sl = slice(k * seg, (k + 1) * seg)
+            tc, aabbs = _pack_sub(sorted_tris.map(lambda _, a: a[sl]),
+                                  exclude[sl] if exclude_oversized else None)
+            yield tc, aabbs, perm[sl]
+
+    return segments(), ov_buf, ov_orig
+
+
+def tri_constants_sub(tris: TriangleBuffer, exclude_oversized: bool = False):
+    """The one segment of a table of up to TILE_TRI_LIMIT triangles: (tc,
+    aabbs, perm, ov_buf, ov_orig), as `_sliced` gives them."""
+    segments, ov_buf, ov_orig = _sliced(tris, exclude_oversized)
+    (tc, aabbs, perm), = segments
+    return tc, aabbs, perm, ov_buf, ov_orig
+
+
+# --------------------------------------------------------------------------
+# The cull pre-pass
+# --------------------------------------------------------------------------
+
+
+def _cull_lists(o, d, t_limit, aabbs):
+    """Per-bundle ascending sub-block lists for one ray chunk: a per-ray
+    slab mask, OR-folded over each bundle, compacted by a stable argsort.
+    Returns (ids [chunk / 8, NSUB] int32, cnt [chunk / 8] int32)."""
+    nsub = aabbs.shape[1]
+    mask = block_cull_mask(o, d, aabbs, t_limit)
+    gmask = torch.any(mask.reshape(-1, COHERENT, nsub), dim=1)
+    ids = torch.argsort((~gmask).to(torch.uint8), dim=1, stable=True).to(torch.int32)
+    return ids, torch.sum(gmask, dim=1, dtype=torch.int32)
+
+
+def _prep(o, d, aabbs, t_limit=None):
+    """Pad rays to RAY_GROUP, cull, and compact per-bundle sub-block lists.
+
+    Returns (rays [Rp, 8] (o, d, t_limit or 0, 0), ids [Rp / 8, NSUB]
+    int32, cnt [Rp / 8] int32). Row b of `ids` lists, ascending in its
+    first cnt[b] entries, the sub-blocks some ray of bundle b can hit.
+    Pad rays (origin 0, direction +z, t_limit -1) are the JAX package's,
+    so the lists of a partly padded bundle are too. The pre-pass streams
+    in ray chunks of about _PREPASS_ELEMS (ray, sub-block) pairs (one
+    chunk for a small wavefront).
+    """
+    r = o.shape[0]
+    pad = (-r) % RAY_GROUP
+    if pad:
+        o = torch.cat([o, o.new_zeros((pad, 3))])
+        d = torch.cat([d, d.new_tensor([[0.0, 0.0, 1.0]]).expand(pad, 3)])
+        if t_limit is not None:
+            t_limit = torch.cat([t_limit, t_limit.new_full((pad,), -1.0)])
+    rp = r + pad
+    nsub = aabbs.shape[1]
+    # The JAX package coarsens the cull above 1024 sub-blocks; a segment
+    # never has more (TILE_TRI_LIMIT / SUB), so that path is not carried over.
+    assert nsub <= TILE_TRI_LIMIT // SUB, nsub
+    chunk = max(RAY_GROUP, _PREPASS_ELEMS // nsub // RAY_GROUP * RAY_GROUP)
+    ids = torch.empty((rp // COHERENT, nsub), dtype=torch.int32, device=o.device)
+    cnt = torch.empty((rp // COHERENT,), dtype=torch.int32, device=o.device)
+    for i in range(0, rp, chunk):
+        sl, bl = slice(i, i + chunk), slice(i // COHERENT, (i + chunk) // COHERENT)
+        ids[bl], cnt[bl] = _cull_lists(o[sl], d[sl], None if t_limit is None
+                                       else t_limit[sl], aabbs)
+    tl = o.new_zeros((rp, 1)) if t_limit is None else t_limit[:, None]
+    rays = torch.cat([o, d, tl, o.new_zeros((rp, RAY_W - 7))], dim=1)
+    return rays, ids, cnt
+
+
+# --------------------------------------------------------------------------
+# Plain versions of K5 and K6
+# --------------------------------------------------------------------------
+
+
+def _bundle_rays(rays):
+    """rays [Rp, 8] -> (o, d, t_limit), each a tuple or tensor of [B, 8, 1] columns."""
+    r = rays.reshape(-1, COHERENT, RAY_W, 1)
+    return (r[:, :, 0], r[:, :, 1], r[:, :, 2]), (r[:, :, 3], r[:, :, 4], r[:, :, 5]), r[:, :, 6]
+
+
+def _block_pairs(tc, jb, o, d, eps):
+    """Every bundle's 8 rays against its sub-block jb [B]: (t, ok) [B, 8, 128]."""
+    c = tc[jb.long()][:, :12, None, :]  # [B, 12, 1, 128]
+    return plane_pair(o, d, [c[:, i] for i in range(12)], eps)
+
+
+def _tile_search_plain(eps, rays, ids, cnt, tc):
+    """Plain version of K5: (t [Rp] f32 -- BIG on a miss, sorted idx [Rp]
+    int32 -- -1 on a miss).
+
+    A running (t, sub-block) per (ray, lane) over the bundle's ascending
+    list, updated on strict <, then the lowest index among the lanes at
+    the minimum t: the minimum t, ties to the lowest sorted index.
+    """
+    eps = float(eps.reshape(-1)[0])
+    b = cnt.shape[0]
+    o, d, _ = _bundle_rays(rays)
+    bt = torch.full((b, COHERENT, SUB), BIG, dtype=torch.float32, device=rays.device)
+    bb = torch.full((b, COHERENT, SUB), NO_HIT, dtype=torch.int32, device=rays.device)
+    for k in range(int(cnt.max()) if b else 0):
+        jb = ids[:, k]
+        t, ok = _block_pairs(tc, jb, o, d, eps)
+        better = ok & (t < bt) & (k < cnt)[:, None, None]
+        bt = torch.where(better, t, bt)
+        bb = torch.where(better, jb[:, None, None], bb)
+    lane = torch.arange(SUB, dtype=torch.int32, device=rays.device)
+    bi = torch.where(bb >= 0, bb * SUB + lane, _INT_BIG)
+    tmin = torch.amin(bt, dim=-1, keepdim=True)
+    imin = torch.amin(torch.where(bt == tmin, bi, _INT_BIG), dim=-1)
+    tmin = tmin[..., 0]
+    return tmin.reshape(-1), torch.where(tmin < BIG, imin, NO_HIT).reshape(-1)
+
+
+def _tile_occl_plain(eps, rays, ids, cnt, tc):
+    """Plain version of K6: occluded [Rp] int32 (1 = some hit with
+    eps <= t < t_limit in the bundle's list)."""
+    eps = float(eps.reshape(-1)[0])
+    b = cnt.shape[0]
+    o, d, tl = _bundle_rays(rays)
+    occ = torch.zeros((b, COHERENT), dtype=torch.bool, device=rays.device)
+    for k in range(int(cnt.max()) if b else 0):
+        t, ok = _block_pairs(tc, ids[:, k], o, d, eps)
+        occ |= torch.any(ok & (t < tl), dim=-1) & (k < cnt)[:, None]
+    return occ.to(torch.int32).reshape(-1)
+
+
+# --------------------------------------------------------------------------
+# The CUDA kernels (csrc/rt_tile.cu), bound with ctypes
+# --------------------------------------------------------------------------
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("rt_tile")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.rt_tile_search.argtypes = [vp] * 7 + [ci, ci, vp]
+        lib.rt_tile_occl.argtypes = [vp] * 6 + [ci, ci, vp]
+        lib.rt_tile_search.restype = lib.rt_tile_occl.restype = ci
+        _LIB = lib
+    return _LIB
+
+
+def _check(eps, rays, ids, cnt, tc):
+    """Validate the kernels' inputs; returns (bundles, NSUB)."""
+    dev = rays.device
+    if dev.type != "cuda":
+        raise ValueError(f"tile kernels take CUDA or CPU tensors, got {dev}")
+    b, nsub = ids.shape
+    _build.check_tensors({
+        "eps": (eps, torch.float32, (1,)), "rays": (rays, torch.float32, (COHERENT * b, RAY_W)),
+        "ids": (ids, torch.int32, (b, nsub)), "cnt": (cnt, torch.int32, (b,)),
+        "tc": (tc, torch.float32, (nsub, ROWS, SUB)),
+    }, dev)
+    return b, nsub
+
+
+def _launch(fn, tensors, b, nsub, device):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    _build.check_launch(_lib(), "rt_tile", fn(*(t.data_ptr() for t in tensors), b, nsub, stream))
+
+
+def tile_kernel(eps, rays, ids, cnt, tc):
+    """K5, closest hit per ray over each bundle's sub-block list.
+
+    eps f32 [1]; rays f32 [8B, 8] (o, d, t_limit, pad; t_limit unread);
+    ids int32 [B, NSUB]; cnt int32 [B]; tc f32 [NSUB, 16, 128]. Returns
+    (t [8B] f32 -- BIG on a miss, sorted index [8B] int32 -- -1 on a miss).
+    """
+    if rays.device.type == "cpu":
+        return _tile_search_plain(eps, rays, ids, cnt, tc)
+    b, nsub = _check(eps, rays, ids, cnt, tc)
+    t = torch.empty((COHERENT * b,), dtype=torch.float32, device=rays.device)
+    idx = torch.empty((COHERENT * b,), dtype=torch.int32, device=rays.device)
+    if b:
+        _launch(_lib().rt_tile_search, (eps, rays, ids, cnt, tc, t, idx), b, nsub, rays.device)
+        tile_kernel.launches += 1
+    return t, idx
+
+
+def tile_occl_kernel(eps, rays, ids, cnt, tc):
+    """K6, any hit per ray with eps <= t < t_limit over each bundle's list.
+
+    Inputs as `tile_kernel`, with t_limit read. Returns int32 [8B]
+    (1 = occluded).
+    """
+    if rays.device.type == "cpu":
+        return _tile_occl_plain(eps, rays, ids, cnt, tc)
+    b, nsub = _check(eps, rays, ids, cnt, tc)
+    occ = torch.empty((COHERENT * b,), dtype=torch.int32, device=rays.device)
+    if b:
+        _launch(_lib().rt_tile_occl, (eps, rays, ids, cnt, tc, occ), b, nsub, rays.device)
+        tile_occl_kernel.launches += 1
+    return occ
+
+
+tile_kernel.launches = 0
+tile_occl_kernel.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Search entry points
+# --------------------------------------------------------------------------
+
+
+def _tile_search(o, d, tc, aabbs, eps, t_limit=None):
+    r = o.shape[0]
+    rays, ids, cnt = _prep(o, d, aabbs, t_limit)
+    t, idx = tile_kernel(eps, rays, ids, cnt, tc)
+    return t[:r], idx[:r]
+
+
+def _tile_occl(o, d, t_limit, tc, aabbs, eps):
+    r = o.shape[0]
+    rays, ids, cnt = _prep(o, d, aabbs, t_limit)
+    return tile_occl_kernel(eps, rays, ids, cnt, tc)[:r] > 0
+
+
+def _eps_tensor(eps, device):
+    return torch.as_tensor(eps, dtype=torch.float32, device=device).reshape(1)
+
+
+def _orig(idx, perm):
+    """Sorted index -> original index through perm (-1 stays -1)."""
+    return torch.where(idx >= 0, perm[torch.clamp(idx, min=0).long()], NO_HIT)
+
+
+def tile_tri_search(o, d, tris: TriangleBuffer, eps, t_limit=None):
+    """tri_search hook (core/intersect.py contract): (best_t [R], orig idx [R]).
+
+    `t_limit` only culls (see the module docstring). Segments combine
+    first-wins: an earlier segment keeps a tie.
+    """
+    eps_arr = _eps_tensor(eps, o.device)
+    r = o.shape[0]
+    best_t = torch.full((r,), BIG, dtype=torch.float32, device=o.device)
+    best_i = torch.full((r,), NO_HIT, dtype=torch.int32, device=o.device)
+    segments, _, _ = _sliced(tris)
+    for tc, aabbs, perm_k in segments:
+        t_k, idx_k = _tile_search(o, d, tc, aabbs, eps_arr, t_limit)
+        better = t_k < best_t
+        best_t = torch.where(better, t_k, best_t)
+        best_i = torch.where(better, _orig(idx_k, perm_k), best_i)
+    return best_t, best_i
+
+
+def tile_occlusion(o, d, t_limit, tris: TriangleBuffer, eps) -> torch.Tensor:
+    """Occlusion [R] bool: any accepted hit in (eps, t_limit)."""
+    eps_arr = _eps_tensor(eps, o.device)
+    occluded = torch.zeros((o.shape[0],), dtype=torch.bool, device=o.device)
+    segments, ov_buf, _ = _sliced(tris, exclude_oversized=True)
+    for tc, aabbs, _ in segments:
+        occluded |= _tile_occl(o, d, t_limit, tc, aabbs, eps_arr)
+    return occluded | _oversized_occl(o, d, t_limit, ov_buf, eps)
+
+
+tile_tri_search.occlusion = tile_occlusion

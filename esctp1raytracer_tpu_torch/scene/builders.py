@@ -7,8 +7,9 @@ per-triangle material and a compacted light-face table; `icosphere_mesh`,
 Scenes: `bench_scene()` (the benchmark workload: two subdivision-4
 icospheres, a ground plane and an area light, 10,244 triangles), the
 Cornell box and its variants (`cornell_box`, `cornell_variant`), and the
-BASELINE configs 1, 2 and 4 (`sphere_plane_scene`, `ten_sphere_scene`,
-`mixed_scene`). Tables are built on the CPU; move them with `.to(device)`.
+BASELINE configs 1 to 5 (`sphere_plane_scene`, `ten_sphere_scene`,
+`mesh_scene`, `mixed_scene`, `random_scene`). Tables are built on the CPU;
+move them with `.to(device)`.
 """
 
 from __future__ import annotations
@@ -448,6 +449,17 @@ def icosphere_mesh(subdivisions: int = 4, radius: float = 1.0,
     return MeshData(name="icosphere", vertices=tri, normals=normals, uv=None, material=mat)
 
 
+def mesh_scene(subdivisions: int = 4) -> Scene:
+    """BASELINE config 3: an icosphere mesh (20 * 4^s triangles), a ground
+    plane and an area light."""
+    meshes = [
+        icosphere_mesh(subdivisions=subdivisions),
+        _ground_plane(),
+        _area_light(center=(0.0, 6.0, 2.0), half=1.5),
+    ]
+    return scene_from_mesh(meshes)
+
+
 def mixed_scene() -> Scene:
     """BASELINE config 4: spheres + mesh, depth-4 reflections, differentiable
     (1,284 triangles, 1,536 once padded; 3 spheres)."""
@@ -482,4 +494,22 @@ def bench_scene() -> Scene:
         _ground_plane(),
         _area_light(center=(0.0, 6.0, 2.0), half=1.5),
     ]
+    return scene_from_mesh(meshes)
+
+
+def random_scene(num_triangles: int = 100_000, seed: int = 0,
+                 extent: float = 20.0) -> Scene:
+    """BASELINE config 5: a soup of `num_triangles` small triangles above a
+    ground plane, and one area light (numpy's RandomState(seed), as in the
+    JAX package, so the tables are equal)."""
+    rng = np.random.RandomState(seed)
+    centers = (rng.rand(num_triangles, 1, 3) - 0.5) * 2.0 * extent
+    centers[..., 1] = np.abs(centers[..., 1]) * 0.5  # keep above ground
+    offsets = (rng.rand(num_triangles, 3, 3) - 0.5) * 0.5
+    tris = (centers + offsets).astype(np.float32)
+    color = (0.3, 0.5, 0.7)
+    mat = Material.make(ka=color, kd=color, ks=(0.2, 0.2, 0.2), ns=16.0)
+    soup = MeshData(name="soup", vertices=tris, normals=None, uv=None, material=mat)
+    meshes = [soup, _ground_plane(half=3 * extent),
+              _area_light(center=(0.0, 1.5 * extent, 0.0), half=extent / 4)]
     return scene_from_mesh(meshes)

@@ -4,10 +4,10 @@ Marked `cuda`: a CUDA kernel has no CPU mode, so these skip where
 `torch.cuda.is_available()` is false. On a machine with the card:
 `python -m pytest --noconftest tests/test_torch_cuda.py -q` (builds the
 kernels with nvcc at first use). Bars:
-* K1, K4 (tests/test_torch_rt_mxu.py): winner agreement >= 99.9% and t
-  within 1e-5 of max(|t|, 1) where winners agree (FMA-contracted sums vs
-  the plain version's separately rounded ones); K2: occlusion agreement
-  >= 99.9%;
+* K1, K4, K5 (tests/test_torch_rt_mxu.py): winner agreement >= 99.9%
+  and t within 1e-5 of max(|t|, 1) where winners agree (FMA-contracted
+  sums vs the plain version's separately rounded ones); K2, K6: occlusion
+  agreement >= 99.9%;
 * K3 (tests/test_fused.py:38-46): at most 0.2% of pixels off by more than
   1e-2, the rest within 3e-5;
 * rendered images within the test_rt_mxu.py image bars of the CPU port.
@@ -21,7 +21,7 @@ torch = pytest.importorskip("torch")
 from esctp1raytracer_tpu_torch.core.camera import Camera  # noqa: E402
 from esctp1raytracer_tpu_torch.core.intersect import EPS, closest_hit  # noqa: E402
 from esctp1raytracer_tpu_torch.core.render import RenderConfig, render  # noqa: E402
-from esctp1raytracer_tpu_torch.kernels import fused_pallas, lane_pallas, rt_mxu  # noqa: E402
+from esctp1raytracer_tpu_torch.kernels import fused_pallas, lane_pallas, rt_mxu, rt_tile  # noqa: E402
 from esctp1raytracer_tpu_torch.parallel.sharding import float_params, merge_params  # noqa: E402
 from esctp1raytracer_tpu_torch.scene import builders as b  # noqa: E402
 
@@ -199,3 +199,111 @@ def test_lane_and_fused_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError, match="counts"):
         fused_pallas.fused_kernel(o, d, torch.arange(256, device=dev), *tables[:5],
                                   tables[5].long(), tables[6], **kw)
+
+
+def _tile_args(tris, o, d, tl, exclude_oversized):
+    tc, aabbs, _, _, _ = rt_tile.tri_constants_sub(tris, exclude_oversized)
+    rays, ids, cnt = rt_tile._prep(o, d, aabbs, tl)
+    return torch.tensor([EPS], device=o.device), rays, ids, cnt, tc
+
+
+def _shadow_rays(sc, o, d, light):
+    hit = closest_hit(o, d, sc, EPS, tri_search=rt_tile.tile_tri_search)
+    hp = o + d * (torch.where(hit.hit, hit.t, 1.0)[:, None] - 1e-4)
+    lv = torch.tensor(light, device=o.device) - hp
+    dist = lv.norm(dim=-1)
+    return hp, lv / dist[:, None], torch.where(hit.hit, dist - 1e-4, -1.0)
+
+
+@pytest.mark.parametrize("name", ["mesh", "soup"])
+def test_tile_kernels_match_plain(dev, name):
+    """K5 and K6 against their plain versions on a camera wavefront (with a
+    sphere-like t-limit hint) and its shadow wavefront; the first bundles'
+    lists are emptied (cnt = 0): those rays miss and are not occluded."""
+    sc = (b.mesh_scene(3) if name == "mesh" else b.random_scene(3000, extent=4.0)).to(dev)
+    cam = CAM if name == "mesh" else Camera.look_at((0.0, 5.0, 12.0), (0.0, 1.0, 0.0),
+                                                    vfov=60.0, aspect=4 / 3)
+    o, d = (x.reshape(-1, 3).contiguous() for x in cam.to(dev).ray_grid(160, 117))
+    tl = torch.full((o.shape[0],), 9.0, device=dev)
+    eps, rays, ids, cnt, tc = _tile_args(sc.triangles, o, d, tl, False)
+    cnt[:4] = 0
+    n0 = rt_tile.tile_kernel.launches
+    t, idx = rt_tile.tile_kernel(eps, rays, ids, cnt, tc)
+    torch.cuda.synchronize()
+    assert rt_tile.tile_kernel.launches == n0 + 1
+    t2, idx2 = rt_tile._tile_search_plain(eps, rays, ids, cnt, tc)
+    same = idx == idx2
+    assert same.float().mean().item() >= 0.999
+    rel = (t - t2).abs()[same] / t2.abs()[same].clamp(min=1.0)
+    assert rel.max().item() < 1e-5
+    assert (idx >= 0).float().mean().item() > 0.3
+    assert bool((idx[:32] == -1).all()) and bool((t[:32] == 1e30).all())
+
+    hp, sd, stl = _shadow_rays(sc, o, d, [0.3, 5.9, 2.2] if name == "mesh" else [0.2, 5.9, 0.1])
+    eps, rays, ids, cnt, tc = _tile_args(sc.triangles, hp, sd, stl, True)
+    cnt[:4] = 0
+    n0 = rt_tile.tile_occl_kernel.launches
+    occ = rt_tile.tile_occl_kernel(eps, rays, ids, cnt, tc)
+    torch.cuda.synchronize()
+    assert rt_tile.tile_occl_kernel.launches == n0 + 1
+    occ2 = rt_tile._tile_occl_plain(eps, rays, ids, cnt, tc)
+    assert (occ == occ2).float().mean().item() >= 0.999
+    assert 0.01 < occ.float().mean().item() < 0.99 and not bool(occ[:32].any())
+
+
+def test_tile_segments_on_card_match_cpu(dev, monkeypatch):
+    """A multi-segment table (TILE_TRI_LIMIT cut to 1024: two segments) on
+    the card against the port on the CPU (plain versions)."""
+    monkeypatch.setattr(rt_tile, "TILE_TRI_LIMIT", 1024)
+    sc = b.mesh_scene(3)
+    o, d = (x.reshape(-1, 3) for x in CAM.ray_grid(96, 72))
+    tl = torch.full((o.shape[0],), 5.5)
+    ref = (*rt_tile.tile_tri_search(o, d, sc.triangles, EPS),
+           rt_tile.tile_occlusion(o, d, tl, sc.triangles, EPS))
+    n0 = (rt_tile.tile_kernel.launches, rt_tile.tile_occl_kernel.launches)
+    tris = sc.to(dev).triangles
+    got = (*rt_tile.tile_tri_search(o.to(dev), d.to(dev), tris, EPS),
+           rt_tile.tile_occlusion(o.to(dev), d.to(dev), tl.to(dev), tris, EPS))
+    torch.cuda.synchronize()
+    assert (rt_tile.tile_kernel.launches, rt_tile.tile_occl_kernel.launches) == (n0[0] + 2,
+                                                                                 n0[1] + 2)
+    same = got[1].cpu() == ref[1]
+    assert same.float().mean().item() >= 0.999
+    rel = (got[0].cpu() - ref[0]).abs()[same] / ref[0].abs()[same].clamp(min=1.0)
+    assert rel.max().item() < 1e-5
+    assert (got[2].cpu() == ref[2]).float().mean().item() >= 0.999
+    assert bool(ref[2].any()) and (ref[1] >= 0).float().mean().item() > 0.3
+
+
+def test_tile_route_on_card_matches_cpu_and_differentiates(dev):
+    sc = b.mesh_scene(3)
+    cfg = RenderConfig(backend="tile")
+    a = render(sc, CAM, 64, 48, cfg).numpy()
+    n0 = (rt_tile.tile_kernel.launches, rt_tile.tile_occl_kernel.launches)
+    scd = sc.to(dev)
+    params = [p.detach().clone().requires_grad_(True) for p in float_params(scd)]
+    o, d = (x.reshape(-1, 3) for x in CAM.to(dev).ray_grid(64, 48))
+    from esctp1raytracer_tpu_torch.core.render import trace_rays
+
+    color = trace_rays(o, d, merge_params(scd, params), torch.arange(o.shape[0], device=dev), cfg)
+    grads = torch.autograd.grad((color * color).sum(), params, allow_unused=True)
+    torch.cuda.synchronize()
+    assert rt_tile.tile_kernel.launches == n0[0] + 1
+    assert rt_tile.tile_occl_kernel.launches == n0[1] + 1
+    diff = np.abs(color.detach().cpu().numpy().reshape(48, 64, 3) - a)
+    assert diff.mean() < 1e-4 and (diff > 1e-2).mean() < 5e-3
+    grads = [g for g in grads if g is not None]
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert sum(bool((g != 0).any()) for g in grads) >= 6
+
+
+def test_tile_wrappers_reject_bad_inputs(dev):
+    sc = b.mesh_scene(2).to(dev)
+    o, d = (x.reshape(-1, 3).contiguous() for x in CAM.to(dev).ray_grid(16, 16))
+    eps, rays, ids, cnt, tc = _tile_args(sc.triangles, o, d, None, False)
+    with pytest.raises(ValueError, match="cnt"):
+        rt_tile.tile_kernel(eps, rays, ids, cnt.long(), tc)
+    with pytest.raises(ValueError, match="rays"):
+        rt_tile.tile_occl_kernel(eps, rays[:, :7].contiguous(), ids, cnt, tc)
+    with pytest.raises(ValueError, match="tc"):
+        rt_tile.tile_kernel(eps, rays, ids, cnt, tc.cpu())

@@ -95,14 +95,14 @@ def test_render_depth2_spheres_mxu_matches_jax():
     assert_images_agree(a, b)
 
 
-def test_gradients_match_jax(scenes):
-    js, ps = scenes
+def _check_gradients(js, ps, backend):
+    """Image and per-leaf gradients of sum(color^2) on a 32x24 frame."""
     w, h = 32, 24
     jc, pc = cameras(w, h)
     o, d = jc.ray_grid(w, h)
     o, d = o.reshape(-1, 3), d.reshape(-1, 3)
     ids = jnp.arange(o.shape[0], dtype=jnp.uint32)
-    jcfg = JRenderConfig(backend="mxtile")
+    jcfg = JRenderConfig(backend=backend)
 
     def j_loss(params):
         color = j_trace_rays(o, d, j_merge_params(js, params), ids, jcfg)
@@ -113,7 +113,7 @@ def test_gradients_match_jax(scenes):
     po, pd = pc.ray_grid(w, h)
     params = [p.clone().requires_grad_(True) for p in float_params(ps)]
     color = pr.trace_rays(po.reshape(-1, 3), pd.reshape(-1, 3), merge_params(ps, params),
-                          torch.arange(w * h), pr.RenderConfig(backend="mxtile"))
+                          torch.arange(w * h), pr.RenderConfig(backend=backend))
     (color * color).sum().backward()
 
     np.testing.assert_allclose(color.detach().numpy(), np.asarray(j_color), atol=1e-5)
@@ -128,6 +128,16 @@ def test_gradients_match_jax(scenes):
         assert np.abs(gp - gj).max() <= tol, (name, np.abs(gp - gj).max(), tol)
         nonzero += bool(np.abs(gj).max() > 0)
     assert nonzero >= 8  # geometry, normals and materials all receive gradient
+
+
+def test_gradients_match_jax(scenes):
+    _check_gradients(*scenes, "mxtile")
+
+
+def test_tile_gradients_match_jax(scenes):
+    """The tile route (K5/K6): the search runs under no_grad, the gradient
+    flows through the winner gather and the recompute, as on mxtile."""
+    _check_gradients(*scenes, "tile")
 
 
 def _scene_pair(capacity, lights=True, spheres=0):
@@ -169,13 +179,6 @@ def test_resolve_backend_matches_jax(capacity, lit, spheres, over, expected):
     assert pr.resolve_backend(pr.RenderConfig(**over), ps) == expected
 
 
-def test_unported_routes_raise(scenes):
-    _, ps = scenes
-    _, pc = cameras(8, 6)
-    with pytest.raises(NotImplementedError, match="K5"):
-        pr.render(ps, pc, 8, 6, pr.RenderConfig(backend="tile"))
-
-
 def _same_rays_frames(js, ps, w, h, over, eye=VIEW["lookfrom"]):
     """JAX and port traces of the same rays (JAX's camera, as numpy)."""
     cam = JCamera.look_at(eye, VIEW["lookat"], vfov=VIEW["vfov"], aspect=w / h)
@@ -194,13 +197,30 @@ def _same_rays_frames(js, ps, w, h, over, eye=VIEW["lookfrom"]):
     (dict(backend="lane"), "lane"),
     (dict(backend="auto", depth=5), "lane"),  # past the fused depth limit
     (dict(backend="mxtile", light_mode="reference_cpp"), "mxtile"),
+    (dict(backend="tile"), "tile"),
 ])
 def test_ported_routes_match_jax(scenes, over, route):
-    """The routes that raised before K3, K4 and reference_cpp sampling were
+    """The routes that raised before K3-K6 and reference_cpp sampling were
     ported now render, and agree with JAX (tests/test_fused.py's bars)."""
     js, ps = scenes
     assert pr.resolve_backend(pr.RenderConfig(**over), ps) == route
     a, b = _same_rays_frames(js, ps, 16, 12, over)
+    assert np.isfinite(b).all() and b.max() > 0.1
+    diff = np.abs(a - b).max(-1)
+    flipped = diff > 1e-2
+    assert flipped.mean() <= 2e-3 and np.abs(a - b)[~flipped].max() <= 3e-5
+
+
+@pytest.mark.parametrize("capacity,over", [
+    (10_752, dict(backend="fused")),  # over 4096 triangles: the gate's fallback
+    (33_280, dict(backend="auto")),   # over MXU_TRI_LIMIT
+])
+def test_tile_routes_match_jax(capacity, over):
+    """The normal entry points that resolve to tile render and agree with
+    JAX (tests/test_fused.py's bars), on a 300-ray frame."""
+    js, ps = _scene_pair(capacity)
+    assert pr.resolve_backend(pr.RenderConfig(**over), ps) == "tile"
+    a, b = _same_rays_frames(js, ps, 20, 15, over)
     assert np.isfinite(b).all() and b.max() > 0.1
     diff = np.abs(a - b).max(-1)
     flipped = diff > 1e-2

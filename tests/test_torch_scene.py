@@ -82,11 +82,15 @@ class TestScene:
         "cornell_box", "cornell_box_clean",
         *(f"cornell_variant:{v}" for v in pb.CORNELL_VARIANTS),
         "sphere_plane_scene", "ten_sphere_scene", "mixed_scene",
+        "mesh_scene", "mesh_scene:2", "random_scene:3000", "random_scene:517:7",
     ])
     def test_scene_builders_match_jax(self, build):
         name, _, arg = build.partition(":")
         if name == "cornell_box_clean":
             js, ps = jb.cornell_box(faithful_shapes=False), pb.cornell_box(faithful_shapes=False)
+        elif name in ("mesh_scene", "random_scene") and arg:  # (size[, seed])
+            nums = [int(a) for a in arg.split(":")]
+            js, ps = getattr(jb, name)(*nums), getattr(pb, name)(*nums)
         elif arg:
             js, ps = getattr(jb, name)(arg), getattr(pb, name)(arg)
         else:
