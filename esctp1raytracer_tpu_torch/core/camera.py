@@ -34,8 +34,9 @@ class Camera:
         vup=(0.0, 1.0, 0.0),
         vfov: float = 60.0,
         aspect: float = 4.0 / 3.0,
-        device=None,
+        device="cuda",
     ) -> "Camera":
+        """The camera on `device`: the card unless the caller names another."""
         f32 = dict(dtype=torch.float32, device=device)
         lookfrom = torch.as_tensor(lookfrom, **f32)
         lookat = torch.as_tensor(lookat, **f32)

@@ -6,31 +6,40 @@ sub-blocks of SUB = 128, each a [16, 128] slab of plane/barycentric
 constants: the table `tc` [NSUB, 16, 128] holds per triangle the normal,
 n.v0, w_u, b_u, w_v, b_v and keep (13 rows, padded to 16); dropped
 triangles have a zero normal, so det == 0 rejects them. Rays go in
-bundles of COHERENT = 8; a slab-test pre-pass gives every bundle an
-ascending list of the sub-blocks one of its rays can hit (`ids`) and
-their number (`cnt`). Two kernels, hand-written in CUDA
-(`csrc/rt_tile.cu`), then sweep those lists:
+bundles of COHERENT = 8. A bundle visits, in ascending order, the
+sub-blocks whose box (`aabbs` [8, NSUB]) one of its rays keeps in a slab
+test (`kernels/cull.py:block_cull_mask`). Two kernels, hand-written in
+CUDA (`csrc/rt_tile.cu`), take the padded rays, the boxes and the table,
+and cull and sweep per bundle:
 
 * `tile_kernel` (K5): closest hit per ray -- minimum t, ties to the
   lowest sorted index;
-* `tile_occl_kernel` (K6): any hit with eps <= t < t_limit per ray.
+* `tile_occl_kernel` (K6): any hit with eps <= t < t_limit per ray, over
+  the culled sub-blocks and, when given, one extra sub-block that every
+  ray tests (the oversized triangles).
 
+The JAX package builds each bundle's list in device memory first (a
+slab-test pre-pass compacted by a stable argsort, `_lists` here); the
+kernels build theirs in registers and skip padding-only sub-blocks
+(inverted box: every triangle there is dropped), which changes no result.
 Each kernel has a plain PyTorch version beside it (`_tile_search_plain`,
-`_tile_occl_plain`) with the same lists, visit order and tie rule. A
-wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises. Each wrapper counts its kernel launches
-in its `launches` attribute. The per-pair test is the one K3 and K4 use
+`_tile_occl_plain`) with the same arguments: it builds the JAX package's
+lists and sweeps them with the same visit order and tie rule. A wrapper
+given CPU tensors runs the plain version; given CUDA tensors it launches
+the kernel or raises. Each wrapper counts its kernel launches in its
+`launches` attribute. The per-pair test is the one K3 and K4 use
 (`lane_pallas.plane_pair`, `csrc/lane_plane.cuh`).
 
 The closest-hit search culls with its caller's `t_limit` (a sphere hit,
 say) but never clamps t to it, as the JAX kernel does: a kept sub-block
 may still return a hit beyond the limit. Oversized triangles (ground
 planes, area lights) stay in the search table; the occlusion excludes up
-to OVER_CAP of them and sweeps them with tensor ops instead
-(`_oversized_occl`): their shared box could never be culled by a shadow
-ray's t-limit, while out here the floor fails the direction test and the
-light's tight box fails the t-window. Tables over TILE_TRI_LIMIT
-triangles go through in segments, combined first-wins.
+to OVER_CAP of them from the segment tables and K6 tests them as one
+extra sub-block in the first segment's launch: their shared box could
+never be culled by a shadow ray's t-limit, while out here the floor
+fails the direction test and the light's tight box fails the t-window.
+Tables over TILE_TRI_LIMIT triangles go through in segments, combined
+first-wins.
 """
 
 from __future__ import annotations
@@ -51,10 +60,10 @@ RAY_GROUP = 128  # rays are padded to a multiple of this, as in the JAX package
 COHERENT = 8  # rays per bundle = one warp's rays in the kernels
 SUB = 128  # triangles per sub-block
 TILE_TRI_LIMIT = 131_072  # triangles per segment: NSUB <= 1024
-OVER_CAP = 128
+OVER_CAP = 128  # oversized triangles excluded from the occlusion tables: one sub-block
 ROWS = 16  # constant rows per sub-block (13 used)
 RAY_W = 8  # floats per ray: o, d, t_limit, pad
-# The cull pre-pass holds ~40 bytes per (ray, sub-block) pair of slab
+# The list builder holds ~40 bytes per (ray, sub-block) pair of slab
 # temporaries at its peak (kernels/cull.py), so it streams in ray chunks
 # of about this many pairs: 64M pairs keep the peak near 2.7 GB, and
 # config 5 (8.3M rays x 784 sub-blocks) runs in 98 chunks. Any chunk that
@@ -155,7 +164,8 @@ def _pack_sub(sorted_tris: TriangleBuffer, exclude=None):
 
     Invalid or excluded triangles get a zero normal (det == 0 rejects
     them; their w rows are NaN, as in the JAX package, and never read
-    past the det test) and an inverted box.
+    past the det test) and an inverted box. Given the OVER_CAP oversized
+    triangles, it computes `_oversized_hits`' constants with its ops.
     """
     npad = sorted_tris.capacity
     keep = sorted_tris.valid
@@ -196,7 +206,7 @@ def _sliced(tris: TriangleBuffer, exclude_oversized: bool = False):
     Returns (generator of (tc [NSUB, 16, 128], aabbs [8, NSUB], perm_k
     [NSUB * 128] padded with -1), ov_buf, ov_orig). With exclude_oversized
     the tables reject the (up to OVER_CAP) oversized triangles, and the
-    caller ORs in `_oversized_occl(ov_buf)` once, outside the segment loop.
+    caller tests `ov_buf` once, outside the segments' tables.
     """
     sorted_tris, perm, exclude, ov_buf, ov_orig = _clustered_tables(tris)
     nseg = -(-tris.capacity // TILE_TRI_LIMIT)
@@ -223,8 +233,24 @@ def tri_constants_sub(tris: TriangleBuffer, exclude_oversized: bool = False):
 
 
 # --------------------------------------------------------------------------
-# The cull pre-pass
+# Rays and the JAX package's per-bundle lists
 # --------------------------------------------------------------------------
+
+
+def _pad_rays(o, d, t_limit=None):
+    """Pad rays to RAY_GROUP and pack them: rays [Rp, 8] (o, d, t_limit, 0).
+    Without a t_limit the column holds +inf, which culls nothing
+    (`tn > inf` is false, NaN included). Pad rays (origin 0, direction +z,
+    t_limit -1 when there is one) are the JAX package's, so the lists of a
+    partly padded bundle are too."""
+    pad = (-o.shape[0]) % RAY_GROUP
+    if pad:
+        o = torch.cat([o, o.new_zeros((pad, 3))])
+        d = torch.cat([d, d.new_tensor([[0.0, 0.0, 1.0]]).expand(pad, 3)])
+        if t_limit is not None:
+            t_limit = torch.cat([t_limit, t_limit.new_full((pad,), -1.0)])
+    tl = o.new_full((o.shape[0], 1), float("inf")) if t_limit is None else t_limit[:, None]
+    return torch.cat([o, d, tl, o.new_zeros((o.shape[0], RAY_W - 7))], dim=1)
 
 
 def _cull_lists(o, d, t_limit, aabbs):
@@ -238,39 +264,24 @@ def _cull_lists(o, d, t_limit, aabbs):
     return ids, torch.sum(gmask, dim=1, dtype=torch.int32)
 
 
-def _prep(o, d, aabbs, t_limit=None):
-    """Pad rays to RAY_GROUP, cull, and compact per-bundle sub-block lists.
-
-    Returns (rays [Rp, 8] (o, d, t_limit or 0, 0), ids [Rp / 8, NSUB]
-    int32, cnt [Rp / 8] int32). Row b of `ids` lists, ascending in its
-    first cnt[b] entries, the sub-blocks some ray of bundle b can hit.
-    Pad rays (origin 0, direction +z, t_limit -1) are the JAX package's,
-    so the lists of a partly padded bundle are too. The pre-pass streams
-    in ray chunks of about _PREPASS_ELEMS (ray, sub-block) pairs (one
-    chunk for a small wavefront).
-    """
-    r = o.shape[0]
-    pad = (-r) % RAY_GROUP
-    if pad:
-        o = torch.cat([o, o.new_zeros((pad, 3))])
-        d = torch.cat([d, d.new_tensor([[0.0, 0.0, 1.0]]).expand(pad, 3)])
-        if t_limit is not None:
-            t_limit = torch.cat([t_limit, t_limit.new_full((pad,), -1.0)])
-    rp = r + pad
-    nsub = aabbs.shape[1]
+def _lists(rays, aabbs):
+    """The JAX package's cull pre-pass (`_prep`, argsort mode) on padded
+    rays [Rp, 8]: (ids [Rp / 8, NSUB] int32, cnt [Rp / 8] int32). Row b of
+    `ids` lists, ascending in its first cnt[b] entries, the sub-blocks some
+    ray of bundle b keeps, culling by the rays' t_limit (+inf: no cull).
+    Streams in ray chunks of about _PREPASS_ELEMS (ray, sub-block) pairs
+    (one chunk for a small wavefront)."""
+    rp, nsub = rays.shape[0], aabbs.shape[1]
     # The JAX package coarsens the cull above 1024 sub-blocks; a segment
     # never has more (TILE_TRI_LIMIT / SUB), so that path is not carried over.
     assert nsub <= TILE_TRI_LIMIT // SUB, nsub
     chunk = max(RAY_GROUP, _PREPASS_ELEMS // nsub // RAY_GROUP * RAY_GROUP)
-    ids = torch.empty((rp // COHERENT, nsub), dtype=torch.int32, device=o.device)
-    cnt = torch.empty((rp // COHERENT,), dtype=torch.int32, device=o.device)
+    ids = torch.empty((rp // COHERENT, nsub), dtype=torch.int32, device=rays.device)
+    cnt = torch.empty((rp // COHERENT,), dtype=torch.int32, device=rays.device)
     for i in range(0, rp, chunk):
-        sl, bl = slice(i, i + chunk), slice(i // COHERENT, (i + chunk) // COHERENT)
-        ids[bl], cnt[bl] = _cull_lists(o[sl], d[sl], None if t_limit is None
-                                       else t_limit[sl], aabbs)
-    tl = o.new_zeros((rp, 1)) if t_limit is None else t_limit[:, None]
-    rays = torch.cat([o, d, tl, o.new_zeros((rp, RAY_W - 7))], dim=1)
-    return rays, ids, cnt
+        r, bl = rays[i:i + chunk], slice(i // COHERENT, (i + chunk) // COHERENT)
+        ids[bl], cnt[bl] = _cull_lists(r[:, 0:3], r[:, 3:6], r[:, 6], aabbs)
+    return ids, cnt
 
 
 # --------------------------------------------------------------------------
@@ -290,9 +301,9 @@ def _block_pairs(tc, jb, o, d, eps):
     return plane_pair(o, d, [c[:, i] for i in range(12)], eps)
 
 
-def _tile_search_plain(eps, rays, ids, cnt, tc):
-    """Plain version of K5: (t [Rp] f32 -- BIG on a miss, sorted idx [Rp]
-    int32 -- -1 on a miss).
+def _sweep_search(eps, rays, ids, cnt, tc):
+    """K5's sweep of given lists: (t [Rp] f32 -- BIG on a miss, sorted idx
+    [Rp] int32 -- -1 on a miss).
 
     A running (t, sub-block) per (ray, lane) over the bundle's ascending
     list, updated on strict <, then the lowest index among the lanes at
@@ -317,8 +328,8 @@ def _tile_search_plain(eps, rays, ids, cnt, tc):
     return tmin.reshape(-1), torch.where(tmin < BIG, imin, NO_HIT).reshape(-1)
 
 
-def _tile_occl_plain(eps, rays, ids, cnt, tc):
-    """Plain version of K6: occluded [Rp] int32 (1 = some hit with
+def _sweep_occl(eps, rays, ids, cnt, tc):
+    """K6's sweep of given lists: occluded [Rp] int32 (1 = some hit with
     eps <= t < t_limit in the bundle's list)."""
     eps = float(eps.reshape(-1)[0])
     b = cnt.shape[0]
@@ -328,6 +339,28 @@ def _tile_occl_plain(eps, rays, ids, cnt, tc):
         t, ok = _block_pairs(tc, ids[:, k], o, d, eps)
         occ |= torch.any(ok & (t < tl), dim=-1) & (k < cnt)[:, None]
     return occ.to(torch.int32).reshape(-1)
+
+
+def _tile_search_plain(eps, rays, aabbs, tc, cnt_out=None):
+    """Plain version of K5: the JAX package's lists (`_lists`), swept by
+    `_sweep_search`. Writes the lists' lengths to cnt_out when given."""
+    ids, cnt = _lists(rays, aabbs)
+    if cnt_out is not None:
+        cnt_out.copy_(cnt)
+    return _sweep_search(eps, rays, ids, cnt, tc)
+
+
+def _tile_occl_plain(eps, rays, aabbs, tc, ov=None, cnt_out=None):
+    """Plain version of K6: the JAX package's lists (`_lists`), swept by
+    `_sweep_occl`, ORed with every ray against the sub-block `ov`
+    [1, 16, 128] when given. Writes the lists' lengths to cnt_out."""
+    ids, cnt = _lists(rays, aabbs)
+    if cnt_out is not None:
+        cnt_out.copy_(cnt)
+    occ = _sweep_occl(eps, rays, ids, cnt, tc)
+    if ov is not None:
+        occ |= _sweep_occl(eps, rays, ids.new_zeros((cnt.shape[0], 1)), torch.ones_like(cnt), ov)
+    return occ
 
 
 # --------------------------------------------------------------------------
@@ -342,62 +375,92 @@ def _lib():
     if _LIB is None:
         lib = _build.load("rt_tile")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.rt_tile_search.argtypes = [vp] * 7 + [ci, ci, vp]
-        lib.rt_tile_occl.argtypes = [vp] * 6 + [ci, ci, vp]
+        lib.rt_tile_search.argtypes = [vp] * 8 + [ci, ci, vp]
+        lib.rt_tile_occl.argtypes = [vp] * 8 + [ci, ci, vp]
         lib.rt_tile_search.restype = lib.rt_tile_occl.restype = ci
         _LIB = lib
     return _LIB
 
 
-def _check(eps, rays, ids, cnt, tc):
+def _check(eps, rays, aabbs, tc, ov=None, cnt_out=None):
     """Validate the kernels' inputs; returns (bundles, NSUB)."""
     dev = rays.device
     if dev.type != "cuda":
         raise ValueError(f"tile kernels take CUDA or CPU tensors, got {dev}")
-    b, nsub = ids.shape
-    _build.check_tensors({
-        "eps": (eps, torch.float32, (1,)), "rays": (rays, torch.float32, (COHERENT * b, RAY_W)),
-        "ids": (ids, torch.int32, (b, nsub)), "cnt": (cnt, torch.int32, (b,)),
-        "tc": (tc, torch.float32, (nsub, ROWS, SUB)),
-    }, dev)
+    b, nsub = rays.shape[0] // COHERENT, aabbs.shape[1]
+    if nsub > TILE_TRI_LIMIT // SUB:
+        raise ValueError(f"aabbs: {nsub} sub-blocks, the kernels take at most "
+                         f"{TILE_TRI_LIMIT // SUB}")
+    want = {"eps": (eps, torch.float32, (1,)), "rays": (rays, torch.float32, (COHERENT * b, RAY_W)),
+            "aabbs": (aabbs, torch.float32, (8, nsub)),
+            "tc": (tc, torch.float32, (nsub, ROWS, SUB))}
+    if ov is not None:
+        want["ov"] = (ov, torch.float32, (1, ROWS, SUB))
+    if cnt_out is not None:
+        want["cnt_out"] = (cnt_out, torch.int32, (b,))
+    _build.check_tensors(want, dev)
     return b, nsub
 
 
-def _launch(fn, tensors, b, nsub, device):
-    stream = torch.cuda.current_stream(device).cuda_stream
-    _build.check_launch(_lib(), "rt_tile", fn(*(t.data_ptr() for t in tensors), b, nsub, stream))
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
-def tile_kernel(eps, rays, ids, cnt, tc):
-    """K5, closest hit per ray over each bundle's sub-block list.
+def _group_boxes(aabbs):
+    """The kernels' first cull level, [8, ceil(NSUB / 32)]: per run of 32
+    sub-blocks, the union of the boxes that are not inverted (rows 0-5;
+    inverted where every one is: padding only) and, in row 6, 1 where one
+    of them is inverted (padding only, which the union does not contain:
+    counting a bundle's kept sub-blocks tests such a group box by box)."""
+    nsub = aabbs.shape[1]
+    pad = (-nsub) % 32
+    inverted = (aabbs[0:3] > aabbs[3:6]).any(0)
+    lo = torch.cat([aabbs[0:3], aabbs.new_full((3, pad), float("inf"))], 1).reshape(3, -1, 32)
+    hi = torch.cat([aabbs[3:6], aabbs.new_full((3, pad), float("-inf"))], 1).reshape(3, -1, 32)
+    flag = torch.cat([inverted, inverted.new_zeros(pad)]).reshape(1, -1, 32).any(-1)
+    return torch.cat([lo.amin(-1), hi.amax(-1), flag.to(aabbs.dtype),
+                      aabbs.new_zeros((1, flag.shape[1]))]).contiguous()
 
-    eps f32 [1]; rays f32 [8B, 8] (o, d, t_limit, pad; t_limit unread);
-    ids int32 [B, NSUB]; cnt int32 [B]; tc f32 [NSUB, 16, 128]. Returns
-    (t [8B] f32 -- BIG on a miss, sorted index [8B] int32 -- -1 on a miss).
+
+def tile_kernel(eps, rays, aabbs, tc, cnt_out=None):
+    """K5, closest hit per ray over the sub-blocks each bundle keeps.
+
+    eps f32 [1]; rays f32 [8B, 8] (o, d, t_limit, pad; from `_pad_rays`;
+    t_limit only culls, t is never clamped to it); aabbs f32 [8, NSUB]; tc
+    f32 [NSUB, 16, 128]; cnt_out int32 [B] or None: receives each bundle's
+    kept count (padding-only sub-blocks included; counting them costs the
+    kernel a box-by-box test of their groups). Returns (t [8B] f32 -- BIG
+    on a miss, sorted index [8B] int32 -- -1 on a miss).
     """
     if rays.device.type == "cpu":
-        return _tile_search_plain(eps, rays, ids, cnt, tc)
-    b, nsub = _check(eps, rays, ids, cnt, tc)
+        return _tile_search_plain(eps, rays, aabbs, tc, cnt_out)
+    b, nsub = _check(eps, rays, aabbs, tc, cnt_out=cnt_out)
     t = torch.empty((COHERENT * b,), dtype=torch.float32, device=rays.device)
     idx = torch.empty((COHERENT * b,), dtype=torch.int32, device=rays.device)
     if b:
-        _launch(_lib().rt_tile_search, (eps, rays, ids, cnt, tc, t, idx), b, nsub, rays.device)
+        stream = torch.cuda.current_stream(rays.device).cuda_stream
+        ptrs = (_ptr(x) for x in (eps, rays, aabbs, _group_boxes(aabbs), tc, t, idx, cnt_out))
+        err = _lib().rt_tile_search(*ptrs, b, nsub, stream)
+        _build.check_launch(_lib(), "rt_tile", err)
         tile_kernel.launches += 1
     return t, idx
 
 
-def tile_occl_kernel(eps, rays, ids, cnt, tc):
-    """K6, any hit per ray with eps <= t < t_limit over each bundle's list.
-
-    Inputs as `tile_kernel`, with t_limit read. Returns int32 [8B]
-    (1 = occluded).
+def tile_occl_kernel(eps, rays, aabbs, tc, ov=None, cnt_out=None):
+    """K6, any hit per ray with eps <= t < t_limit over the sub-blocks each
+    bundle keeps, and over the sub-block ov f32
+    [1, 16, 128] for every ray when given. Other inputs as `tile_kernel`.
+    Returns int32 [8B] (1 = occluded).
     """
     if rays.device.type == "cpu":
-        return _tile_occl_plain(eps, rays, ids, cnt, tc)
-    b, nsub = _check(eps, rays, ids, cnt, tc)
+        return _tile_occl_plain(eps, rays, aabbs, tc, ov, cnt_out)
+    b, nsub = _check(eps, rays, aabbs, tc, ov, cnt_out)
     occ = torch.empty((COHERENT * b,), dtype=torch.int32, device=rays.device)
     if b:
-        _launch(_lib().rt_tile_occl, (eps, rays, ids, cnt, tc, occ), b, nsub, rays.device)
+        stream = torch.cuda.current_stream(rays.device).cuda_stream
+        ptrs = (_ptr(x) for x in (eps, rays, aabbs, _group_boxes(aabbs), tc, ov, occ, cnt_out))
+        err = _lib().rt_tile_occl(*ptrs, b, nsub, stream)
+        _build.check_launch(_lib(), "rt_tile", err)
         tile_occl_kernel.launches += 1
     return occ
 
@@ -409,19 +472,6 @@ tile_occl_kernel.launches = 0
 # --------------------------------------------------------------------------
 # Search entry points
 # --------------------------------------------------------------------------
-
-
-def _tile_search(o, d, tc, aabbs, eps, t_limit=None):
-    r = o.shape[0]
-    rays, ids, cnt = _prep(o, d, aabbs, t_limit)
-    t, idx = tile_kernel(eps, rays, ids, cnt, tc)
-    return t[:r], idx[:r]
-
-
-def _tile_occl(o, d, t_limit, tc, aabbs, eps):
-    r = o.shape[0]
-    rays, ids, cnt = _prep(o, d, aabbs, t_limit)
-    return tile_occl_kernel(eps, rays, ids, cnt, tc)[:r] > 0
 
 
 def _eps_tensor(eps, device):
@@ -441,11 +491,13 @@ def tile_tri_search(o, d, tris: TriangleBuffer, eps, t_limit=None):
     """
     eps_arr = _eps_tensor(eps, o.device)
     r = o.shape[0]
+    rays = _pad_rays(o, d, t_limit)
     best_t = torch.full((r,), BIG, dtype=torch.float32, device=o.device)
     best_i = torch.full((r,), NO_HIT, dtype=torch.int32, device=o.device)
     segments, _, _ = _sliced(tris)
     for tc, aabbs, perm_k in segments:
-        t_k, idx_k = _tile_search(o, d, tc, aabbs, eps_arr, t_limit)
+        t_k, idx_k = tile_kernel(eps_arr, rays, aabbs, tc)
+        t_k, idx_k = t_k[:r], idx_k[:r]
         better = t_k < best_t
         best_t = torch.where(better, t_k, best_t)
         best_i = torch.where(better, _orig(idx_k, perm_k), best_i)
@@ -453,13 +505,17 @@ def tile_tri_search(o, d, tris: TriangleBuffer, eps, t_limit=None):
 
 
 def tile_occlusion(o, d, t_limit, tris: TriangleBuffer, eps) -> torch.Tensor:
-    """Occlusion [R] bool: any accepted hit in (eps, t_limit)."""
+    """Occlusion [R] bool: any accepted hit in (eps, t_limit). The oversized
+    triangles go to the first segment's K6 launch as one extra sub-block."""
     eps_arr = _eps_tensor(eps, o.device)
-    occluded = torch.zeros((o.shape[0],), dtype=torch.bool, device=o.device)
+    r = o.shape[0]
+    rays = _pad_rays(o, d, t_limit)
+    occluded = torch.zeros((r,), dtype=torch.bool, device=o.device)
     segments, ov_buf, _ = _sliced(tris, exclude_oversized=True)
-    for tc, aabbs, _ in segments:
-        occluded |= _tile_occl(o, d, t_limit, tc, aabbs, eps_arr)
-    return occluded | _oversized_occl(o, d, t_limit, ov_buf, eps)
+    ov, _ = _pack_sub(ov_buf)
+    for k, (tc, aabbs, _) in enumerate(segments):
+        occluded |= tile_occl_kernel(eps_arr, rays, aabbs, tc, ov if k == 0 else None)[:r] > 0
+    return occluded
 
 
 tile_tri_search.occlusion = tile_occlusion

@@ -8,8 +8,9 @@ Scenes: `bench_scene()` (the benchmark workload: two subdivision-4
 icospheres, a ground plane and an area light, 10,244 triangles), the
 Cornell box and its variants (`cornell_box`, `cornell_variant`), and the
 BASELINE configs 1 to 5 (`sphere_plane_scene`, `ten_sphere_scene`,
-`mesh_scene`, `mixed_scene`, `random_scene`). Tables are built on the CPU;
-move them with `.to(device)`.
+`mesh_scene`, `mixed_scene`, `random_scene`). Tables are built with numpy
+on the host and land on `device`, the card unless the caller names
+another (`device="cpu"`, as the CPU tests do).
 """
 
 from __future__ import annotations
@@ -35,8 +36,9 @@ def scene_from_mesh(
     meshes: Sequence[MeshData],
     spheres: Optional[SphereBuffer] = None,
     pad_multiple: int = DEFAULT_PAD_MULTIPLE,
+    device="cuda",
 ) -> Scene:
-    """Flatten loaded geometries into a padded Scene."""
+    """Flatten loaded geometries into a padded Scene on `device`."""
     total = sum(m.num_faces for m in meshes)
     if total == 0:
         raise ValueError("scene has no triangles")
@@ -115,7 +117,7 @@ def scene_from_mesh(
     if spheres is None:
         spheres = SphereBuffer.empty(8)
 
-    return Scene(triangles=triangles, spheres=spheres, lights=lights)
+    return Scene(triangles=triangles, spheres=spheres, lights=lights).to(device)
 
 
 def make_spheres(
@@ -225,9 +227,10 @@ def cornell_meshes(faithful_shapes: bool = True) -> List[MeshData]:
 
 
 def cornell_box(pad_multiple: int = DEFAULT_PAD_MULTIPLE,
-                faithful_shapes: bool = True) -> Scene:
+                faithful_shapes: bool = True, device="cuda") -> Scene:
     """The canonical benchmark scene: 36 triangles, one area light."""
-    return scene_from_mesh(cornell_meshes(faithful_shapes), pad_multiple=pad_multiple)
+    return scene_from_mesh(cornell_meshes(faithful_shapes), pad_multiple=pad_multiple,
+                           device=device)
 
 
 # --- Cornell variants (procedural equivalents of the reference's model files)
@@ -313,7 +316,7 @@ CORNELL_VARIANTS = ("original", "mirror", "glossy", "sphere", "water", "empty_co
                     "empty_rg", "empty_white", "empty_squashed", "empty_nolight")
 
 
-def cornell_variant(name: str = "original") -> Scene:
+def cornell_variant(name: str = "original", device="cuda") -> Scene:
     """Procedural equivalents of the reference's Cornell model variants.
 
     original | mirror (tallBox -> 0.95 specular, Ns 1000) | glossy (shortBox
@@ -323,11 +326,11 @@ def cornell_variant(name: str = "original") -> Scene:
     empty_nolight (no emissive geometry).
     """
     if name == "original":
-        return cornell_box()
+        return cornell_box(device=device)
     if name == "mirror":
-        return scene_from_mesh(_cornell_shell({"tallBox": _MIRROR_MATERIAL}))
+        return scene_from_mesh(_cornell_shell({"tallBox": _MIRROR_MATERIAL}), device=device)
     if name == "glossy":
-        return scene_from_mesh(_cornell_shell({"shortBox": _GLOSSY_MATERIAL}))
+        return scene_from_mesh(_cornell_shell({"shortBox": _GLOSSY_MATERIAL}), device=device)
     no_boxes = ("shortBox", "tallBox")
     if name == "sphere":
         spheres = make_spheres(
@@ -335,9 +338,11 @@ def cornell_variant(name: str = "original") -> Scene:
             radii=[0.325, 0.325],
             materials=[_LEFT_SPHERE_MATERIAL, _RIGHT_SPHERE_MATERIAL],
         )
-        return scene_from_mesh(_cornell_shell(drop_groups=no_boxes), spheres=spheres)
+        return scene_from_mesh(_cornell_shell(drop_groups=no_boxes), spheres=spheres,
+                               device=device)
     if name == "water":
-        return scene_from_mesh(_cornell_shell(drop_groups=no_boxes) + [water_surface_mesh()])
+        return scene_from_mesh(_cornell_shell(drop_groups=no_boxes) + [water_surface_mesh()],
+                               device=device)
     if name in _EMPTY_OVERRIDES:
         meshes = _cornell_shell(_EMPTY_OVERRIDES[name], drop_groups=no_boxes)
         if name == "empty_squashed":
@@ -345,9 +350,9 @@ def cornell_variant(name: str = "original") -> Scene:
             meshes = [MeshData(name=m.name, vertices=m.vertices * ys, normals=None, uv=None,
                                material=m.material) for m in meshes]
             meshes.append(water_surface_mesh(n=16, amplitude=0.02, y=0.22))
-        return scene_from_mesh(meshes)
+        return scene_from_mesh(meshes, device=device)
     if name == "empty_nolight":
-        return scene_from_mesh(_cornell_shell(drop_groups=no_boxes + ("light",)))
+        return scene_from_mesh(_cornell_shell(drop_groups=no_boxes + ("light",)), device=device)
     raise ValueError(f"unknown cornell variant {name!r}; expected one of "
                      + "|".join(CORNELL_VARIANTS))
 
@@ -372,7 +377,7 @@ def _area_light(center=(0.0, 5.0, 0.0), half: float = 1.0,
     return _quad_mesh("light", quad, mat)
 
 
-def sphere_plane_scene() -> Scene:
+def sphere_plane_scene(device="cuda") -> Scene:
     """BASELINE config 1: single sphere + ground plane (256², depth 1)."""
     spheres = make_spheres(
         centers=[(0.0, 1.0, 0.0)],
@@ -381,10 +386,10 @@ def sphere_plane_scene() -> Scene:
                                  ks=(0.2, 0.2, 0.2), ns=32.0)],
     )
     meshes = [_ground_plane(), _area_light(center=(0.0, 6.0, 2.0), half=1.5)]
-    return scene_from_mesh(meshes, spheres=spheres)
+    return scene_from_mesh(meshes, spheres=spheres, device=device)
 
 
-def ten_sphere_scene(seed: int = 0) -> Scene:
+def ten_sphere_scene(seed: int = 0, device="cuda") -> Scene:
     """BASELINE config 2: 10-sphere Phong scene with shadows (512², depth 2)."""
     rng = np.random.RandomState(seed)
     centers, radii, mats = [], [], []
@@ -397,7 +402,7 @@ def ten_sphere_scene(seed: int = 0) -> Scene:
         mats.append(Material.make(ka=color, kd=color, ks=(0.3, 0.3, 0.3), ns=64.0))
     spheres = make_spheres(centers, radii, mats)
     meshes = [_ground_plane(), _area_light(center=(0.0, 7.0, 0.0), half=2.0)]
-    return scene_from_mesh(meshes, spheres=spheres)
+    return scene_from_mesh(meshes, spheres=spheres, device=device)
 
 
 def icosphere_mesh(subdivisions: int = 4, radius: float = 1.0,
@@ -449,7 +454,7 @@ def icosphere_mesh(subdivisions: int = 4, radius: float = 1.0,
     return MeshData(name="icosphere", vertices=tri, normals=normals, uv=None, material=mat)
 
 
-def mesh_scene(subdivisions: int = 4) -> Scene:
+def mesh_scene(subdivisions: int = 4, device="cuda") -> Scene:
     """BASELINE config 3: an icosphere mesh (20 * 4^s triangles), a ground
     plane and an area light."""
     meshes = [
@@ -457,10 +462,10 @@ def mesh_scene(subdivisions: int = 4) -> Scene:
         _ground_plane(),
         _area_light(center=(0.0, 6.0, 2.0), half=1.5),
     ]
-    return scene_from_mesh(meshes)
+    return scene_from_mesh(meshes, device=device)
 
 
-def mixed_scene() -> Scene:
+def mixed_scene(device="cuda") -> Scene:
     """BASELINE config 4: spheres + mesh, depth-4 reflections, differentiable
     (1,284 triangles, 1,536 once padded; 3 spheres)."""
     spheres = make_spheres(
@@ -482,10 +487,10 @@ def mixed_scene() -> Scene:
         _ground_plane(),
         _area_light(center=(0.0, 7.0, 1.0), half=2.0),
     ]
-    return scene_from_mesh(meshes, spheres=spheres)
+    return scene_from_mesh(meshes, spheres=spheres, device=device)
 
 
-def bench_scene() -> Scene:
+def bench_scene(device="cuda") -> Scene:
     """The benchmark scene: 2 * 5120 + 2 + 2 = 10,244 triangles (10,752 padded)."""
     meshes = [
         icosphere_mesh(subdivisions=4, radius=1.0, center=(-1.3, 1.0, 0.0)),
@@ -494,11 +499,11 @@ def bench_scene() -> Scene:
         _ground_plane(),
         _area_light(center=(0.0, 6.0, 2.0), half=1.5),
     ]
-    return scene_from_mesh(meshes)
+    return scene_from_mesh(meshes, device=device)
 
 
 def random_scene(num_triangles: int = 100_000, seed: int = 0,
-                 extent: float = 20.0) -> Scene:
+                 extent: float = 20.0, device="cuda") -> Scene:
     """BASELINE config 5: a soup of `num_triangles` small triangles above a
     ground plane, and one area light (numpy's RandomState(seed), as in the
     JAX package, so the tables are equal)."""
@@ -512,4 +517,4 @@ def random_scene(num_triangles: int = 100_000, seed: int = 0,
     soup = MeshData(name="soup", vertices=tris, normals=None, uv=None, material=mat)
     meshes = [soup, _ground_plane(half=3 * extent),
               _area_light(center=(0.0, 1.5 * extent, 0.0), half=extent / 4)]
-    return scene_from_mesh(meshes)
+    return scene_from_mesh(meshes, device=device)

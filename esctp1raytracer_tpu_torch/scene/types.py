@@ -213,11 +213,11 @@ class Scene(_Table):
         return self.lights.num_lights
 
 
-def scene_from_numpy(d: Dict[str, np.ndarray]) -> Scene:
-    """Build a Scene from {dotted leaf name: array} (copies the arrays)."""
+def scene_from_numpy(d: Dict[str, np.ndarray], device="cuda") -> Scene:
+    """Build a Scene on `device` from {dotted leaf name: array} (copies the arrays)."""
 
     def table(cls, prefix):
-        return cls(**{f.name: torch.as_tensor(np.array(d[prefix + f.name]))
+        return cls(**{f.name: torch.as_tensor(np.array(d[prefix + f.name]), device=device)
                       for f in dataclasses.fields(cls)})
 
     return Scene(

@@ -31,7 +31,8 @@ CAM = Camera.look_at((0.0, 2.0, 6.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=1.0)
 
 def to_port(scene):
     return scene_from_numpy({jax.tree_util.keystr(p)[1:]: np.asarray(v)
-                             for p, v in jax.tree_util.tree_flatten_with_path(scene)[0]})
+                             for p, v in jax.tree_util.tree_flatten_with_path(scene)[0]},
+                            device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -4,10 +4,11 @@ Marked `cuda`: a CUDA kernel has no CPU mode, so these skip where
 `torch.cuda.is_available()` is false. On a machine with the card:
 `python -m pytest --noconftest tests/test_torch_cuda.py -q` (builds the
 kernels with nvcc at first use). Bars:
-* K1, K4, K5 (tests/test_torch_rt_mxu.py): winner agreement >= 99.9%
-  and t within 1e-5 of max(|t|, 1) where winners agree (FMA-contracted
-  sums vs the plain version's separately rounded ones); K2, K6: occlusion
-  agreement >= 99.9%;
+* K1, K4 (tests/test_torch_rt_mxu.py): winner agreement >= 99.9% and t
+  within 1e-5 of max(|t|, 1) where winners agree (FMA-contracted sums vs
+  the plain version's separately rounded ones); K2: occlusion agreement
+  >= 99.9%; K5, K6 (built with -fmad=false): equal to their plain
+  versions bit for bit, and so is their kept count per bundle;
 * K3 (tests/test_fused.py:38-46): at most 0.2% of pixels off by more than
   1e-2, the rest within 3e-5;
 * rendered images within the test_rt_mxu.py image bars of the CPU port.
@@ -24,6 +25,7 @@ from esctp1raytracer_tpu_torch.core.render import RenderConfig, render  # noqa: 
 from esctp1raytracer_tpu_torch.kernels import fused_pallas, lane_pallas, rt_mxu, rt_tile  # noqa: E402
 from esctp1raytracer_tpu_torch.parallel.sharding import float_params, merge_params  # noqa: E402
 from esctp1raytracer_tpu_torch.scene import builders as b  # noqa: E402
+from esctp1raytracer_tpu_torch.scene.types import TriangleBuffer  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -44,10 +46,11 @@ def scene():
         b.icosphere_mesh(subdivisions=3, radius=1.0, center=(1.3, 1.0, 0.0), smooth=False),
         b._ground_plane(),
         b._area_light(center=(0.0, 6.0, 2.0), half=1.5),
-    ])
+    ], device="cpu")
 
 
-CAM = Camera.look_at((0.0, 2.0, 6.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=4 / 3)
+# Built on the CPU (this module is imported where there is no card), moved per test.
+CAM = Camera.look_at((0.0, 2.0, 6.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=4 / 3, device="cpu")
 
 
 def _inputs(scene, dev, exclude_oversized, o, d, tl):
@@ -110,8 +113,10 @@ def test_wrapper_rejects_bad_inputs(dev, scene):
         rt_mxu.mxu_kernel(eps, ids, cnt, rf, tfq.cpu())
 
 
-CORNELL_CAM = Camera.look_at((0.0, 1.0, 2.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=4 / 3)
-MIXED_CAM = Camera.look_at((0.0, 2.5, 7.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=4 / 3)
+CORNELL_CAM = Camera.look_at((0.0, 1.0, 2.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=4 / 3,
+                             device="cpu")
+MIXED_CAM = Camera.look_at((0.0, 2.5, 7.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=4 / 3,
+                           device="cpu")
 
 
 def _lane_args(scene, o, d):
@@ -122,7 +127,7 @@ def _lane_args(scene, o, d):
 
 @pytest.mark.parametrize("name", ["cornell", "icospheres"])
 def test_lane_kernel_matches_plain(dev, scene, name):
-    sc = (b.cornell_box() if name == "cornell" else scene).to(dev)
+    sc = b.cornell_box() if name == "cornell" else scene.to(dev)
     cam = CORNELL_CAM if name == "cornell" else CAM
     o, d = (x.reshape(-1, 3) for x in cam.to(dev).ray_grid(160, 117))  # not a block multiple
     args = _lane_args(sc, o, d)
@@ -144,7 +149,7 @@ def test_lane_kernel_matches_plain(dev, scene, name):
 def test_fused_kernel_matches_plain(dev, name, cam, depth):
     build = {"cornell": b.cornell_box, "mixed": b.mixed_scene,
              "mirror": lambda: b.cornell_variant("mirror")}[name]
-    sc = build().to(dev)
+    sc = build()
     o, d = (x.reshape(-1, 3).contiguous() for x in cam.to(dev).ray_grid(96, 71))
     ids = torch.arange(o.shape[0], device=dev) + 5
     tables = [t.contiguous() for t in fused_pallas.fused_tables(sc)]
@@ -163,7 +168,7 @@ def test_fused_kernel_matches_plain(dev, name, cam, depth):
 
 
 def test_fused_route_on_card_matches_cpu_and_differentiates(dev):
-    scene = b.cornell_box()
+    scene = b.cornell_box(device="cpu")
     cfg = RenderConfig(backend="auto")
     a = render(scene, CORNELL_CAM, 48, 36, cfg).numpy()
     n0 = (fused_pallas.fused_kernel.launches, lane_pallas.lane_kernel.launches)
@@ -184,7 +189,7 @@ def test_fused_route_on_card_matches_cpu_and_differentiates(dev):
 
 
 def test_lane_and_fused_wrappers_reject_bad_inputs(dev):
-    sc = b.cornell_box().to(dev)
+    sc = b.cornell_box()
     o, d = (x.reshape(-1, 3).contiguous() for x in CORNELL_CAM.to(dev).ray_grid(16, 16))
     eps, n, tcs, o, d = _lane_args(sc, o, d)
     with pytest.raises(ValueError, match="n_tris"):
@@ -202,9 +207,8 @@ def test_lane_and_fused_wrappers_reject_bad_inputs(dev):
 
 
 def _tile_args(tris, o, d, tl, exclude_oversized):
-    tc, aabbs, _, _, _ = rt_tile.tri_constants_sub(tris, exclude_oversized)
-    rays, ids, cnt = rt_tile._prep(o, d, aabbs, tl)
-    return torch.tensor([EPS], device=o.device), rays, ids, cnt, tc
+    tc, aabbs, _, ov_buf, _ = rt_tile.tri_constants_sub(tris, exclude_oversized)
+    return torch.tensor([EPS], device=o.device), rt_tile._pad_rays(o, d, tl), aabbs, tc, ov_buf
 
 
 def _shadow_rays(sc, o, d, light):
@@ -215,47 +219,90 @@ def _shadow_rays(sc, o, d, light):
     return hp, lv / dist[:, None], torch.where(hit.hit, dist - 1e-4, -1.0)
 
 
-@pytest.mark.parametrize("name", ["mesh", "soup"])
-def test_tile_kernels_match_plain(dev, name):
-    """K5 and K6 against their plain versions on a camera wavefront (with a
-    sphere-like t-limit hint) and its shadow wavefront; the first bundles'
-    lists are emptied (cnt = 0): those rays miss and are not occluded."""
-    sc = (b.mesh_scene(3) if name == "mesh" else b.random_scene(3000, extent=4.0)).to(dev)
-    cam = CAM if name == "mesh" else Camera.look_at((0.0, 5.0, 12.0), (0.0, 1.0, 0.0),
-                                                    vfov=60.0, aspect=4 / 3)
-    o, d = (x.reshape(-1, 3).contiguous() for x in cam.to(dev).ray_grid(160, 117))
-    tl = torch.full((o.shape[0],), 9.0, device=dev)
-    eps, rays, ids, cnt, tc = _tile_args(sc.triangles, o, d, tl, False)
-    cnt[:4] = 0
-    n0 = rt_tile.tile_kernel.launches
-    t, idx = rt_tile.tile_kernel(eps, rays, ids, cnt, tc)
-    torch.cuda.synchronize()
-    assert rt_tile.tile_kernel.launches == n0 + 1
-    t2, idx2 = rt_tile._tile_search_plain(eps, rays, ids, cnt, tc)
-    same = idx == idx2
-    assert same.float().mean().item() >= 0.999
-    rel = (t - t2).abs()[same] / t2.abs()[same].clamp(min=1.0)
-    assert rel.max().item() < 1e-5
-    assert (idx >= 0).float().mean().item() > 0.3
-    assert bool((idx[:32] == -1).all()) and bool((t[:32] == 1e30).all())
+def _axis_rays(aabbs, n=3000, seed=0):
+    """Rays along +-x, +-y, +-z (the other components +-0) from origins on
+    a plane of a sub-block box: their slab values include 0 * inf = NaN."""
+    rng = np.random.RandomState(seed)
+    ab = aabbs.cpu().numpy()
+    live = np.flatnonzero((ab[0:3] <= ab[3:6]).all(0))
+    box = live[rng.randint(0, live.size, n)]
+    lo, hi = ab[0:3, box].T, ab[3:6, box].T
+    o = rng.uniform(lo, hi).astype(np.float32)
+    axis, along = rng.randint(0, 3, n), rng.randint(0, 3, n)
+    o[np.arange(n), axis] = np.where((rng.rand(n) < 0.5)[:, None], lo, hi)[np.arange(n), axis]
+    sign = np.where(rng.rand(n) < 0.5, 1.0, -1.0).astype(np.float32)
+    d = np.zeros((n, 3), np.float32) * -sign[:, None]
+    d[np.arange(n), along] = sign
+    return torch.from_numpy(o), torch.from_numpy(d)
 
-    hp, sd, stl = _shadow_rays(sc, o, d, [0.3, 5.9, 2.2] if name == "mesh" else [0.2, 5.9, 0.1])
-    eps, rays, ids, cnt, tc = _tile_args(sc.triangles, hp, sd, stl, True)
-    cnt[:4] = 0
+
+@pytest.mark.parametrize("name", ["mesh", "soup", "axis", "padded"])
+def test_tile_kernels_match_plain(dev, name):
+    """K5 and K6 against their plain versions, bit for bit: K5 on a camera
+    wavefront without and with a t-limit cull, K6 on its shadow wavefront
+    with the oversized sub-block (and equal to the segment sweep ORed with
+    `_oversized_occl`); each kernel with and without cnt_out (counting
+    tests the groups that hold padding box by box), and cnt_out equal to
+    the plain lists' cnt. "axis": axis-aligned rays whose origins lie on
+    box planes; "padded": the mesh's table followed by 64 padding-only
+    sub-blocks, so that two groups of 32 hold nothing else."""
+    sc = b.mesh_scene(3) if name != "soup" else b.random_scene(3000, extent=4.0)
+    cam = CAM if name != "soup" else Camera.look_at((0.0, 5.0, 12.0), (0.0, 1.0, 0.0),
+                                                    vfov=60.0, aspect=4 / 3, device="cpu")
+    tris = sc.triangles
+    if name == "padded":
+        filler = TriangleBuffer.empty(64 * 128, device=dev)
+        tris = tris.map(lambda leaf, a: torch.cat([a, getattr(filler, leaf)]))
+    if name == "axis":
+        o, d = (x.to(dev) for x in _axis_rays(rt_tile.tri_constants_sub(tris)[1]))
+    else:
+        o, d = (x.reshape(-1, 3).contiguous() for x in cam.to(dev).ray_grid(160, 117))
+    r = o.shape[0]
+    tl = torch.full((r,), 9.0, device=dev)
+    for limit in (None, tl):
+        eps, rays, aabbs, tc, _ = _tile_args(tris, o, d, limit, False)
+        cnt, cnt2 = (torch.full((rays.shape[0] // 8,), -1, dtype=torch.int32, device=dev)
+                     for _ in range(2))
+        n0 = rt_tile.tile_kernel.launches
+        t, idx = rt_tile.tile_kernel(eps, rays, aabbs, tc, cnt)
+        t1, idx1 = rt_tile.tile_kernel(eps, rays, aabbs, tc)
+        torch.cuda.synchronize()
+        assert rt_tile.tile_kernel.launches == n0 + 2
+        t2, idx2 = rt_tile._tile_search_plain(eps, rays, aabbs, tc, cnt2)
+        assert torch.equal(t, t2) and torch.equal(idx, idx2) and torch.equal(cnt, cnt2)
+        assert torch.equal(t1, t2) and torch.equal(idx1, idx2)
+        assert (idx[:r] >= 0).float().mean().item() > (0.0 if name == "axis" else 0.3)
+    if name == "padded":
+        assert int(cnt.min()) >= 64
+
+    if name == "axis":
+        hp, sd, stl = o, d, torch.from_numpy(np.random.RandomState(1).uniform(
+            -1.0, 6.0, r).astype(np.float32)).to(dev)
+    else:
+        hp, sd, stl = _shadow_rays(sc, o, d, [0.3, 5.9, 2.2] if name != "soup"
+                                   else [0.2, 5.9, 0.1])
+    eps, rays, aabbs, tc, ov_buf = _tile_args(tris, hp, sd, stl, True)
+    ov, _ = rt_tile._pack_sub(ov_buf)
+    cnt, cnt2 = (torch.full((rays.shape[0] // 8,), -1, dtype=torch.int32, device=dev)
+                 for _ in range(2))
     n0 = rt_tile.tile_occl_kernel.launches
-    occ = rt_tile.tile_occl_kernel(eps, rays, ids, cnt, tc)
+    occ = rt_tile.tile_occl_kernel(eps, rays, aabbs, tc, ov, cnt)
+    occ1 = rt_tile.tile_occl_kernel(eps, rays, aabbs, tc, ov)
     torch.cuda.synchronize()
-    assert rt_tile.tile_occl_kernel.launches == n0 + 1
-    occ2 = rt_tile._tile_occl_plain(eps, rays, ids, cnt, tc)
-    assert (occ == occ2).float().mean().item() >= 0.999
-    assert 0.01 < occ.float().mean().item() < 0.99 and not bool(occ[:32].any())
+    assert rt_tile.tile_occl_kernel.launches == n0 + 2
+    occ2 = rt_tile._tile_occl_plain(eps, rays, aabbs, tc, ov, cnt2)
+    assert torch.equal(occ, occ2) and torch.equal(occ1, occ2) and torch.equal(cnt, cnt2)
+    split = (rt_tile._tile_occl_plain(eps, rays, aabbs, tc)[:r] > 0) | rt_tile._oversized_occl(
+        hp, sd, stl, ov_buf, EPS)
+    assert torch.equal(occ[:r] > 0, split)
+    assert 0.01 < occ[:r].float().mean().item() < 0.99
 
 
 def test_tile_segments_on_card_match_cpu(dev, monkeypatch):
     """A multi-segment table (TILE_TRI_LIMIT cut to 1024: two segments) on
     the card against the port on the CPU (plain versions)."""
     monkeypatch.setattr(rt_tile, "TILE_TRI_LIMIT", 1024)
-    sc = b.mesh_scene(3)
+    sc = b.mesh_scene(3, device="cpu")
     o, d = (x.reshape(-1, 3) for x in CAM.ray_grid(96, 72))
     tl = torch.full((o.shape[0],), 5.5)
     ref = (*rt_tile.tile_tri_search(o, d, sc.triangles, EPS),
@@ -276,7 +323,7 @@ def test_tile_segments_on_card_match_cpu(dev, monkeypatch):
 
 
 def test_tile_route_on_card_matches_cpu_and_differentiates(dev):
-    sc = b.mesh_scene(3)
+    sc = b.mesh_scene(3, device="cpu")
     cfg = RenderConfig(backend="tile")
     a = render(sc, CAM, 64, 48, cfg).numpy()
     n0 = (rt_tile.tile_kernel.launches, rt_tile.tile_occl_kernel.launches)
@@ -298,12 +345,17 @@ def test_tile_route_on_card_matches_cpu_and_differentiates(dev):
 
 
 def test_tile_wrappers_reject_bad_inputs(dev):
-    sc = b.mesh_scene(2).to(dev)
+    sc = b.mesh_scene(2)
     o, d = (x.reshape(-1, 3).contiguous() for x in CAM.to(dev).ray_grid(16, 16))
-    eps, rays, ids, cnt, tc = _tile_args(sc.triangles, o, d, None, False)
-    with pytest.raises(ValueError, match="cnt"):
-        rt_tile.tile_kernel(eps, rays, ids, cnt.long(), tc)
+    eps, rays, aabbs, tc, _ = _tile_args(sc.triangles, o, d, None, False)
+    with pytest.raises(ValueError, match="cnt_out"):
+        rt_tile.tile_kernel(eps, rays, aabbs, tc, cnt_out=torch.zeros(32, dtype=torch.int64,
+                                                                      device=dev))
     with pytest.raises(ValueError, match="rays"):
-        rt_tile.tile_occl_kernel(eps, rays[:, :7].contiguous(), ids, cnt, tc)
+        rt_tile.tile_occl_kernel(eps, rays[:, :7].contiguous(), aabbs, tc)
     with pytest.raises(ValueError, match="tc"):
-        rt_tile.tile_kernel(eps, rays, ids, cnt, tc.cpu())
+        rt_tile.tile_kernel(eps, rays, aabbs, tc.cpu())
+    with pytest.raises(ValueError, match="ov"):
+        rt_tile.tile_occl_kernel(eps, rays, aabbs, tc, tc)
+    with pytest.raises(ValueError, match="sub-blocks"):
+        rt_tile.tile_kernel(eps, rays, torch.zeros(8, 1025, device=dev), tc)

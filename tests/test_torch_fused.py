@@ -45,7 +45,8 @@ MIXED_EYE = (0.0, 2.5, 7.0)  # BASELINE config 4's camera (scripts/bench_configs
 
 def to_port(scene):
     return scene_from_numpy({jax.tree_util.keystr(p)[1:]: np.asarray(v)
-                             for p, v in jax.tree_util.tree_flatten_with_path(scene)[0]})
+                             for p, v in jax.tree_util.tree_flatten_with_path(scene)[0]},
+                            device="cpu")
 
 
 def rays(eye, w, h):

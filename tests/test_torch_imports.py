@@ -28,17 +28,18 @@ from esctp1raytracer_tpu_torch.kernels import rt_mxu
 from esctp1raytracer_tpu_torch.scene import builders as b
 
 scene = b.scene_from_mesh([b.icosphere_mesh(1, 1.0, (0.0, 1.0, 0.0)), b._ground_plane(),
-                           b._area_light((0.0, 6.0, 2.0), 1.5)])
-cam = rt.Camera.look_at((0.0, 2.0, 6.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=1.0)
+                           b._area_light((0.0, 6.0, 2.0), 1.5)], device="cpu")
+cam = rt.Camera.look_at((0.0, 2.0, 6.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=1.0, device="cpu")
 img = rt.render(scene, cam, 16, 12, rt.RenderConfig(backend="mxtile"))
 assert img.shape == (12, 16, 3) and bool(torch.isfinite(img).all()) and float(img.max()) > 0
 # The fused route (auto), differentiated: its backward takes the lane route.
 from esctp1raytracer_tpu_torch.kernels import fused_pallas, lane_pallas
 from esctp1raytracer_tpu_torch.parallel.sharding import float_params, merge_params
 
-corn = rt.cornell_box()
+corn = rt.cornell_box(device="cpu")
 params = [p.clone().requires_grad_(True) for p in float_params(corn)]
-ccam = rt.Camera.look_at((0.0, 1.0, 2.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=4 / 3)
+ccam = rt.Camera.look_at((0.0, 1.0, 2.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=4 / 3,
+                        device="cpu")
 cimg = rt.render(merge_params(corn, params), ccam, 16, 12, rt.RenderConfig(backend="auto"))
 (cimg * cimg).sum().backward()
 assert float(cimg.max()) > 0 and all(bool(torch.isfinite(p.grad).all())

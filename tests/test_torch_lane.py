@@ -32,7 +32,8 @@ EPS = float(np.finfo(np.float32).eps)
 
 def to_port(scene):
     return scene_from_numpy({jax.tree_util.keystr(p)[1:]: np.asarray(v)
-                             for p, v in jax.tree_util.tree_flatten_with_path(scene)[0]})
+                             for p, v in jax.tree_util.tree_flatten_with_path(scene)[0]},
+                            device="cpu")
 
 
 def icosphere_scene():

@@ -41,7 +41,8 @@ VIEW = dict(lookfrom=(0.0, 2.0, 6.0), lookat=(0.0, 1.0, 0.0), vfov=60.0)
 
 def to_port(scene):
     return scene_from_numpy({jax.tree_util.keystr(p)[1:]: np.asarray(v)
-                             for p, v in jax.tree_util.tree_flatten_with_path(scene)[0]})
+                             for p, v in jax.tree_util.tree_flatten_with_path(scene)[0]},
+                            device="cpu")
 
 
 def meshes():
@@ -61,7 +62,8 @@ def scenes():
 
 def cameras(w, h):
     return (JCamera.look_at(VIEW["lookfrom"], VIEW["lookat"], vfov=VIEW["vfov"], aspect=w / h),
-            PCamera.look_at(VIEW["lookfrom"], VIEW["lookat"], vfov=VIEW["vfov"], aspect=w / h))
+            PCamera.look_at(VIEW["lookfrom"], VIEW["lookat"], vfov=VIEW["vfov"], aspect=w / h,
+                            device="cpu"))
 
 
 def assert_images_agree(a, b):

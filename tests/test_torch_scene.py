@@ -62,7 +62,8 @@ class TestScene:
         from esctp1raytracer_tpu_torch.scene import types as pt
 
         js = jb.scene_from_mesh(_meshes(jb), spheres=_spheres(jb, jt), pad_multiple=256)
-        ps = pb.scene_from_mesh(_meshes(pb), spheres=_spheres(pb, pt), pad_multiple=256)
+        ps = pb.scene_from_mesh(_meshes(pb), spheres=_spheres(pb, pt), pad_multiple=256,
+                                device="cpu")
         assert_same_tables(jax_leaves(js), scene_to_numpy(ps))
         assert ps.num_triangles == js.num_triangles and ps.num_lights == 2
 
@@ -73,7 +74,7 @@ class TestScene:
             jb._ground_plane(),
             jb._area_light(center=(0.0, 6.0, 2.0), half=1.5),
         ])
-        ps = pb.bench_scene()
+        ps = pb.bench_scene(device="cpu")
         assert ps.num_triangles == 10_752
         assert int(ps.triangles.valid.sum()) == 10_244
         assert_same_tables(jax_leaves(js), scene_to_numpy(ps))
@@ -87,23 +88,39 @@ class TestScene:
     def test_scene_builders_match_jax(self, build):
         name, _, arg = build.partition(":")
         if name == "cornell_box_clean":
-            js, ps = jb.cornell_box(faithful_shapes=False), pb.cornell_box(faithful_shapes=False)
+            js = jb.cornell_box(faithful_shapes=False)
+            ps = pb.cornell_box(faithful_shapes=False, device="cpu")
         elif name in ("mesh_scene", "random_scene") and arg:  # (size[, seed])
             nums = [int(a) for a in arg.split(":")]
-            js, ps = getattr(jb, name)(*nums), getattr(pb, name)(*nums)
+            js, ps = getattr(jb, name)(*nums), getattr(pb, name)(*nums, device="cpu")
         elif arg:
-            js, ps = getattr(jb, name)(arg), getattr(pb, name)(arg)
+            js, ps = getattr(jb, name)(arg), getattr(pb, name)(arg, device="cpu")
         else:
-            js, ps = getattr(jb, name)(), getattr(pb, name)()
+            js, ps = getattr(jb, name)(), getattr(pb, name)(device="cpu")
         assert_same_tables(jax_leaves(js), scene_to_numpy(ps))
 
     def test_numpy_round_trip(self):
         js = jb.scene_from_mesh(_meshes(jb))
         d = jax_leaves(js)
-        ps = scene_from_numpy(d)
+        ps = scene_from_numpy(d, device="cpu")
         assert_same_tables(d, scene_to_numpy(ps))
         assert ps.triangles.valid.dtype == torch.bool
         assert ps.lights.tri_idx.dtype == torch.int32
+
+    def test_builders_and_camera_default_to_the_card(self):
+        """The entry points build on the card unless told otherwise, and do
+        not fall back to the CPU where there is none."""
+        calls = [lambda: pb.cornell_box(), lambda: pb.random_scene(64),
+                 lambda: scene_from_numpy(jax_leaves(jb.cornell_box())),
+                 lambda: PCamera.look_at((0.0, 1.0, 2.0), (0.0, 1.0, 0.0))]
+        for call in calls:
+            if torch.cuda.is_available():
+                out = call()
+                leaf = out.origin if isinstance(out, PCamera) else out.triangles.v0
+                assert leaf.device.type == "cuda"
+            else:
+                with pytest.raises((AssertionError, RuntimeError)):
+                    call()
 
     def test_empty_and_padding(self):
         assert DEFAULT_PAD_MULTIPLE == 512
@@ -143,7 +160,7 @@ CAMERAS = [
 @pytest.mark.parametrize("lookfrom,lookat,vfov,aspect", CAMERAS)
 def test_camera_ray_grid(lookfrom, lookat, vfov, aspect):
     jc = JCamera.look_at(lookfrom, lookat, vfov=vfov, aspect=aspect)
-    pc = PCamera.look_at(lookfrom, lookat, vfov=vfov, aspect=aspect)
+    pc = PCamera.look_at(lookfrom, lookat, vfov=vfov, aspect=aspect, device="cpu")
     for f in ("origin", "lower_left_corner", "horizontal", "vertical"):
         np.testing.assert_allclose(getattr(pc, f).numpy(), np.asarray(getattr(jc, f)),
                                    rtol=2**-22, atol=2**-22, err_msg=f)
