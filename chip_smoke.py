@@ -35,7 +35,12 @@ Phases, any failure exits non-zero (no phase catches its own failure):
    the time of each (CUDA events) beside its bound (the larger of its
    bytes over 3.35 TB/s and its float32 operations over 67 TFLOP/s): K1/K2
    on the flagship's wavefronts and on every wavefront of config 4's
-   chunked backward, K3 on the Cornell and config-4 frames, K4 on
+   chunked backward, each on the whole wavefront as the entry points call
+   it, its kept count per group (cnt_out) equal to `_prep_mxu`'s, its
+   output the same without cnt_out and within the JAX tests' bars of its
+   plain version's (K2 with the oversized sub-block: also equal to K2
+   without it ORed with `_oversized_occl`), with the mean list and its
+   padding-only share; K3 on the Cornell and config-4 frames, K4 on
    Cornell's camera and shadow wavefronts, K5 and K6 on config 5's camera
    and shadow wavefronts and, per segment, on the 500k soup's: the kernel
    on the whole wavefront, its kept count per bundle (cnt_out) equal to
@@ -52,8 +57,10 @@ Phases, any failure exits non-zero (no phase catches its own failure):
    checks (finite, non-black image, finite gradients, counters > 0, a
    small frame agreeing with the plain `jnp` backend), then forward and
    fwd+bwd times from CUDA events (median of 5, ray ids varied per
-   iteration) and the peak device memory; the layers of the flagship's
-   forward, and of the Cornell and config-4 steps, timed alone;
+   iteration) and the peak device memory; the flagship's fwd+bwd step
+   calls neither `_prep_mxu` nor `_oversized_occl` (counting spies); the
+   layers of the flagship's forward, and of the Cornell and config-4
+   steps, timed alone;
 5. prints the wall time, {"kernels": [...]} and, as the last line, the
    result line.
 
@@ -110,10 +117,15 @@ PEAK_BYTES = 3.35e12  # HBM3 bytes/s
 # u 6, v 6, min(u, v) and its compare, u + v and its compare, t >= eps, and
 # the compare with the running t or the t_limit.
 PAIR_OPS = 40
-# Per (ray, triangle) pair of K1/K2: 64 FMAs (128 operations) and the
-# window (the division, t, u, v, |det|, five compares, u + v, the compare
-# with the running t or the t_limit).
-MXU_PAIR_OPS = 140
+# Per (ray, triangle) pair of K1/K2: the 25 FMAs that can meet a non-zero
+# coefficient (50 operations; csrc/rt_mxu.cu skips the other 39, each an
+# exact zero) and the window (the division, t, u, v, |det|, five compares,
+# u + v, the compare with the running t or the t_limit).
+MXU_PAIR_OPS = 62
+# The full count, printed beside the one above: all 64 FMAs (128 operations)
+# and the window, over every listed block, padding-only ones included, as a
+# kernel that skipped neither zeros nor padding would do.
+MXU_PAIR_OPS_FULL = 140
 # Per (ray, box) slab test (cull.py:block_cull_mask): 6 differences, 6
 # products, 6 per-axis minima and maxima, 4 across the axes, 3 compares.
 SLAB_OPS = 25
@@ -188,7 +200,7 @@ def build_phase():
         mod._lib()
     say(f"build: {time.perf_counter() - t0:.2f} s ({len(SOURCES)} sources in parallel)")
     for name, lib in libs.items():
-        say(f"  {lib.name}")
+        say(f"  {lib.name}: nvcc {' '.join(_build.NVCC_FLAGS + _build.SOURCE_FLAGS.get(name, []))}")
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 say("    ptxas:", line.strip())
@@ -256,91 +268,158 @@ def time_pair(name, fn_k, fn_p, iters_k, iters_p, card, what):
 
 
 def mxtile_args(wavefront):
-    """K1's or K2's arguments on one captured wavefront: (wrapper name, args)."""
+    """K1's or K2's arguments on one captured wavefront, as the entry points
+    pass them: (wrapper name, args, ov_buf or None). K2 gets the oversized
+    sub-block, as mxu_tile_occlusion's first segment does."""
     occl, oo, dd, tris, eps, t_limit = wavefront
-    (tfq, aabbs, _), = list(rt_mxu._segments(tris, occl)[0])
-    rf, gids, cnt, tl, _, _ = rt_mxu._prep_mxu(oo, dd, aabbs, t_limit)
-    eps = rt_mxu._eps_tensor(eps, oo.device)
+    segs, ov_buf, _ = rt_mxu._segments(tris, occl)
+    (tfq, aabbs, _), = list(segs)
+    rays_, eps_t = rt_tile._pad_rays(oo, dd, t_limit), rt_mxu._eps_tensor(eps, oo.device)
     if occl:
-        return "mxu_occl_kernel", (eps, gids, cnt, rf, tl, tfq)
-    return "mxu_kernel", (eps, gids, cnt, rf, tfq)
+        return "mxu_occl_kernel", (eps_t, rays_, aabbs, tfq, rt_tile._pack_sub(ov_buf)[0]), ov_buf
+    return "mxu_kernel", (eps_t, rays_, aabbs, tfq), None
 
 
-def mxtile_agreement(name, args, label):
-    """K1 or K2 against its plain version on args, with the bars of the JAX
-    package's tests (K2: occlusion agrees on >= 99.9% of the rays). Returns
-    (agreement, max abs error, max relative t error or None, hit share)."""
-    out_k, out_p = wrapper(name)(*args), KERNELS[name][1](*args)
+def mxtile_check(name, label, args, ov_buf, wavefront):
+    """K1 or K2 on a whole wavefront against its plain version on the same
+    inputs, with the bars of the JAX package's tests (K1: winners agree on
+    >= 99.9% of the rays, t to a relative 1e-5; K2: occlusion agrees on
+    >= 99.9%); its cnt_out equal to the plain path's list lengths
+    (`_prep_mxu`'s cnt), its output the same without cnt_out, and K2 with
+    the oversized sub-block equal to K2 without it ORed with
+    `_oversized_occl` (and within the bar of the plain segment sweep ORed
+    with it). Returns (agreement, max abs error, max relative t error or
+    None, hit or occluded share, the plain path's lists)."""
+    lists = rt_mxu._plain_lists(args[1], args[2], None)
+    cnt = lists[2]
+    cnt_k = torch.full_like(cnt, -1)
+    out_k = wrapper(name)(*args, cnt_out=cnt_k)
+    check(torch.equal(cnt_k, cnt), f"{label}: cnt_out differs from _prep_mxu's cnt on "
+          f"{int((cnt_k != cnt).sum())} of {cnt.numel()} groups")
+    identical(f"{label} without cnt_out vs with it", wrapper(name)(*args), out_k)
+    out_p = KERNELS[name][1](*args)
     if name == "mxu_kernel":
-        return search_agreement(label, out_k, out_p)
+        return (*search_agreement(label, out_k, out_p), lists)
     agree = (out_k == out_p).float().mean().item()
     check(agree >= 0.999, f"{label}: occlusion agreement {agree} < 0.999")
-    return agree, float((out_k - out_p).abs().max().item()), None, out_k.float().mean().item()
+    if ov_buf is not None:
+        _, oo, dd, _, eps_f, t_limit = wavefront
+        r = oo.shape[0]
+        over, folded = rt_tile._oversized_occl(oo, dd, t_limit, ov_buf, eps_f), out_k[:r] > 0
+        check(torch.equal(folded, (wrapper(name)(*args[:4])[:r] > 0) | over), f"{label}: K2 "
+              "with the oversized sub-block differs from K2 without it ORed with _oversized_occl")
+        split = (KERNELS[name][1](*args[:4])[:r] > 0) | over
+        agree_split = (folded == split).float().mean().item()
+        say(f"{label}: K2 with the oversized sub-block against the plain segment sweep ORed "
+            f"with _oversized_occl: agreement {agree_split:.6f}")
+        check(agree_split >= 0.999, f"{label}: agreement {agree_split} with the plain segment "
+              "sweep ORed with _oversized_occl < 0.999")
+    return (agree, float((out_k - out_p).abs().max().item()), None, out_k.float().mean().item(),
+            lists)
 
 
-def mxu_occl_pairs(args):
-    """The (ray, triangle) pairs K2 evaluates on args' data. Each ray sweeps
-    its group's listed blocks in order, 4 columns at a time, and stops
-    after the 4 columns in which it is first occluded (the group stops
-    once all its rays are, which adds nothing); counted with the plain
-    version's window (`rt_mxu._window`) on the same inputs."""
-    eps, ids, cnt, rf, tl, tfq = args
-    occ = torch.zeros(rf.shape[:2], dtype=torch.bool, device=rf.device)
-    pairs = 0
-    for k in range(int(cnt.max()) if cnt.numel() else 0):
-        _, ok = rt_mxu._window(torch.bmm(rf, tfq[ids[:, k].long()]), eps, tl)
-        hit = ok.any(-1) & (k < cnt)[:, None]
+def list_split(aabbs, ids, cnt):
+    """Per group: the padding-only blocks (inverted box) among its listed ones."""
+    pad = (aabbs[0:3] > aabbs[3:6]).any(0)
+    listed = torch.arange(aabbs.shape[1], device=cnt.device)[None] < cnt[:, None]
+    return (pad[ids.long()] & listed).sum(1)
+
+
+def mxtile_work(name, args, lists, ov_buf, wavefront):
+    """(operations, bytes, operations by the full count) of K1 or K2 on args,
+    from this run's data. K1: SLAB_OPS per (ray, box) test, every ray
+    against every box of the segment, plus MXU_PAIR_OPS per (ray, triangle)
+    pair of each group's listed blocks that are not padding-only. K2: the
+    same slab tests, but only in groups with a ray that can be occluded
+    (t_limit > eps); then, per such ray, PAIR_OPS per oversized slot of the
+    sub-block's non-empty 32-slot runs, in order, up to the one that
+    occludes it, and, if none does, MXU_PAIR_OPS per pair of its listed
+    non-padding blocks, 4 columns at a time, up to the 4 columns in which
+    it is first occluded (found with the plain version's window,
+    `rt_mxu._window`). The full count: MXU_PAIR_OPS_FULL per pair of every
+    listed block (K2 up to each ray's exit in the segment's blocks alone),
+    no slab tests. Bytes: the inputs read once, the output written once."""
+    eps, rays_, aabbs, tfq = args[:4]
+    rf, ids, cnt, tl = lists
+    nsub, g = aabbs.shape[1], cnt.shape[0]
+    nbytes = tensor_bytes(*args) + rays_.shape[0] * (8 if name == "mxu_kernel" else 4)
+    if name == "mxu_kernel":
+        tests = rays_.shape[0] * nsub
+        pairs = int((cnt - list_split(aabbs, ids, cnt)).sum()) * rt_mxu.RAY_TILE * rt_mxu.SUB
+        full = int(cnt.sum()) * rt_mxu.RAY_TILE * rt_mxu.SUB * MXU_PAIR_OPS_FULL
+        return tests * SLAB_OPS + pairs * MXU_PAIR_OPS, nbytes, full
+    _, oo, dd, _, eps_f, t_limit = wavefront
+    r = oo.shape[0]
+    live = tl > float(eps)  # [G, 128]: the rays that can be occluded
+    tests = int(live.any(1).sum()) * rt_mxu.RAY_TILE * nsub
+    # The oversized sub-block: slots of the non-empty runs, up to the first hit.
+    runs = (args[4][0, 12].reshape(-1, 32) != 0).any(1).repeat_interleave(32)
+    ov_pairs = 0
+    done = ~live  # then also the rays that the oversized triangles occlude
+    for i in range(0, r, rt_tile._SWEEP_RAYS):
+        sl = slice(i, i + rt_tile._SWEEP_RAYS)
+        t, ok = rt_tile._oversized_hits(oo[sl], dd[sl], ov_buf, eps_f)
+        hit = (ok & (t < t_limit[sl, None]))[:, runs]
+        n = torch.where(hit.any(1), torch.argmax(hit.to(torch.int32), 1) + 1, hit.shape[1])
+        ov_pairs += int((n * live.view(-1)[sl]).sum())
+        done.view(-1)[sl] |= hit.any(1)
+    pad = (aabbs[0:3] > aabbs[3:6]).any(0)
+    full_occ = torch.zeros_like(live)
+    pairs = full = 0
+    for k in range(int(cnt.max()) if g else 0):
+        jb = ids[:, k]
+        _, ok = rt_mxu._window(torch.bmm(rf, tfq[jb.long()]), eps, tl)
+        hit = ok.any(-1)
         first = torch.argmax(ok.to(torch.int32), dim=-1)  # the first accepted column
         cols = torch.where(hit, (first // 4 + 1) * 4, rt_mxu.SUB)
-        pairs += int((cols * (~occ & (k < cnt)[:, None])).sum())
-        occ |= hit
-    return pairs
-
-
-def mxtile_bound(name, args):
-    """K1's or K2's bound on args: MXU_PAIR_OPS per (ray, triangle) pair that
-    the kernel evaluates (K1: every pair of the listed blocks; K2: up to
-    each ray's exit, `mxu_occl_pairs`); bytes: the inputs read once, the
-    output written once."""
-    cnt, rf = args[2], args[3]
-    if name == "mxu_kernel":
-        pairs = int(cnt.sum()) * rt_mxu.RAY_TILE * rt_mxu.SUB
-    else:
-        pairs = mxu_occl_pairs(args)
-    out = rf.shape[0] * rf.shape[1] * (8 if name == "mxu_kernel" else 4)
-    return bound(pairs * MXU_PAIR_OPS, tensor_bytes(*args[1:]) + out)
+        listed = (k < cnt)[:, None]
+        full += int((cols * (~full_occ & listed)).sum())
+        full_occ |= hit & listed
+        swept = listed & ~pad[jb.long()][:, None]
+        pairs += int((cols * (~done & swept)).sum())
+        done |= hit & swept
+    return (tests * SLAB_OPS + ov_pairs * PAIR_OPS + pairs * MXU_PAIR_OPS, nbytes,
+            full * MXU_PAIR_OPS_FULL)
 
 
 def mxtile_kernels(card, seen, results):
-    """K1 and K2 on the flagship's camera and shadow wavefronts."""
+    """K1 and K2 on the flagship's camera and shadow wavefronts, as the entry
+    points call them (`mxtile_check`), each timed beside its plain version
+    and its bound, with the full count of the bound beside it."""
     with torch.no_grad():
         for wavefront in seen[:2]:
-            name, args = mxtile_args(wavefront)
-            agree, max_abs, rel, share = mxtile_agreement(name, args, name)
+            name, args, ov_buf = mxtile_args(wavefront)
+            agree, max_abs, rel, share, lists = mxtile_check(name, name, args, ov_buf, wavefront)
             if rel is None:
-                say(f"{name}: occlusion agrees {agree:.6f}, occluded {share:.4f}")
+                say(f"{name}: occlusion agrees {agree:.6f}, occluded {share:.4f}; cnt_out "
+                    "equals _prep_mxu's cnt; the oversized fold equals _oversized_occl")
             else:
                 say(f"{name}: winners agree {agree:.6f}, max abs t err {max_abs:.3e}, "
-                    f"max rel t err {rel:.3e}, hits {share:.4f}")
-            gids, cnt = args[1], args[2]
-            say(f"{name}: groups {gids.shape[0]}, blocks {gids.shape[1]}, mean list "
-                f"{cnt.float().mean().item():.2f} (max {int(cnt.max())})")
+                    f"max rel t err {rel:.3e}, hits {share:.4f}; cnt_out equals _prep_mxu's cnt")
+            _, ids, cnt, _ = lists
+            n_pad = list_split(args[2], ids, cnt).float()
+            say(f"{name}: groups {cnt.shape[0]}, blocks {args[2].shape[1]}, mean list "
+                f"{cnt.float().mean().item():.2f} (max {int(cnt.max())}), of which padding-only "
+                f"{n_pad.mean().item():.2f}, swept {(cnt - n_pad).mean().item():.2f}")
             ms, plain_ms = time_pair(name, lambda: wrapper(name)(*args),
                                      lambda: KERNELS[name][1](*args), 20, 2, card,
                                      "flagship 1080p")
-            bound_ms, bound_by = mxtile_bound(name, args)
-            say(f"{name} [flagship 1080p]: bound {bound_ms:.3f} ms ({bound_by})")
+            ops, nbytes, full_ops = mxtile_work(name, args, lists, ov_buf, wavefront)
+            bound_ms, bound_by = bound(ops, nbytes)
+            full_ms, _ = bound(full_ops, nbytes)
+            say(f"{name} [flagship 1080p]: bound {bound_ms:.3f} ms ({bound_by}; {ops:.4g} "
+                f"operations); by the full count {full_ms:.3f} ms ({full_ops:.4g})")
             results[name].update(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                                  bound_ms=bound_ms, bound_by=bound_by,
-                                 at="flagship 1920x1080, depth 1")
+                                 bound_ms_full_count=full_ms, at="flagship 1920x1080, depth 1")
 
 
 def mxtile_backward_kernels(card, scene, cam, w, h, cfg, results):
     """K1 and K2 on every wavefront of config 4's backward re-derivation:
     `_bwd_cfg`'s chunked mxtile, each 262,144-ray chunk of the frame's camera
     rays and their reflections at bounces 0-3. Every wavefront is held
-    against the plain versions; the first of each kernel in the chunk that
-    holds the frame's centre is timed."""
+    to `mxtile_check`; the first of each kernel in the chunk that holds the
+    frame's centre is timed."""
     o, d, ids = rays(cam, w, h)
     fb = fused_pallas._bwd_cfg(scene, cfg, o.shape[0])
     check(fb.backend == "mxtile" and fb.ray_chunk > 0,
@@ -356,30 +435,37 @@ def mxtile_backward_kernels(card, scene, cam, w, h, cfg, results):
         line, bounce = [], -1
         with torch.no_grad():
             for wavefront in seen:
-                name, args = mxtile_args(wavefront)
+                name, args, ov_buf = mxtile_args(wavefront)
                 bounce += name == "mxu_kernel"
                 label = f"{name} [config 4 backward, rays {i}+, bounce {bounce}]"
-                agree, max_abs, rel, share = mxtile_agreement(name, args, label)
+                agree, max_abs, rel, share, lists = mxtile_check(name, label, args, ov_buf,
+                                                                 wavefront)
                 s = stats[name]
                 s["wavefronts"] += 1
                 s["min_agreement"] = min(s["min_agreement"], agree)
                 s["max_abs_err"] = max(s["max_abs_err"], max_abs)
+                n_pad = list_split(args[2], lists[1], lists[2]).float().mean().item()
                 line.append(f"b{bounce} {'K2' if rel is None else 'K1'} {agree:.6f}"
-                            + ("" if rel is None else f"/{rel:.1e}") + f"/{share:.3f}")
+                            + ("" if rel is None else f"/{rel:.1e}") + f"/{share:.3f}"
+                            + f"/{lists[2].float().mean().item():.2f}-{n_pad:.2f}")
                 if "ms" not in s and i <= centre < i + chunk:
                     s["ms"], s["plain_ms"] = time_pair(
                         name, lambda: wrapper(name)(*args), lambda: KERNELS[name][1](*args),
                         20, 2, card, f"config 4 backward, rays {i}+, bounce {bounce}")
-                    s["bound_ms"], s["bound_by"] = mxtile_bound(name, args)
-        say(f"config 4 backward, rays {i}+ (agreement/rel t err/hit or occluded share): "
-            + ", ".join(line))
+                    ops, nbytes, full_ops = mxtile_work(name, args, lists, ov_buf, wavefront)
+                    s["bound_ms"], s["bound_by"] = bound(ops, nbytes)
+                    s["bound_ms_full_count"] = bound(full_ops, nbytes)[0]
+        say(f"config 4 backward, rays {i}+ (agreement/rel t err/hit or occluded share/mean "
+            "list-padding-only in it; cnt_out and the oversized fold exact): " + ", ".join(line))
     for name, s in stats.items():
         check(s["wavefronts"] > 0, f"config 4's backward gave {name} no wavefront")
         results[name]["config4_backward"] = dict(
             s, at=f"config 4 backward, {-(-o.shape[0] // chunk)} chunks of {chunk} rays "
                   f"x {cfg.depth} bounces")
         say(f"{name} [config 4 backward]: {s['wavefronts']} wavefronts, min agreement "
-            f"{s['min_agreement']:.6f}, max abs err {s['max_abs_err']:.3e}")
+            f"{s['min_agreement']:.6f}, max abs err {s['max_abs_err']:.3e}; timed "
+            f"{s['ms']:.3f} ms, bound {s['bound_ms']:.3f} ms (the full count "
+            f"{s['bound_ms_full_count']:.3f})  [{card}]")
 
 
 def lane_kernels(card, o, d, scene, ids, results):
@@ -816,25 +902,71 @@ def path_phase(card, label, scene, cam, w, h, cfg, expect, fwd_kernels, bwd_kern
 
 def layer_phase(card, seen):
     """Where the flagship forward's time goes: each layer of the search and
-    the occlusion alone on the frame's wavefronts (CUDA events, median of 3)."""
+    the occlusion alone on the frame's wavefronts (CUDA events, median of
+    3), with the peak memory of each entry point. `_prep_mxu` and the
+    oversized sweep run only on the plain path (CPU tensors, and this
+    script's checks); they are timed here for comparison."""
     _, po, pd, tris, eps, ptl = seen[0]
     _, so, sd, _, _, stl = seen[1]
-    (_, ab_p, _), = list(rt_mxu._segments(tris, False)[0])
+    (tfq_p, ab_p, _), = list(rt_mxu._segments(tris, False)[0])
     segs, ov_buf, _ = rt_mxu._segments(tris, True)
-    (_, ab_s, _), = list(segs)
-    layers = {
-        "cluster sort + pack (per search)": lambda: list(rt_mxu._segments(tris, False)[0]),
-        "cull pre-pass, primary": lambda: rt_mxu._prep_mxu(po, pd, ab_p, ptl),
-        "mxu_tile_search (incl. K1)": lambda: rt_mxu.mxu_tile_search(po, pd, tris, eps, ptl),
-        "cull pre-pass, shadow": lambda: rt_mxu._prep_mxu(so, sd, ab_s, stl),
-        "oversized any-hit sweep": lambda: rt_mxu._oversized_occl(so, sd, stl, ov_buf, eps),
-        "mxu_tile_occlusion (incl. K2)": lambda: rt_mxu.mxu_tile_occlusion(so, sd, stl, tris, eps),
-    }
+    (tfq_s, ab_s, _), = list(segs)
+    eps_t = rt_mxu._eps_tensor(eps, po.device)
     with torch.no_grad():
+        ov = rt_tile._pack_sub(ov_buf)[0]
+        prim, shad = rt_tile._pad_rays(po, pd, ptl), rt_tile._pad_rays(so, sd, stl)
+        entries = {"mxu_tile_search": lambda: rt_mxu.mxu_tile_search(po, pd, tris, eps, ptl),
+                   "mxu_tile_occlusion": lambda: rt_mxu.mxu_tile_occlusion(so, sd, stl, tris,
+                                                                           eps)}
+        for what, fn in entries.items():
+            say(f"layer flagship: {what}: peak {gib_above(fn):.2f} GiB above its inputs  [{card}]")
+        layers = {
+            "cluster sort + pack (per search)": lambda: list(rt_mxu._segments(tris, False)[0]),
+            "pad rays (per search)": lambda: rt_tile._pad_rays(po, pd, ptl),
+            "K1 alone (cull + sweep)": lambda: rt_mxu.mxu_kernel(eps_t, prim, ab_p, tfq_p),
+            "mxu_tile_search (incl. K1)": entries["mxu_tile_search"],
+            "K2 alone (cull + sweep + oversized)": lambda: rt_mxu.mxu_occl_kernel(
+                eps_t, shad, ab_s, tfq_s, ov),
+            "mxu_tile_occlusion (incl. K2)": entries["mxu_tile_occlusion"],
+            "plain path only: cull pre-pass, primary": lambda: rt_mxu._prep_mxu(po, pd, ab_p, ptl),
+            "plain path only: cull pre-pass, shadow": lambda: rt_mxu._prep_mxu(so, sd, ab_s, stl),
+            "plain path only: oversized any-hit sweep": lambda: rt_tile._oversized_occl(
+                so, sd, stl, ov_buf, eps),
+        }
         for name, fn in layers.items():
             fn()
             t = statistics.median(cuda_ms(fn) for _ in range(3))
-            say(f"layer {name:34s} {t:8.3f} ms  [{card}]")
+            say(f"layer {name:40s} {t:8.3f} ms  [{card}]")
+
+
+def feeder_check(scene, cam, w, h, cfg):
+    """One fwd+bwd step of the flagship on the card must call neither the
+    plain path's list builder (`rt_mxu._prep_mxu`) nor its oversized sweep
+    (`rt_tile._oversized_occl`): counting spies replace both for the step."""
+    step = make_step(scene, *rays(cam, w, h), cfg)
+    calls = {}
+    saved = {(mod, name): getattr(mod, name)
+             for mod, name in ((rt_mxu, "_prep_mxu"), (rt_tile, "_oversized_occl"))}
+
+    def spy(key, fn):
+        def counted(*a, **kw):
+            calls[key] = calls.get(key, 0) + 1
+            return fn(*a, **kw)
+        return counted
+
+    for (mod, name), fn in saved.items():
+        setattr(mod, name, spy(name, fn))
+    try:
+        reset_counts()
+        step(0)
+        counts = read_counts()
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    say(f"flagship fwd+bwd feeder check: launches {counts}, plain-path feeder calls {calls}")
+    check(not calls, f"flagship fwd+bwd called the plain path's feeders: {calls}")
+    check(counts["mxu_kernel"] > 0 and counts["mxu_occl_kernel"] > 0,
+          "flagship fwd+bwd under the spies launched no K1 or K2")
 
 
 def gib_above(fn):
@@ -1033,6 +1165,7 @@ def main():
     paths["soup500k"] = path_phase(card, "soup 500k", soup500, soup_cam_1080, 1920, 1080, auto,
                                    "tile", k56, k56, results, reps=3, min_launches=nseg)
     del soup500
+    feeder_check(flag, flag_cam, 1920, 1080, auto)
     layer_phase(card, seen)
     fused_layer_phase(card, "Cornell", corn, corn_cam, 1024, 768, auto)
     fused_layer_phase(card, "config 4", mixed, mixed_cam, 1920, 1080, d4)

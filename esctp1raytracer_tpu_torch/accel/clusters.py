@@ -80,7 +80,9 @@ def build_clusters(tris: TriangleBuffer) -> ClusteredTriangles:
     oversized_sorted = (oversized & tris.valid)[perm]
 
     bmin, bmax = triangle_bounds(sorted_tris)
-    # Invalid triangles get inverted boxes so their clusters never hit.
+    # Invalid triangles get inverted boxes (min 1e30, max -1e30). A slab test
+    # (kernels/cull.py:block_cull_mask) keeps such a box for every ray; the
+    # kernels that cull in registers recognise it and skip its block.
     bmin = torch.where(sorted_tris.valid[:, None], bmin, 1e30)
     bmax = torch.where(sorted_tris.valid[:, None], bmax, -1e30)
     c = n // CLUSTER

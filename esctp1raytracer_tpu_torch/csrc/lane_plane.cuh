@@ -1,14 +1,15 @@
 // The per-(ray, triangle) test shared by the ray-lane kernel (lane.cu, K4),
-// the fused whole-frame kernel (fused.cu, K3) and the tile kernels
-// (rt_tile.cu, K5/K6), as their plain PyTorch versions share
+// the fused whole-frame kernel (fused.cu, K3), the tile kernels
+// (rt_tile.cu, K5/K6) and the mxtile any-hit kernel's oversized triangles
+// (rt_mxu.cu, K2), as their plain PyTorch versions share
 // kernels/lane_pallas.py:plane_pair.
 //
 // Per pair, against a triangle's 13 plane/barycentric constants c:
 //   det = -(d . n);  t = (o . n - n.v0) / det;  p = o + t d;
 //   u = w_u . p + b_u;  v = w_v . p + b_v;
 //   accept iff |det| >= eps, min(u, v) >= eps, u + v <= 1, t >= eps.
-// IEEE division; both sources build with -fmad=false, so every product and
-// sum rounds on its own, in the plain version's order.
+// IEEE division; every source that includes it builds with -fmad=false, so
+// every product and sum rounds on its own, in the plain version's order.
 
 #pragma once
 

@@ -100,7 +100,7 @@ def scene_from_mesh(
         lights = LightTable(tri_idx=torch.from_numpy(tri_idx),
                             face_count=torch.from_numpy(face_count))
     else:
-        lights = LightTable.empty()
+        lights = LightTable.empty(device="cpu")
 
     t = torch.from_numpy
     triangles = TriangleBuffer(
@@ -115,7 +115,7 @@ def scene_from_mesh(
     )
 
     if spheres is None:
-        spheres = SphereBuffer.empty(8)
+        spheres = SphereBuffer.empty(8, device="cpu")
 
     return Scene(triangles=triangles, spheres=spheres, lights=lights).to(device)
 
@@ -125,7 +125,9 @@ def make_spheres(
     radii: Sequence[float],
     materials: Sequence[Material],
     capacity: Optional[int] = None,
+    device="cuda",
 ) -> SphereBuffer:
+    """A padded sphere table on `device` (the card unless the caller names another)."""
     s = len(radii)
     cap = capacity if capacity is not None else max(8, pad_to(s, 8))
     center = np.zeros((cap, 3), np.float32)
@@ -146,7 +148,7 @@ def make_spheres(
         valid[i] = True
     t = torch.from_numpy
     return SphereBuffer(center=t(center), radius=t(radius), ka=t(ka), kd=t(kd),
-                        ks=t(ks), ke=t(ke), ns=t(ns), valid=t(valid))
+                        ks=t(ks), ke=t(ke), ns=t(ns), valid=t(valid)).to(device)
 
 
 def _quad_mesh(name: str, quad: Sequence[Sequence[float]], material: Material) -> MeshData:
@@ -337,6 +339,7 @@ def cornell_variant(name: str = "original", device="cuda") -> Scene:
             centers=[(0.446, 0.332, 0.377), (-0.42, 0.33, -0.3)],
             radii=[0.325, 0.325],
             materials=[_LEFT_SPHERE_MATERIAL, _RIGHT_SPHERE_MATERIAL],
+            device=device,
         )
         return scene_from_mesh(_cornell_shell(drop_groups=no_boxes), spheres=spheres,
                                device=device)
@@ -384,6 +387,7 @@ def sphere_plane_scene(device="cuda") -> Scene:
         radii=[1.0],
         materials=[Material.make(ka=(0.7, 0.2, 0.2), kd=(0.7, 0.2, 0.2),
                                  ks=(0.2, 0.2, 0.2), ns=32.0)],
+        device=device,
     )
     meshes = [_ground_plane(), _area_light(center=(0.0, 6.0, 2.0), half=1.5)]
     return scene_from_mesh(meshes, spheres=spheres, device=device)
@@ -400,7 +404,7 @@ def ten_sphere_scene(seed: int = 0, device="cuda") -> Scene:
         radii.append(r)
         color = rng.rand(3).astype(np.float32) * 0.7 + 0.2
         mats.append(Material.make(ka=color, kd=color, ks=(0.3, 0.3, 0.3), ns=64.0))
-    spheres = make_spheres(centers, radii, mats)
+    spheres = make_spheres(centers, radii, mats, device=device)
     meshes = [_ground_plane(), _area_light(center=(0.0, 7.0, 0.0), half=2.0)]
     return scene_from_mesh(meshes, spheres=spheres, device=device)
 
@@ -479,6 +483,7 @@ def mixed_scene(device="cuda") -> Scene:
             Material.make(ka=(0.2, 0.5, 0.2), kd=(0.2, 0.5, 0.2),
                           ks=(0.4, 0.4, 0.4), ns=64.0),
         ],
+        device=device,
     )
     meshes = [
         icosphere_mesh(subdivisions=3, radius=0.9, center=(0.0, 0.9, -1.5),

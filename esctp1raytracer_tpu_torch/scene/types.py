@@ -129,7 +129,7 @@ class TriangleBuffer(_Table):
         return self.map(lambda _, a: a[idx])
 
     @staticmethod
-    def empty(capacity: int = DEFAULT_PAD_MULTIPLE, device=None) -> "TriangleBuffer":
+    def empty(capacity: int = DEFAULT_PAD_MULTIPLE, device="cuda") -> "TriangleBuffer":
         z3 = torch.zeros((capacity, 3), dtype=torch.float32, device=device)
         z2 = torch.zeros((capacity, 2), dtype=torch.float32, device=device)
         z1 = torch.zeros((capacity,), dtype=torch.float32, device=device)
@@ -161,7 +161,7 @@ class SphereBuffer(_Table):
         return int(self.center.shape[0])
 
     @staticmethod
-    def empty(capacity: int = 8, device=None) -> "SphereBuffer":
+    def empty(capacity: int = 8, device="cuda") -> "SphereBuffer":
         z3 = torch.zeros((capacity, 3), dtype=torch.float32, device=device)
         z1 = torch.zeros((capacity,), dtype=torch.float32, device=device)
         zb = torch.zeros((capacity,), dtype=torch.bool, device=device)
@@ -185,7 +185,7 @@ class LightTable(_Table):
         return int(self.tri_idx.shape[1])
 
     @staticmethod
-    def empty(device=None) -> "LightTable":
+    def empty(device="cuda") -> "LightTable":
         return LightTable(
             tri_idx=torch.zeros((0, 1), dtype=torch.int32, device=device),
             face_count=torch.zeros((0,), dtype=torch.int32, device=device),

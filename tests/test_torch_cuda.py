@@ -7,8 +7,10 @@ kernels with nvcc at first use). Bars:
 * K1, K4 (tests/test_torch_rt_mxu.py): winner agreement >= 99.9% and t
   within 1e-5 of max(|t|, 1) where winners agree (FMA-contracted sums vs
   the plain version's separately rounded ones); K2: occlusion agreement
-  >= 99.9%; K5, K6 (built with -fmad=false): equal to their plain
-  versions bit for bit, and so is their kept count per bundle;
+  >= 99.9%; K1, K2: their kept count per group equal to `_prep_mxu`'s,
+  and K2's oversized sub-block equal to `_oversized_occl`, exactly;
+  K5, K6 (built with -fmad=false): equal to their plain versions bit for
+  bit, and so is their kept count per bundle;
 * K3 (tests/test_fused.py:38-46): at most 0.2% of pixels off by more than
   1e-2, the rest within 3e-5;
 * rendered images within the test_rt_mxu.py image bars of the CPU port.
@@ -53,43 +55,122 @@ def scene():
 CAM = Camera.look_at((0.0, 2.0, 6.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=4 / 3, device="cpu")
 
 
-def _inputs(scene, dev, exclude_oversized, o, d, tl):
-    (tfq, aabbs, _), = list(rt_mxu._segments(scene.to(dev).triangles, exclude_oversized)[0])
-    rf, ids, cnt, tl, _, _ = rt_mxu._prep_mxu(o, d, aabbs, tl)
-    return torch.tensor([EPS], device=dev), ids, cnt, rf, tl, tfq
+def _mxu_args(tris, o, d, tl, exclude_oversized):
+    (tfq, aabbs, _), = list(rt_mxu._segments(tris, exclude_oversized)[0])
+    return torch.tensor([EPS], device=o.device), rt_tile._pad_rays(o, d, tl), aabbs, tfq
 
 
-def test_search_kernel_matches_plain(dev, scene):
-    o, d = (x.reshape(-1, 3) for x in CAM.to(dev).ray_grid(160, 120))
-    eps, ids, cnt, rf, _, tfq = _inputs(scene, dev, False, o, d, None)
-    n0 = rt_mxu.mxu_kernel.launches
-    t, idx = rt_mxu.mxu_kernel(eps, ids, cnt, rf, tfq)
-    torch.cuda.synchronize()
-    assert rt_mxu.mxu_kernel.launches == n0 + 1
-    t2, idx2 = rt_mxu._mxu_search_plain(eps, ids, cnt, rf, tfq)
-    same = idx == idx2
-    assert same.float().mean().item() >= 0.999
-    rel = (t - t2).abs()[same] / t2.abs()[same].clamp(min=1.0)
-    assert rel.max().item() < 1e-5
-    assert (idx >= 0).float().mean().item() > 0.3
+def _mxu_cnt(rays, aabbs):
+    """The JAX package's list lengths (`_prep_mxu`) on padded rays."""
+    return rt_mxu._prep_mxu(rays[:, 0:3], rays[:, 3:6], aabbs, rays[:, 6])[2]
 
 
-def test_occl_kernel_matches_plain(dev, scene):
-    sc = scene.to(dev)
-    o, d = (x.reshape(-1, 3) for x in CAM.to(dev).ray_grid(160, 120))
-    hit = closest_hit(o, d, sc, EPS, tri_search=rt_mxu.mxu_tile_search)
-    hp = o + d * (torch.where(hit.hit, hit.t, 1.0)[:, None] - 1e-4)
-    lv = torch.tensor([0.3, 5.9, 2.2], device=dev) - hp
-    dist = lv.norm(dim=-1)
-    tl = torch.where(hit.hit, dist - 1e-4, -1.0)
-    eps, ids, cnt, rf, tl, tfq = _inputs(scene, dev, True, hp, lv / dist[:, None], tl)
+def _mxu_tris(scene, dev, name):
+    """The icospheres' table; "padded": followed by 64 padding-only blocks."""
+    tris = scene.to(dev).triangles
+    if name == "padded":
+        filler = TriangleBuffer.empty(64 * 128, device=dev)
+        tris = tris.map(lambda leaf, a: torch.cat([a, getattr(filler, leaf)]))
+    return tris
+
+
+@pytest.mark.parametrize("name", ["icospheres", "axis", "padded"])
+def test_search_kernel_matches_plain(dev, scene, name):
+    """K1 against its plain version without and with a t-limit cull, with
+    and without cnt_out, and cnt_out equal to `_prep_mxu`'s list lengths.
+    "axis": axis-aligned rays whose origins lie on block-box planes;
+    "padded": 64 padding-only blocks, which every ray keeps and K1 skips."""
+    tris = _mxu_tris(scene, dev, name)
+    if name == "axis":
+        (_, aabbs, _), = list(rt_mxu._segments(tris, False)[0])
+        o, d = (x.to(dev) for x in _axis_rays(aabbs))
+    else:
+        o, d = (x.reshape(-1, 3) for x in CAM.to(dev).ray_grid(160, 117))
+    r = o.shape[0]
+    for limit in (None, torch.full((r,), 9.0, device=dev)):
+        eps, rays, aabbs, tfq = _mxu_args(tris, o, d, limit, False)
+        cnt = torch.full((rays.shape[0] // 128,), -1, dtype=torch.int32, device=dev)
+        n0 = rt_mxu.mxu_kernel.launches
+        t, idx = rt_mxu.mxu_kernel(eps, rays, aabbs, tfq, cnt)
+        t1, idx1 = rt_mxu.mxu_kernel(eps, rays, aabbs, tfq)
+        torch.cuda.synchronize()
+        assert rt_mxu.mxu_kernel.launches == n0 + 2
+        assert torch.equal(cnt, _mxu_cnt(rays, aabbs))
+        assert torch.equal(t, t1) and torch.equal(idx, idx1)
+        t2, idx2 = rt_mxu._mxu_search_plain(eps, rays, aabbs, tfq)
+        same = idx == idx2
+        assert same.float().mean().item() >= 0.999
+        rel = (t - t2).abs()[same] / t2.abs()[same].clamp(min=1.0)
+        assert rel.max().item() < 1e-5
+        assert (idx[:r] >= 0).float().mean().item() > (0.0 if name == "axis" else 0.3)
+    if name == "padded":
+        assert int(cnt.min()) >= 64
+
+
+@pytest.mark.parametrize("name", ["icospheres", "axis", "padded"])
+def test_occl_kernel_matches_plain(dev, scene, name):
+    """K2 with the oversized sub-block against its plain version, with and
+    without cnt_out (equal to `_prep_mxu`'s list lengths); K2 with the
+    sub-block equal to K2 without it ORed with `_oversized_occl`. The light
+    sits above the area light, so the oversized triangles occlude."""
+    tris = _mxu_tris(scene, dev, name)
+    if name == "axis":
+        (_, aabbs, _), = list(rt_mxu._segments(tris, True)[0])
+        hp, sd = (x.to(dev) for x in _axis_rays(aabbs))
+        tl = torch.from_numpy(np.random.RandomState(1).uniform(
+            -1.0, 6.0, hp.shape[0]).astype(np.float32)).to(dev)
+    else:
+        o, d = (x.reshape(-1, 3) for x in CAM.to(dev).ray_grid(160, 117))
+        sc = scene.to(dev)
+        hit = closest_hit(o, d, sc, EPS, tri_search=rt_mxu.mxu_tile_search)
+        hp = o + d * (torch.where(hit.hit, hit.t, 1.0)[:, None] - 1e-4)
+        lv = torch.tensor([0.3, 8.0, 2.2], device=dev) - hp
+        dist = lv.norm(dim=-1)
+        sd, tl = lv / dist[:, None], torch.where(hit.hit, dist - 1e-4, -1.0)
+    r = hp.shape[0]
+    eps, rays, aabbs, tfq = _mxu_args(tris, hp, sd, tl, True)
+    _, ov_buf, _ = rt_mxu._segments(tris, True)
+    ov, _ = rt_tile._pack_sub(ov_buf)
+    cnt = torch.full((rays.shape[0] // 128,), -1, dtype=torch.int32, device=dev)
     n0 = rt_mxu.mxu_occl_kernel.launches
-    occ = rt_mxu.mxu_occl_kernel(eps, ids, cnt, rf, tl, tfq)
+    occ = rt_mxu.mxu_occl_kernel(eps, rays, aabbs, tfq, ov, cnt)
+    occ1 = rt_mxu.mxu_occl_kernel(eps, rays, aabbs, tfq, ov)
+    occ0 = rt_mxu.mxu_occl_kernel(eps, rays, aabbs, tfq)
     torch.cuda.synchronize()
-    assert rt_mxu.mxu_occl_kernel.launches == n0 + 1
-    occ2 = rt_mxu._mxu_occl_plain(eps, ids, cnt, rf, tl, tfq)
+    assert rt_mxu.mxu_occl_kernel.launches == n0 + 3
+    assert torch.equal(cnt, _mxu_cnt(rays, aabbs)) and torch.equal(occ, occ1)
+    occ2 = rt_mxu._mxu_occl_plain(eps, rays, aabbs, tfq, ov)
     assert (occ == occ2).float().mean().item() >= 0.999
-    assert 0.01 < occ.float().mean().item() < 0.99
+    split = (occ0[:r] > 0) | rt_tile._oversized_occl(hp, sd, tl, ov_buf, EPS)
+    assert torch.equal(occ[:r] > 0, split)
+    assert 0.01 < occ[:r].float().mean().item() < 0.99
+
+
+def test_mxtile_segments_on_card_match_cpu(dev, scene, monkeypatch):
+    """A multi-segment table (MXU_TRI_LIMIT cut to 1024: three segments) on
+    the card against the port on the CPU (plain versions): first-wins for
+    the search, OR for the occlusion, whose first launch alone tests the
+    oversized sub-block."""
+    monkeypatch.setattr(rt_mxu, "MXU_TRI_LIMIT", 1024)
+    nseg = -(-scene.triangles.capacity // 1024)
+    assert nseg == 3
+    o, d = (x.reshape(-1, 3) for x in CAM.ray_grid(96, 72))
+    tl = torch.full((o.shape[0],), 5.5)
+    ref = (*rt_mxu.mxu_tile_search(o, d, scene.triangles, EPS),
+           rt_mxu.mxu_tile_occlusion(o, d, tl, scene.triangles, EPS))
+    n0 = (rt_mxu.mxu_kernel.launches, rt_mxu.mxu_occl_kernel.launches)
+    tris = scene.to(dev).triangles
+    got = (*rt_mxu.mxu_tile_search(o.to(dev), d.to(dev), tris, EPS),
+           rt_mxu.mxu_tile_occlusion(o.to(dev), d.to(dev), tl.to(dev), tris, EPS))
+    torch.cuda.synchronize()
+    assert (rt_mxu.mxu_kernel.launches, rt_mxu.mxu_occl_kernel.launches) == (n0[0] + nseg,
+                                                                             n0[1] + nseg)
+    same = got[1].cpu() == ref[1]
+    assert same.float().mean().item() >= 0.999
+    rel = (got[0].cpu() - ref[0]).abs()[same] / ref[0].abs()[same].clamp(min=1.0)
+    assert rel.max().item() < 1e-5
+    assert (got[2].cpu() == ref[2]).float().mean().item() >= 0.999
+    assert bool(ref[2].any()) and (ref[1] >= 0).float().mean().item() > 0.3
 
 
 def test_render_on_card_matches_cpu(dev, scene):
@@ -104,13 +185,24 @@ def test_render_on_card_matches_cpu(dev, scene):
 
 def test_wrapper_rejects_bad_inputs(dev, scene):
     o, d = (x.reshape(-1, 3) for x in CAM.to(dev).ray_grid(16, 16))
-    eps, ids, cnt, rf, _, tfq = _inputs(scene, dev, False, o, d, None)
-    with pytest.raises(ValueError, match="ids"):
-        rt_mxu.mxu_kernel(eps, ids.long(), cnt, rf, tfq)
+    eps, rays, aabbs, tfq = _mxu_args(scene.to(dev).triangles, o, d, None, False)
+    with pytest.raises(ValueError, match="cnt_out"):
+        rt_mxu.mxu_kernel(eps, rays, aabbs, tfq, cnt_out=torch.zeros(2, dtype=torch.int64,
+                                                                     device=dev))
     with pytest.raises(ValueError, match="contiguous"):
-        rt_mxu.mxu_kernel(eps, ids, cnt, rf, tfq.transpose(1, 2).contiguous().transpose(1, 2))
+        rt_mxu.mxu_kernel(eps, rays, aabbs, tfq.transpose(1, 2).contiguous().transpose(1, 2))
     with pytest.raises(ValueError, match="tfq"):
-        rt_mxu.mxu_kernel(eps, ids, cnt, rf, tfq.cpu())
+        rt_mxu.mxu_kernel(eps, rays, aabbs, tfq.cpu())
+    with pytest.raises(ValueError, match="rays"):
+        rt_mxu.mxu_occl_kernel(eps, rays[:, :7].contiguous(), aabbs, tfq)
+    with pytest.raises(ValueError, match="ov"):
+        rt_mxu.mxu_occl_kernel(eps, rays, aabbs, tfq, tfq[:1])
+    with pytest.raises(ValueError, match="blocks"):
+        rt_mxu.mxu_kernel(eps, rays, torch.zeros(8, 257, device=dev), tfq)
+    shifted = torch.empty(rays.numel() + 1, device=dev)[1:].view(rays.shape)
+    shifted.copy_(rays)
+    with pytest.raises(ValueError, match="aligned"):
+        rt_mxu.mxu_kernel(eps, shifted, aabbs, tfq)
 
 
 CORNELL_CAM = Camera.look_at((0.0, 1.0, 2.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=4 / 3,

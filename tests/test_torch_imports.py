@@ -68,25 +68,32 @@ def test_port_imports_no_jax_and_renders_on_cpu():
 def test_wrapper_on_cpu_tensor_runs_plain_version_without_launch():
     import torch
 
-    from esctp1raytracer_tpu_torch.kernels import rt_mxu
+    from esctp1raytracer_tpu_torch.kernels import rt_mxu, rt_tile
 
-    g, nsub = 2, 3
     gen = torch.Generator().manual_seed(0)
-    rf = torch.randn(g, 128, 16, generator=gen)
-    tfq = torch.randn(nsub, 16, 512, generator=gen)
-    ids = torch.tensor([[0, 1, 2], [2, 0, 1]], dtype=torch.int32)
-    cnt = torch.tensor([3, 1], dtype=torch.int32)
-    tl = torch.full((g, 128), 0.5)
+    tfq = torch.randn(3, 16, 512, generator=gen)
+    # Block boxes: 0 and 1 ahead of the origins along +z, 2 behind them.
+    lo = torch.tensor([[-1.0, -1.0, 1.0], [-1.0, -1.0, 3.0], [-1.0, -1.0, -2.0]])
+    aabbs = torch.cat([lo.T, (lo + torch.tensor([2.0, 2.0, 1.0])).T, torch.zeros(2, 3)])
+    # Group 0 looks along +z, group 1 along -z.
+    o = torch.cat([torch.rand(256, 2, generator=gen) - 0.5, torch.zeros(256, 1)], 1)
+    d = torch.tensor([0.0, 0.0, 1.0]).repeat(256, 1)
+    d[128:, 2] = -1.0
+    rays = rt_tile._pad_rays(o, d)
+    rays_tl = rt_tile._pad_rays(o, d, torch.full((256,), 50.0))
     eps = torch.tensor([1e-7])
+    cnt, cnt2 = torch.zeros(2, dtype=torch.int32), torch.zeros(2, dtype=torch.int32)
     before = (rt_mxu.mxu_kernel.launches, rt_mxu.mxu_occl_kernel.launches)
-    t, idx = rt_mxu.mxu_kernel(eps, ids, cnt, rf, tfq)
-    occ = rt_mxu.mxu_occl_kernel(eps, ids, cnt, rf, tl, tfq)
+    t, idx = rt_mxu.mxu_kernel(eps, rays, aabbs, tfq, cnt_out=cnt)
+    occ = rt_mxu.mxu_occl_kernel(eps, rays_tl, aabbs, tfq, cnt_out=cnt2)
     assert (rt_mxu.mxu_kernel.launches, rt_mxu.mxu_occl_kernel.launches) == before
-    t2, idx2 = rt_mxu._mxu_search_plain(eps, ids, cnt, rf, tfq)
+    t2, idx2 = rt_mxu._mxu_search_plain(eps, rays, aabbs, tfq)
     assert torch.equal(t, t2) and torch.equal(idx, idx2)
-    assert torch.equal(occ, rt_mxu._mxu_occl_plain(eps, ids, cnt, rf, tl, tfq))
-    assert t.shape == idx.shape == occ.shape == (g, 128)
+    assert torch.equal(occ, rt_mxu._mxu_occl_plain(eps, rays_tl, aabbs, tfq))
+    assert t.shape == idx.shape == occ.shape == (256,)
     assert t.dtype == torch.float32 and idx.dtype == occ.dtype == torch.int32
+    assert cnt.tolist() == cnt2.tolist() == [2, 1]
     # Group 1 only visits block 2: every winner lies in 256..383.
-    hit = idx[1] >= 0
-    assert bool(hit.any()) and bool(((idx[1][hit] >= 256) & (idx[1][hit] < 384)).all())
+    hit = idx[128:] >= 0
+    assert bool(hit.any()) and bool(((idx[128:][hit] >= 256) & (idx[128:][hit] < 384)).all())
+    assert bool(occ[128:].any())

@@ -120,10 +120,10 @@ def test_shadow_wavefront_matches_jax():
 
 def test_capacity_limit():
     assert pl.LANE_TRI_LIMIT == jl.LANE_TRI_LIMIT == 4096
-    tris = TriangleBuffer.empty(pl.LANE_TRI_LIMIT + 512)
+    tris = TriangleBuffer.empty(pl.LANE_TRI_LIMIT + 512, device="cpu")
     with pytest.raises(ValueError, match="4096"):
         pl.lane_tri_search(torch.zeros((8, 3)), torch.zeros((8, 3)), tris, EPS)
-    ok = TriangleBuffer.empty(pl.LANE_TRI_LIMIT)  # at the limit: runs, all misses
+    ok = TriangleBuffer.empty(pl.LANE_TRI_LIMIT, device="cpu")  # at the limit: runs, all misses
     t, i = pl.lane_tri_search(torch.zeros((8, 3)), torch.ones((8, 3)), ok, EPS)
     assert bool((i == -1).all()) and bool((t == 1e30).all())
 

@@ -50,10 +50,10 @@ def _meshes(b):
     ]
 
 
-def _spheres(b, types):
+def _spheres(b, types, **kw):
     mats = [types.Material.make(ka=(0.1, 0.2, 0.3), kd=(0.4, 0.5, 0.6), ks=(0.3, 0.3, 0.3), ns=32.0),
             types.Material.make(ke=(1.0, 0.0, 0.0), ns=8.0)]
-    return b.make_spheres([(0.0, 1.0, 0.0), (2.0, 0.5, -1.0)], [1.0, 0.5], mats)
+    return b.make_spheres([(0.0, 1.0, 0.0), (2.0, 0.5, -1.0)], [1.0, 0.5], mats, **kw)
 
 
 class TestScene:
@@ -62,8 +62,8 @@ class TestScene:
         from esctp1raytracer_tpu_torch.scene import types as pt
 
         js = jb.scene_from_mesh(_meshes(jb), spheres=_spheres(jb, jt), pad_multiple=256)
-        ps = pb.scene_from_mesh(_meshes(pb), spheres=_spheres(pb, pt), pad_multiple=256,
-                                device="cpu")
+        ps = pb.scene_from_mesh(_meshes(pb), spheres=_spheres(pb, pt, device="cpu"),
+                                pad_multiple=256, device="cpu")
         assert_same_tables(jax_leaves(js), scene_to_numpy(ps))
         assert ps.num_triangles == js.num_triangles and ps.num_lights == 2
 
@@ -108,16 +108,23 @@ class TestScene:
         assert ps.lights.tri_idx.dtype == torch.int32
 
     def test_builders_and_camera_default_to_the_card(self):
-        """The entry points build on the card unless told otherwise, and do
-        not fall back to the CPU where there is none."""
+        """The entry points and the table constructors below them build on
+        the card unless told otherwise, and do not fall back to the CPU
+        where there is none."""
+        from esctp1raytracer_tpu_torch.scene import types as pt
+
         calls = [lambda: pb.cornell_box(), lambda: pb.random_scene(64),
                  lambda: scene_from_numpy(jax_leaves(jb.cornell_box())),
-                 lambda: PCamera.look_at((0.0, 1.0, 2.0), (0.0, 1.0, 0.0))]
+                 lambda: PCamera.look_at((0.0, 1.0, 2.0), (0.0, 1.0, 0.0)),
+                 lambda: TriangleBuffer.empty(128), lambda: pt.SphereBuffer.empty(),
+                 lambda: pt.LightTable.empty(), lambda: _spheres(pb, pt)]
+        leaf = {PCamera: "origin", TriangleBuffer: "v0", pt.SphereBuffer: "center",
+                pt.LightTable: "tri_idx"}
         for call in calls:
             if torch.cuda.is_available():
                 out = call()
-                leaf = out.origin if isinstance(out, PCamera) else out.triangles.v0
-                assert leaf.device.type == "cuda"
+                x = getattr(out, leaf[type(out)]) if type(out) in leaf else out.triangles.v0
+                assert x.device.type == "cuda"
             else:
                 with pytest.raises((AssertionError, RuntimeError)):
                     call()
@@ -125,7 +132,7 @@ class TestScene:
     def test_empty_and_padding(self):
         assert DEFAULT_PAD_MULTIPLE == 512
         assert [pad_to(n) for n in (0, 1, 512, 513)] == [512, 512, 512, 1024]
-        e = TriangleBuffer.empty(128)
+        e = TriangleBuffer.empty(128, device="cpu")
         assert e.capacity == 128 and not bool(e.valid.any())
         assert int(e.geom_id.min()) == -1
 

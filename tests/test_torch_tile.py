@@ -282,7 +282,7 @@ def _tie_table():
         v1[i] = torch.tensor([1.0, -1.0, 0.0])
         v2[i] = torch.tensor([0.0, 1.0, 0.0])
         valid[i] = True
-    tris = dataclasses.replace(TriangleBuffer.empty(n), v0=v0, v1=v1, v2=v2, valid=valid)
+    tris = dataclasses.replace(TriangleBuffer.empty(n, device="cpu"), v0=v0, v1=v1, v2=v2, valid=valid)
     tc, _ = pt._pack_sub(tris)
     return tc
 
