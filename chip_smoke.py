@@ -9,11 +9,12 @@ A. the flagship (bench.py): 1920x1080 camera rays over the 10,244-triangle
    with respect to every float scene leaf; "auto" resolves to mxtile
    (kernels K1, K2);
 B. the Cornell box (bench.py's Cornell leg), 1024x768, depth 1: "auto"
-   resolves to the fused whole-frame kernel K3, whose backward
-   re-derives the frame on the lane route (K4);
+   resolves to the fused route, two launches: the table build and the
+   whole-frame kernel K3; the backward re-derives the frame on the lane
+   route (K4, one launch per search);
 C. BASELINE config 4: mixed_scene(), 1920x1080, depth 4: "auto" resolves
-   to K3, whose backward re-derives the frame through chunked mxtile (K1,
-   K2);
+   to the table build and K3, whose backward re-derives the frame through
+   chunked mxtile (K1, K2);
 D. the Cornell box with light_mode="reference_cpp", 1024x768, forward:
    "auto" resolves to the lane kernel K4;
 E. BASELINE config 5: random_scene(100_000) (100,004 triangles, 784
@@ -50,17 +51,29 @@ Phases, any failure exits non-zero (no phase catches its own failure):
    sub-block: also to the segment sweep ORed with `_oversized_occl`); for
    the 500k soup, the plain
    segments combined equal to the entry points' own output; the layers of
-   config 5's forward timed alone. Bounds count the pairs each kernel
-   evaluates on this run's data: K2 and K6 up to their early exits;
+   config 5's forward timed alone. The fused table build equal bit for bit
+   to its plain version on a CPU copy of Cornell, config 4 and a
+   2,048-triangle table (and the plain version run on the card compared
+   with it); K4's t bit-identical to its plain version on a CPU copy. Bounds
+   count the pairs each kernel evaluates on this run's data: K2 and K6 up
+   to their early exits; K3 per bounce, the pairs of each live ray with the
+   chunks its own slab test keeps and its shadow pairs up to its first
+   occluder, with a fixed count per ray for the rest; K3 and K4 count a
+   pair that the exact division skip rejects at 16 operations, not 40.
+   K3-K6 build with -fmad=false (no FMAs), so they can reach at most half
+   of a bound taken at 67 TFLOP/s;
 4. main paths A-F: for each, every kernel's launch counter set to 0 just
    before a run and read just after (forward, then forward + backward),
    checks (finite, non-black image, finite gradients, counters > 0, a
    small frame agreeing with the plain `jnp` backend), then forward and
    fwd+bwd times from CUDA events (median of 5, ray ids varied per
    iteration) and the peak device memory; the flagship's fwd+bwd step
-   calls neither `_prep_mxu` nor `_oversized_occl` (counting spies); the
-   layers of the flagship's forward, and of the Cornell and config-4
-   steps, timed alone;
+   calls neither `_prep_mxu` nor `_oversized_occl` (counting spies);
+   Cornell's forward is one table build and one K3 launch and calls
+   neither `build_clusters` nor `lane_tri_constants`, its fwd+bwd launches
+   K4 twice and builds no constants on the host, and `lane_tri_search` is
+   one launch (counting spies); the layers of the flagship's forward, and
+   of the Cornell and config-4 steps, timed alone;
 5. prints the wall time, {"kernels": [...]} and, as the last line, the
    result line.
 
@@ -71,6 +84,7 @@ Usage: python3 chip_smoke.py   (from the repository root)
 """
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -80,6 +94,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from esctp1raytracer_tpu_torch.accel import clusters
 from esctp1raytracer_tpu_torch.core.camera import Camera
 from esctp1raytracer_tpu_torch.core.render import RenderConfig, render, resolve_backend, trace_rays
 from esctp1raytracer_tpu_torch.kernels import _build, fused_pallas, lane_pallas, rt_mxu, rt_tile
@@ -95,9 +110,11 @@ TPU = "esctp1raytracer_tpu/kernels/"
 KERNELS = {
     "mxu_kernel": (rt_mxu, rt_mxu._mxu_search_plain, "rt_mxu.cu", TPU + "rt_mxu.py:153"),
     "mxu_occl_kernel": (rt_mxu, rt_mxu._mxu_occl_plain, "rt_mxu.cu", TPU + "rt_mxu.py:215"),
+    "fused_tables": (fused_pallas, fused_pallas._fused_tables_plain, "fused.cu",
+                     TPU + "fused_pallas.py:91 fused_tables (XLA ops, not a Pallas kernel)"),
     "fused_kernel": (fused_pallas, fused_pallas._fused_plain, "fused.cu",
                      TPU + "fused_pallas.py:162"),
-    "lane_kernel": (lane_pallas, lane_pallas._lane_search_plain, "lane.cu",
+    "lane_kernel": (lane_pallas, lane_pallas._lane_plain, "lane.cu",
                     TPU + "lane_pallas.py:69"),
     "tile_kernel": (rt_tile, rt_tile._tile_search_plain, "rt_tile.cu", TPU + "rt_tile.py:241"),
     "tile_occl_kernel": (rt_tile, rt_tile._tile_occl_plain, "rt_tile.cu",
@@ -115,8 +132,30 @@ PEAK_BYTES = 3.35e12  # HBM3 bytes/s
 # Operations per (ray, triangle) pair of lane_plane.cuh's plane_hit (K3-K6):
 # det 5 and its negation, |det| and its compare, the division, t 7, p 6,
 # u 6, v 6, min(u, v) and its compare, u + v and its compare, t >= eps, and
-# the compare with the running t or the t_limit.
+# the compare with the running t or the t_limit. K3-K6 build with
+# -fmad=false: no FMAs, so they can reach at most half of a bound taken at
+# PEAK_F32 (which counts an FMA as 2 operations).
 PAIR_OPS = 40
+# A pair that K3's and K4's exact division skip rejects (plane_skip), up to
+# the test: det 5 and its negation, |det| and its compare, the numerator 6,
+# the two sign tests.
+SKIP_PAIR_OPS = 16
+# K3's fixed operations, counted from csrc/fused.cu. Per sphere test
+# (sphere_t): oc 3, b 5, c0 7, disc 2, its compare and the root 2, tn 2, its
+# compare and t 3, the three tests 3, the compare with the running t 1.
+SPHERE_OPS = 28
+# Per live ray that hits: the winner's Moller-Trumbore recompute 62 (edges
+# 6, two crosses 18, four dots 20, the division, three products, seven
+# compares, two selects), the hit point 8, the cheapest normal (a
+# sphere's) 8.
+FUSED_HIT_OPS = 78
+# Per hit ray and light: three murmur3 draws 45 (mix 2, fmix 11 and the
+# conversion 2 each), the face 3, the point on it 21, the shadow ray
+# (lv 3, dist 7, ld 4, t_lim 1) 15, d.n 5.
+FUSED_DRAW_OPS = 89
+# Per shadow ray in the mask (d.n > 0): the Phong term (hv 6, spec_dot 14,
+# the power 4, the contribution 21).
+FUSED_PHONG_OPS = 45
 # Per (ray, triangle) pair of K1/K2: the 25 FMAs that can meet a non-zero
 # coefficient (50 operations; csrc/rt_mxu.cu skips the other 39, each an
 # exact zero) and the window (the division, t, u, v, |det|, five compares,
@@ -260,8 +299,10 @@ def search_agreement(name, out_k, out_p):
 
 
 def time_pair(name, fn_k, fn_p, iters_k, iters_p, card, what):
+    """The kernel's time (median of 3 windows of iters_k calls) and the plain
+    version's (one window of iters_p calls), ms per call."""
     fn_k()
-    ms = cuda_ms(fn_k, iters_k)
+    ms = statistics.median(cuda_ms(fn_k, iters_k) for _ in range(3))
     plain_ms = cuda_ms(fn_p, iters_p)
     say(f"{name} [{what}]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms  [{card}]")
     return ms, plain_ms
@@ -468,8 +509,20 @@ def mxtile_backward_kernels(card, scene, cam, w, h, cfg, results):
             f"{s['bound_ms_full_count']:.3f})  [{card}]")
 
 
+def skipped_pairs(o, d, c, eps, step=262_144):
+    """How many of the pairs of rays o, d with every row of c the exact
+    division skip rejects (`lane_pallas.plane_skip`)."""
+    n = 0
+    for i in range(0, o.shape[0], step):
+        n += int(lane_pallas.lane_plane_skips(o[i:i + step], d[i:i + step], c, eps).sum())
+    return n
+
+
 def lane_kernels(card, o, d, scene, ids, results):
-    """K4 on the Cornell frame's camera and shadow wavefronts (lane route)."""
+    """K4 on the Cornell frame's camera and shadow wavefronts (lane route),
+    with the arguments `lane_tri_search` gives it: within the bars of its
+    plain version on the card, and its t and winners bit-identical to the
+    plain version on a CPU copy (the constants rounded as on the CPU)."""
     seen = capture_wavefronts(o, d, scene, ids, RenderConfig(backend="lane"),
                               lane_pallas.lane_tri_search)
     check(len(seen) == 2, f"lane route made {len(seen)} searches, want 2 (camera, shadow)")
@@ -477,46 +530,191 @@ def lane_kernels(card, o, d, scene, ids, results):
     for k, what in enumerate(("camera", "shadow")):
         _, oo, dd, tris, eps, _ = seen[k]
         with torch.no_grad():
-            args = (torch.tensor([eps], dtype=torch.float32, device=oo.device),
-                    lane_pallas.valid_prefix(tris.valid),
-                    lane_pallas.lane_tri_constants(tris).contiguous(),
-                    oo.contiguous(), dd.contiguous())
-            agree, max_abs, rel, share = search_agreement(
-                f"lane_kernel ({what})", lane_pallas.lane_kernel(*args), plain(*args))
-            say(f"lane_kernel ({what}): winners agree {agree:.6f}, max abs t err {max_abs:.3e}, "
-                f"max rel t err {rel:.3e}, hits {share:.4f}")
+            args = (eps, tris.v0, tris.v1, tris.v2, tris.valid, oo.contiguous(), dd.contiguous())
+            out_k = lane_pallas.lane_kernel(*args)
+            agree, max_abs, rel, share = search_agreement(f"lane_kernel ({what})", out_k,
+                                                          plain(*args))
+            cpu = plain(*(x.cpu() if torch.is_tensor(x) else x for x in args))
+            identical(f"lane_kernel ({what}) vs its plain version on a CPU copy",
+                      tuple(x.cpu() for x in out_k), cpu)
+            say(f"lane_kernel ({what}): winners agree {agree:.6f} with the plain version on the "
+                f"card, max abs t err {max_abs:.3e}, max rel t err {rel:.3e}, hits {share:.4f}; "
+                "t and winners bit-identical to the plain version on a CPU copy")
             ms, plain_ms = time_pair("lane_kernel", lambda: lane_pallas.lane_kernel(*args),
                                      lambda: plain(*args), 20, 3, card,
                                      f"Cornell 1024x768 {what} wavefront")
-            # Every ray against every triangle below the valid prefix.
-            bound_ms, bound_by = bound(oo.shape[0] * int(args[1]) * PAIR_OPS,
-                                       tensor_bytes(*args) + oo.shape[0] * 8)
-            say(f"lane_kernel [{what}]: bound {bound_ms:.4f} ms ({bound_by})")
+            # Every ray against every triangle below the valid prefix; a pair
+            # that the division skip rejects counts up to the skip.
+            n = int(lane_pallas.valid_prefix(tris.valid))
+            c = lane_pallas._constants(tris.v0, tris.v1, tris.v2, tris.valid)[:n]
+            pairs = oo.shape[0] * n
+            skipped = skipped_pairs(oo, dd, c, eps)
+            ops = skipped * SKIP_PAIR_OPS + (pairs - skipped) * PAIR_OPS
+            nbytes = tensor_bytes(*args[1:]) + oo.shape[0] * 8
+            bound_ms, bound_by = bound(ops, nbytes)
+            old_ms, _ = bound(pairs * PAIR_OPS, nbytes + 4 * lane_pallas.TCS_W * n)
+            say(f"lane_kernel [{what}]: bound {bound_ms:.4f} ms ({bound_by}; {pairs} pairs, of "
+                f"which the skip rejects {skipped / max(pairs, 1):.4f}); without the skip (40 per "
+                f"pair) {old_ms:.4f} ms; launch {lane_pallas.launch_shape(oo.shape[0], n)}")
         entry = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                     bound_by=bound_by)
+                     bound_by=bound_by, bound_ms_no_skip_count=old_ms,
+                     skipped_share=skipped / max(pairs, 1))
         if what == "camera":
             results["lane_kernel"].update(entry, at="Cornell 1024x768 camera wavefront")
         else:
             results["lane_kernel"]["shadow_wavefront"] = entry
 
 
-def fused_kernel_check(card, o, d, scene, ids, cfg, what, iters_p=1):
-    """K3 on a whole frame: the image bars of tests/test_fused.py."""
+def fused_tables_check(card, label, scene, results=None):
+    """The table build on the card against its plain version on a CPU copy
+    of the scene: every output equal bit for bit. The plain version run on
+    the card is compared with the CPU's too (reported: CUDA's
+    torch.linalg.cross may round otherwise). Timed beside the plain version
+    on the card and the bound."""
+    names = ("tcs", "shad", "sph", "lc", "cab", "counts", "n_tris")
     with torch.no_grad():
-        tables = [t.contiguous() for t in fused_pallas.fused_tables(scene)]
+        got = fused_pallas.fused_tables(scene)
+        want = fused_pallas._fused_tables_plain(scene.to("cpu"))
+        for k, a, w in zip(names, got, want):
+            a = a.cpu()
+            same = a.dtype == w.dtype and a.shape == w.shape and torch.equal(
+                *(x.view(torch.int32) if x.is_floating_point() else x for x in (a, w)))
+            check(same, f"fused_tables [{label}]: {k} differs from the plain version on a CPU "
+                  "copy")
+        card_plain = fused_pallas._fused_tables_plain(scene)
+        diffs = []
+        for k, a, w in zip(names, card_plain, want):
+            a = a.cpu()
+            if a.is_floating_point():
+                bits = int((a.view(torch.int32) != w.view(torch.int32)).sum())
+                diffs.append(f"{k} {bits} of {a.numel()} differ, max abs "
+                             f"{(a - w).abs().max().item() if a.numel() else 0.0:.3e}")
+            else:
+                diffs.append(f"{k} {'equal' if torch.equal(a, w) else 'DIFFER'}")
+        g = got[4].shape[1] // 6
+        say(f"fused_tables [{label}]: N {g * fused_pallas.FUSED_CHUNK}, G {g}, n_tris "
+            f"{int(got[6])}: all seven outputs bit-equal to the plain version on a CPU copy")
+        say(f"fused_tables [{label}]: the plain (tensor-op) version on the card vs the CPU: "
+            + "; ".join(diffs))
+        ms, plain_ms = time_pair("fused_tables", lambda: fused_pallas.fused_tables(scene),
+                                 lambda: fused_pallas._fused_tables_plain(scene), 20, 5, card,
+                                 label)
+        tris, sph, lt = scene.triangles, scene.spheres, scene.lights
+        leaves = [getattr(tris, k) for k in ("v0", "v1", "v2", "n0", "n1", "n2", "ka", "kd", "ks",
+                                             "ke", "ns", "has_normals", "valid")]
+        leaves += [getattr(sph, k) for k in ("center", "radius", "ka", "kd", "ks", "ke", "ns",
+                                             "valid")] + [lt.tri_idx, lt.face_count]
+        nbytes = tensor_bytes(*leaves, *got)
+        # Per triangle: centroid 9, AABB diagonal 20, Morton code 46, key 4,
+        # constants 75, box 6; per compare-exchange of the two bitonic sorts 1.
+        n = g * fused_pallas.FUSED_CHUNK
+        p2 = 1 << (n - 1).bit_length()
+        lg = p2.bit_length() - 1
+        ops = n * 160 + 2 * (p2 // 2) * lg * (lg + 1) // 2
+        bound_ms, bound_by = bound(ops, nbytes)
+        say(f"fused_tables [{label}]: bound {bound_ms:.5f} ms ({bound_by})  [{card}]")
+    out = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               card_plain_vs_cpu="; ".join(diffs))
+    if results is not None:
+        results["fused_tables"].update(out, at=label)
+    return out
+
+
+def fused_work(record, tables, eps, lights):
+    """(operations, pairs, skipped pairs) of K3 on one frame, from the
+    wavefronts `_fused_plain` recorded (a least count of its work on this
+    run's data). Per bounce: the pairs of each live ray with the valid
+    triangles of the chunks that the ray's own slab test keeps
+    (`block_cull_mask`; a conservative chunk cull of a ray group keeps at
+    least those), the valid spheres, and FUSED_HIT_OPS per hit; per light,
+    FUSED_DRAW_OPS per hit ray, and per masked shadow ray its pairs in
+    ascending chunk order up to and including its first occluder (the
+    chunks its own slab test keeps within t_limit), the valid spheres up to
+    the first that occludes it if no triangle does, and FUSED_PHONG_OPS. A
+    pair that the division skip rejects counts SKIP_PAIR_OPS, the others
+    PAIR_OPS."""
+    tcs, _, sph, _, cab, _, n_tris = tables
+    n, chunk = int(n_tris), fused_pallas.FUSED_CHUNK
+    c = tcs.reshape(-1, lane_pallas.TCS_W)
+    boxes = cab.reshape(-1, 6).T.contiguous()  # [6, G]
+    live_chunks = [k for k in range(boxes.shape[1])
+                   if k * chunk < n and bool(boxes[0, k] <= boxes[3, k])]
+    srows = sph.reshape(-1, fused_pallas.SPH_W)
+    srows = srows[srows[:, 4] > 0.5]
+    ops = pairs = skipped = 0
+    step = 262_144
+    for entry in record:
+        if entry[0] == "camera":
+            _, o, d, active, hit = entry
+            idx = torch.nonzero(active)[:, 0]
+            nh = int((hit & active).sum())
+            ops += idx.numel() * srows.shape[0] * SPHERE_OPS + nh * (FUSED_HIT_OPS +
+                                                                       lights * FUSED_DRAW_OPS)
+            for i in range(0, idx.numel(), step):
+                oo, dd = o[idx[i:i + step]], d[idx[i:i + step]]
+                keep = block_cull_mask(oo, dd, boxes)
+                for k in live_chunks:
+                    rows = torch.nonzero(keep[:, k])[:, 0]
+                    cc = c[k * chunk:min(k * chunk + chunk, n)]
+                    pairs += rows.numel() * cc.shape[0]
+                    skipped += int(lane_pallas.lane_plane_skips(oo[rows], dd[rows], cc, eps).sum())
+            continue
+        _, hp, ld, t_lim, mask = entry
+        idx = torch.nonzero(mask)[:, 0]
+        ops += idx.numel() * FUSED_PHONG_OPS
+        for i in range(0, idx.numel(), step):
+            sl = idx[i:i + step]
+            oo, dd, tl = hp[sl], ld[sl], t_lim[sl]
+            keep = block_cull_mask(oo, dd, boxes, tl)
+            occ = torch.zeros_like(tl, dtype=torch.bool)
+            for k in live_chunks:
+                rows = torch.nonzero(keep[:, k] & ~occ)[:, 0]
+                cc = c[k * chunk:min(k * chunk + chunk, n)]
+                t, ok = lane_pallas.lane_plane_hits(oo[rows], dd[rows], cc, eps)
+                hitm = ok & (t < tl[rows, None])
+                anyh = hitm.any(1)
+                n_eval = torch.where(anyh, torch.argmax(hitm.to(torch.int32), 1) + 1, cc.shape[0])
+                prefix = torch.arange(cc.shape[0], device=tl.device)[None] < n_eval[:, None]
+                pairs += int(n_eval.sum())
+                skipped += int((lane_pallas.lane_plane_skips(oo[rows], dd[rows], cc, eps)
+                                & prefix).sum())
+                occ[rows] |= anyh
+            free = torch.nonzero(~occ)[:, 0]
+            if srows.shape[0] and free.numel():
+                st = torch.stack([fused_pallas._sphere_t(oo[free], dd[free], row, eps)
+                                  for row in srows], 1) < tl[free, None]
+                n_s = torch.where(st.any(1), torch.argmax(st.to(torch.int32), 1) + 1,
+                                  srows.shape[0])
+                ops += int(n_s.sum()) * SPHERE_OPS
+    ops += skipped * SKIP_PAIR_OPS + (pairs - skipped) * PAIR_OPS
+    return ops, pairs, skipped
+
+
+def fused_kernel_check(card, o, d, scene, ids, cfg, what, iters_p=1):
+    """K3 on a whole frame, with the tables of the table build (held bit-equal
+    to its plain version by `fused_tables_check`): the image bars of
+    tests/test_fused.py against `_fused_plain`, its time beside the plain
+    version's and its bound (`fused_work`, from the wavefronts the plain
+    version records), with the first-bounce count beside it."""
+    with torch.no_grad():
+        tables = fused_pallas.fused_tables(scene)
         kw = dict(seed=cfg.seed, eps=float(cfg.eps), shadow_eps=float(cfg.shadow_eps),
                   depth=cfg.depth, lights=scene.lights.num_lights, faces=scene.lights.max_faces)
         a = fused_pallas.fused_kernel(o, d, ids, *tables, **kw)
-        p = fused_pallas._fused_plain(o, d, ids, *tables, **kw)
+        record = []
+        p = fused_pallas._fused_plain(o, d, ids, *tables, **kw, record=record)
         diff = (a - p).abs()
         flipped = diff.amax(dim=1) > 1e-2
         share = flipped.float().mean().item()
         rest = diff[~flipped].max().item()
         max_abs = diff.max().item()
         g = tables[4].shape[1] // 6
+        n = g * fused_pallas.FUSED_CHUNK
+        shape = fused_pallas.launch_shape(o.shape[0], n, scene.spheres.capacity, kw["lights"],
+                                          kw["faces"])
         say(f"fused_kernel [{what}]: G {g}, depth {cfg.depth}; pixels off by > 1e-2: "
             f"{share:.6f}, max abs err of the rest {rest:.3e}, max abs err "
-            f"{max_abs:.3e}, image mean {a.mean().item():.4f}")
+            f"{max_abs:.3e}, image mean {a.mean().item():.4f}; launch {shape}")
         check(bool(torch.isfinite(a).all()), f"fused_kernel [{what}]: non-finite pixel")
         check(share <= 2e-3, f"fused_kernel [{what}]: {share} of pixels flipped > 0.002")
         check(rest <= 3e-5, f"fused_kernel [{what}]: max abs err {rest} > 3e-5")
@@ -524,15 +722,20 @@ def fused_kernel_check(card, o, d, scene, ids, cfg, what, iters_p=1):
                                                                                   *tables, **kw),
                                  lambda: fused_pallas._fused_plain(o, d, ids, *tables, **kw),
                                  10, iters_p, card, what)
-        # Counted: the first bounce's camera rays against every triangle below
-        # the valid prefix (K3's sweep at G = 1); the shadow sweeps and later
-        # bounces are not, nor are the cull's savings at G > 1.
-        bound_ms, bound_by = bound(o.shape[0] * int(tables[-1]) * PAIR_OPS,
-                                   tensor_bytes(o, d, ids, *tables) + a.numel() * 4)
-        say(f"fused_kernel [{what}]: bound {bound_ms:.4f} ms ({bound_by}; the first bounce's "
-            "camera rays only)")
+        ops, pairs, skipped = fused_work(record, tables, float(cfg.eps), kw["lights"])
+        del record
+        nbytes = tensor_bytes(o, d, ids, *tables) + a.numel() * 4
+        bound_ms, bound_by = bound(ops, nbytes)
+        # The first-bounce count: the first bounce's camera rays against every
+        # valid triangle, 40 operations each (neither an upper nor a lower count).
+        old_ms, _ = bound(o.shape[0] * int(tables[-1]) * PAIR_OPS, nbytes)
+        say(f"fused_kernel [{what}]: bound {bound_ms:.4f} ms ({bound_by}; {ops:.4g} operations, "
+            f"{pairs} pairs of which the skip rejects {skipped / max(pairs, 1):.4f}); the "
+            f"first-bounce count {old_ms:.4f} ms  [{card}]")
     return dict(max_abs_err=max_abs, max_abs_err_unflipped=rest, ms=ms, plain_ms=plain_ms,
-                flipped_share=share, bound_ms=bound_ms, bound_by=bound_by)
+                flipped_share=share, bound_ms=bound_ms, bound_by=bound_by,
+                bound_ms_first_bounce_count=old_ms, pairs=pairs, skipped_share=skipped / max(pairs, 1),
+                launch=shape)
 
 
 def tile_args(wavefront):
@@ -1013,19 +1216,68 @@ def tile_layer_phase(card, seen):
             say(f"layer config 5: {name:40s} {t:8.3f} ms  [{card}]")
 
 
+def fused_feeder_check(card, scene, cam, w, h, cfg):
+    """Cornell on the card, under counting spies on `build_clusters` and
+    `lane_tri_constants`: the forward is exactly one table build and one K3
+    launch and calls neither; the fwd+bwd step adds exactly two K4 launches
+    (the backward's camera and shadow searches) and builds no constants on
+    the host; `lane_tri_search` is one launch per call."""
+    step = make_step(scene, *rays(cam, w, h), cfg)
+    calls = {}
+    saved = {(mod, name): getattr(mod, name)
+             for mod, name in ((clusters, "build_clusters"), (lane_pallas, "lane_tri_constants"))}
+
+    def spy(key, fn):
+        def counted(*a, **kw):
+            calls[key] = calls.get(key, 0) + 1
+            return fn(*a, **kw)
+        return counted
+
+    for (mod, name), fn in saved.items():
+        setattr(mod, name, spy(name, fn))
+    try:
+        got = {}
+        for what, backward in (("forward", False), ("fwd+bwd", True)):
+            reset_counts()
+            with torch.set_grad_enabled(backward):
+                step(0, backward)
+            got[what] = read_counts()
+        o, d, _ = rays(cam, w, h)
+        reset_counts()
+        with torch.no_grad():
+            lane_pallas.lane_tri_search(o, d, scene.triangles, float(cfg.eps))
+        got["lane_tri_search"] = read_counts()
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    say(f"Cornell feeder check [{card}]: launches {got}; host table builders called {calls}")
+    want = {"forward": dict(fused_tables=1, fused_kernel=1),
+            "fwd+bwd": dict(fused_tables=1, fused_kernel=1, lane_kernel=2),
+            "lane_tri_search": dict(lane_kernel=1)}
+    for what, counts in got.items():
+        expect = {name: want[what].get(name, 0) for name in KERNELS}
+        check(counts == expect, f"Cornell {what}: launches {counts}, want {expect}")
+    check(not calls, f"Cornell on the card called the host table builders: {calls}")
+
+
 def fused_layer_phase(card, label, scene, cam, w, h, cfg):
-    """Where a fused path's time goes: the tables, K3 alone, and the
-    backward's re-derivation forward alone on its route (CUDA events,
-    median of 3)."""
+    """Where a fused path's time goes: the table build (one launch) and its
+    plain tensor-op version on the card, K3 alone, `lane_tri_search` (one
+    launch) on the frame's camera rays, and the backward's re-derivation
+    forward alone on its route (CUDA events, median of 3)."""
     o, d, ids = rays(cam, w, h)
     with torch.no_grad():
-        tables = [t.contiguous() for t in fused_pallas.fused_tables(scene)]
+        tables = fused_pallas.fused_tables(scene)
         kw = dict(seed=cfg.seed, eps=float(cfg.eps), shadow_eps=float(cfg.shadow_eps),
                   depth=cfg.depth, lights=scene.lights.num_lights, faces=scene.lights.max_faces)
         fb = fused_pallas._bwd_cfg(scene, cfg, o.shape[0])
         layers = {
-            "fused_tables (per call)": lambda: fused_pallas.fused_tables(scene),
+            "fused_tables (per call: one launch)": lambda: fused_pallas.fused_tables(scene),
+            "plain path only: tensor-op tables on the card":
+                lambda: fused_pallas._fused_tables_plain(scene),
             "K3 alone": lambda: fused_pallas.fused_kernel(o, d, ids, *tables, **kw),
+            "lane_tri_search (per call: one launch), camera rays":
+                lambda: lane_pallas.lane_tri_search(o, d, scene.triangles, float(cfg.eps)),
             f"backward's re-derivation, forward only ({fb.backend}, chunk {fb.ray_chunk})":
                 lambda: trace_rays(o, d, scene, ids, fb),
         }
@@ -1114,6 +1366,14 @@ def main():
     seen = capture_wavefronts(o, d, flag, ids, auto, rt_mxu.mxu_tile_search,
                               rt_mxu.mxu_tile_occlusion)
     mxtile_kernels(card, seen, results)
+    fused_tables_check(card, "Cornell", corn, results)
+    results["fused_tables"]["config4"] = fused_tables_check(card, "config 4", mixed)
+    limit = random_scene(2044, extent=4.0)  # 2,048 valid triangles: the limit
+    check(fused_pallas.fused_supported(limit, 1, "area") and limit.triangles.capacity == 2048,
+          "the 2,048-triangle table is not fused-eligible")
+    results["fused_tables"]["limit"] = fused_tables_check(card, "random_scene(2044), 2048 "
+                                                          "triangles", limit)
+    del limit
     o, d, ids = rays(corn_cam, 1024, 768)
     results["fused_kernel"].update(fused_kernel_check(card, o, d, corn, ids, auto,
                                                       "Cornell 1024x768, depth 1"),
@@ -1143,8 +1403,11 @@ def main():
     tile_segment_kernels(card, seen500, 1920, results)
     del seen500
 
-    # Phase 4: the main paths.
-    k12, k3 = ["mxu_kernel", "mxu_occl_kernel"], ["fused_kernel"]
+    # Phase 4: the main paths, from the same host and allocator state whatever
+    # phase 3 did before them.
+    gc.collect()
+    torch.cuda.empty_cache()
+    k12, k3 = ["mxu_kernel", "mxu_occl_kernel"], ["fused_tables", "fused_kernel"]
     k56 = ["tile_kernel", "tile_occl_kernel"]
     paths = {
         "flagship": path_phase(card, "flagship", flag, flag_cam, 1920, 1080, auto, "mxtile",
@@ -1166,6 +1429,7 @@ def main():
                                    "tile", k56, k56, results, reps=3, min_launches=nseg)
     del soup500
     feeder_check(flag, flag_cam, 1920, 1080, auto)
+    fused_feeder_check(card, corn, corn_cam, 1024, 768, auto)
     layer_phase(card, seen)
     fused_layer_phase(card, "Cornell", corn, corn_cam, 1024, 768, auto)
     fused_layer_phase(card, "config 4", mixed, mixed_cam, 1920, 1080, d4)

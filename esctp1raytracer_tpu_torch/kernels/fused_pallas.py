@@ -1,26 +1,29 @@
-"""Fused whole-frame kernel (K3): rays in, shaded colors out, one launch.
+"""Fused whole-frame kernel (K3): scene and rays in, shaded colors out.
 
 Counterpart of `esctp1raytracer_tpu/kernels/fused_pallas.py` (the file
-name is kept so a reader finds it), here a CUDA kernel: `csrc/fused.cu`.
+name is kept so a reader finds it), here CUDA kernels: `csrc/fused.cu`.
 For small tables (<= FUSED_TRI_LIMIT triangles) the frame's cost is the
-glue around the search (winner gathers, light draws, the shadow pass),
-so the kernel runs the whole per-pixel loop for each ray in one thread:
+glue around the search (the tables, winner gathers, light draws, the
+shadow pass), so a frame is two launches. The first builds the tables
+(`fused_tables`: the Morton sort of accel/clusters.py, the constants, the
+attribute rows, the chunk boxes). The second runs the whole per-pixel
+loop for each ray in one thread:
 
 * closest hit over the 13 plane constants of the Morton-sorted triangles
   (the lane search, K4's arithmetic) plus the analytic sphere table,
-  sweeping only the 128-triangle chunks that the block's masked ray hull
-  can reach;
+  sweeping only the 128-triangle chunks that some masked ray of the warp
+  can reach (each ray's own slab test, ORed over the warp);
 * the winner's attributes, the classic Möller–Trumbore recompute of
   t/u/v and the shading normal, as `closest_hit`/`surface_attributes` do;
 * per light, the murmur3 counter draws of utils/rng.py (draw for draw),
   a shadow any-hit against the same chunks, and the Phong term;
 * up to FUSED_DEPTH_LIMIT Whitted bounces with the ray state in registers.
 
-`fused_kernel` launches it on CUDA tensors and runs the plain PyTorch
-version `_fused_plain` on CPU tensors, counting launches in
-`fused_kernel.launches`. `fused_trace_diff` is differentiable: its
-backward re-derives the frame through `trace_rays` on the non-fused
-route `_bwd_cfg` picks, at the same draws.
+`fused_tables` and `fused_kernel` launch their kernels on CUDA tensors and
+run the plain PyTorch versions `_fused_tables_plain` and `_fused_plain` on
+CPU tensors, counting launches in `.launches`. `fused_trace_diff` is
+differentiable: its backward re-derives the frame through `trace_rays` on
+the non-fused route `_bwd_cfg` picks, at the same draws.
 """
 
 from __future__ import annotations
@@ -31,9 +34,9 @@ import torch
 
 from esctp1raytracer_tpu_torch.accel import clusters
 from esctp1raytracer_tpu_torch.core.intersect import BIG, NO_HIT, take_rows
-from esctp1raytracer_tpu_torch.kernels import _build
+from esctp1raytracer_tpu_torch.kernels import _build, lane_pallas
 from esctp1raytracer_tpu_torch.kernels.lane_pallas import (
-    PLAIN_BLOCK, TCS_W, _lane_search_plain, lane_plane_hits, lane_tri_constants, valid_prefix,
+    PLAIN_BLOCK, TCS_W, _lane_search_plain, lane_plane_hits, valid_prefix,
 )
 from esctp1raytracer_tpu_torch.parallel.sharding import float_params, merge_params
 from esctp1raytracer_tpu_torch.scene.types import Scene, TriangleBuffer
@@ -80,8 +83,9 @@ def _bwd_cfg(scene: Scene, cfg, num_rays: int):
     return _fallback_cfg(scene, cfg)
 
 
-def fused_tables(scene: Scene):
-    """The kernel's tables, equal to the JAX package's.
+def _fused_tables_plain(scene: Scene):
+    """Plain version of the table build: the kernel's tables, equal to the
+    JAX package's.
 
     Returns (tcs [1, 13N], shad [1, 32N], sph [1, 18S], lc [1, L*F*9],
     cab [1, 6G] chunk AABBs, counts [L] int32, n_tris [1] int32), with the
@@ -101,7 +105,7 @@ def fused_tables(scene: Scene):
     clustered = clusters.build_clusters(tpad)
     tris = clustered.tris
     cab = torch.cat([clustered.cluster_min, clustered.cluster_max], dim=1)  # [G, 6]
-    tcs = lane_tri_constants(tris)
+    tcs = lane_pallas.lane_tri_constants(tris)
     shad = torch.cat([tris.v0, tris.v1, tris.v2, tris.n0, tris.n1, tris.n2,
                       tris.has_normals[:, None].to(torch.float32),
                       tris.ka, tris.kd, tris.ks, tris.ke, tris.ns[:, None]], dim=1)
@@ -112,6 +116,65 @@ def fused_tables(scene: Scene):
     lc = take_rows(packed0, lt.tri_idx)  # [L, F, 9]
     return (tcs, shad.reshape(1, -1), spht.reshape(1, -1), lc.reshape(1, -1),
             cab.reshape(1, -1), lt.face_count.to(torch.int32), valid_prefix(tris.valid))
+
+
+class _TableArgs(ctypes.Structure):
+    """csrc/fused.cu:TableArgs: the scene's leaves, the outputs, the sizes."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "v0", "v1", "v2", "n0", "n1", "n2", "ka", "kd", "ks", "ke", "ns", "has_n", "valid",
+        "s_center", "s_radius", "s_ka", "s_kd", "s_ks", "s_ke", "s_ns", "s_valid",
+        "tri_idx", "face_count", "tcs", "shad", "sph", "lc", "cab", "counts", "n_tris")] + [
+        (name, ctypes.c_int) for name in ("cap", "S", "L", "F")]
+
+
+def fused_tables(scene: Scene):
+    """The kernel's tables (`_fused_tables_plain` documents them): on CUDA
+    tensors one launch of csrc/fused.cu's table build, equal bit for bit to
+    the plain version on a CPU copy of the scene; on CPU tensors the plain
+    version. The scene must pass `fused_supported`'s table limits."""
+    tris, sph, lt = scene.triangles, scene.spheres, scene.lights
+    dev = tris.v0.device
+    if dev.type == "cpu":
+        return _fused_tables_plain(scene)
+    if dev.type != "cuda":
+        raise ValueError(f"the fused table build takes CUDA or CPU tensors, got {dev}")
+    cap, s, nl, nf = tris.capacity, sph.capacity, lt.num_lights, lt.max_faces
+    n = -(-cap // FUSED_CHUNK) * FUSED_CHUNK
+    if not (1 <= cap <= FUSED_TRI_LIMIT and s <= FUSED_SPHERE_LIMIT and nl >= 1
+            and nl * nf <= FUSED_LIGHT_FACE_LIMIT):
+        raise ValueError(f"fused table limits exceeded: N={cap}, S={s}, L={nl}, F={nf}")
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    leaves = {name: getattr(tris, name).contiguous() for name in (
+        "v0", "v1", "v2", "n0", "n1", "n2", "ka", "kd", "ks", "ke", "ns", "valid")}
+    leaves["has_n"] = tris.has_normals.contiguous()
+    leaves.update({"s_" + name: getattr(sph, name).contiguous() for name in (
+        "center", "radius", "ka", "kd", "ks", "ke", "ns", "valid")})
+    leaves["tri_idx"], leaves["face_count"] = lt.tri_idx.contiguous(), lt.face_count.contiguous()
+    want = {name: (f32, (cap, 3)) for name in ("v0", "v1", "v2", "n0", "n1", "n2", "ka", "kd",
+                                                "ks", "ke")}
+    want.update(ns=(f32, (cap,)), valid=(b8, (cap,)), has_n=(b8, (cap,)),
+                s_center=(f32, (s, 3)), s_radius=(f32, (s,)), s_ns=(f32, (s,)),
+                s_valid=(b8, (s,)), tri_idx=(i32, (nl, nf)), face_count=(i32, (nl,)))
+    want.update({"s_" + k: (f32, (s, 3)) for k in ("ka", "kd", "ks", "ke")})
+    _build.check_tensors({k: (leaves[k], *v) for k, v in want.items()}, dev)
+    widths = (TCS_W * n, SHAD_W * n, SPH_W * s, 9 * nl * nf, 6 * (n // FUSED_CHUNK))
+    buf = torch.empty((sum(widths),), dtype=f32, device=dev)  # shad 16-byte aligned
+    outs = [x.view(1, -1) for x in torch.split(buf, widths)]
+    ints = torch.empty((nl + 1,), dtype=i32, device=dev)
+    counts, n_tris = ints[:nl], ints[nl:]
+    ptrs = {k: v.data_ptr() for k, v in leaves.items()}
+    ptrs.update(zip(("tcs", "shad", "sph", "lc", "cab"), (x.data_ptr() for x in outs)))
+    ptrs.update(counts=counts.data_ptr(), n_tris=n_tris.data_ptr())
+    args = _TableArgs(**ptrs, cap=cap, S=s, L=nl, F=nf)
+    lib = _lib()
+    _build.check_launch(lib, "fused", lib.fused_tables_build(
+        ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream))
+    fused_tables.launches += 1
+    return (*outs, counts, n_tris)
+
+
+fused_tables.launches = 0
 
 
 def _stream_const(stream: int) -> int:
@@ -168,13 +231,16 @@ def _occluded_plain(o, d, t_lim, c, eps):
 
 
 def _fused_plain(o, d, ids, tcs, shad, sph, lc, cab, counts, n_tris, *, seed, eps,
-                 shadow_eps, depth, lights, faces):
+                 shadow_eps, depth, lights, faces, record=None):
     """Plain version of K3: colors [R, 3], all rays at once in tensor ops.
 
     The same arithmetic as the kernel, step for step, with two shortcuts
     that change no result: it sweeps every triangle instead of the culled
     chunks (the cull is conservative: it drops no accepted hit of a ray
-    whose result is used), and it gathers rows directly.
+    whose result is used), and it gathers rows directly. With a list
+    `record`, it appends the wavefronts the kernel sweeps, for counting its
+    work: ("camera", o, d, active, hit) per bounce and ("shadow", hp, ld,
+    t_lim, mask) per bounce and light.
     """
     r = o.shape[0]
     dev = o.device
@@ -202,6 +268,8 @@ def _fused_plain(o, d, ids, tcs, shad, sph, lc, cab, counts, n_tris, *, seed, ep
         is_s = bst < bt  # strict: triangles win ties
         bt_comb = torch.where(is_s, bst, bt)
         hit = bt_comb < BIG
+        if record is not None:
+            record.append(("camera", o, d, active, hit))
 
         row = torch.where((bi >= 0)[:, None], shad[torch.clamp(bi, min=0).long()], 0.0)
         v0, v1, v2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
@@ -261,6 +329,8 @@ def _fused_plain(o, d, ids, tcs, shad, sph, lc, cab, counts, n_tris, *, seed, ep
             ld = lvec * (1.0 / dist)[:, None]
             t_lim = dist - shadow_eps
             d_nl = _dot(nrm, ld)
+            if record is not None:
+                record.append(("shadow", hp, ld, t_lim, active & hit & (d_nl > 0.0)))
             occ = _occluded_plain(hp, ld, t_lim, c, eps)
             for j in range(sph.shape[0]):
                 occ |= _sphere_t(hp, ld, sph[j], eps) < t_lim
@@ -296,14 +366,23 @@ def _lib():
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_frame.argtypes = [vp] * 11 + [ci] * 6 + [ctypes.c_uint, cf, cf, vp]
         lib.fused_frame.restype = ci
+        lib.fused_tables_build.argtypes = [ctypes.POINTER(_TableArgs), vp]
+        lib.fused_tables_build.restype = ci
+        lib.fused_launch_shape.argtypes = [ci] * 5 + [ctypes.POINTER(ci)] * 4
+        lib.fused_launch_shape.restype = ci
         _LIB = lib
     return _LIB
 
 
-def _low32(ids: torch.Tensor) -> torch.Tensor:
-    """The low 32 bits of the ray ids, as int32 (the kernel reads them as uint32)."""
-    lo = ids.to(torch.int64) & rng._M32
-    return torch.where(lo >= 2**31, lo - 2**32, lo).to(torch.int32).contiguous()
+def launch_shape(rays: int, n: int, spheres: int, lights: int, faces: int) -> dict:
+    """K3's launch over `rays` rays and an n-triangle table on the current
+    card: threads per block, blocks resident per SM (from the kernel's
+    registers and its shared memory), the persistent grid, shared memory."""
+    lib = _lib()
+    out = [ctypes.c_int() for _ in range(4)]
+    _build.check_launch(lib, "fused", lib.fused_launch_shape(
+        rays, n, spheres, lights, faces, *map(ctypes.byref, out)))
+    return dict(zip(("threads", "blocks_per_sm", "blocks", "smem_bytes"), (x.value for x in out)))
 
 
 def fused_kernel(o, d, ids, tcs, shad, sph, lc, cab, counts, n_tris, *, seed, eps,
@@ -327,10 +406,10 @@ def fused_kernel(o, d, ids, tcs, shad, sph, lc, cab, counts, n_tris, *, seed, ep
             and 1 <= depth <= FUSED_DEPTH_LIMIT):
         raise ValueError(f"fused kernel limits exceeded: N={n}, G={g}, S={s}, L={lights}, "
                          f"F={faces}, depth={depth}")
-    ids32 = _low32(ids)
+    ids64 = ids.to(torch.int64).contiguous()  # the kernel takes the low 32 bits
     _build.check_tensors({
         "o": (o, torch.float32, (r, 3)), "d": (d, torch.float32, (r, 3)),
-        "ids": (ids32, torch.int32, (r,)), "tcs": (tcs, torch.float32, (1, TCS_W * n)),
+        "ids": (ids64, torch.int64, (r,)), "tcs": (tcs, torch.float32, (1, TCS_W * n)),
         "shad": (shad, torch.float32, (1, SHAD_W * n)), "sph": (sph, torch.float32, (1, SPH_W * s)),
         "lc": (lc, torch.float32, (1, lights * faces * 9)), "cab": (cab, torch.float32, (1, 6 * g)),
         "counts": (counts, torch.int32, (lights,)), "n_tris": (n_tris, torch.int32, (1,)),
@@ -338,11 +417,13 @@ def fused_kernel(o, d, ids, tcs, shad, sph, lc, cab, counts, n_tris, *, seed, ep
     if shad.data_ptr() % 16:
         raise ValueError("shad must be 16-byte aligned (float4 row loads)")
     out = torch.empty((r, 3), dtype=torch.float32, device=dev)
+    if r == 0:
+        return out
     lib = _lib()
     _build.check_launch(lib, "fused", lib.fused_frame(
-        o.data_ptr(), d.data_ptr(), ids32.data_ptr(), tcs.data_ptr(), shad.data_ptr(),
+        o.data_ptr(), d.data_ptr(), ids64.data_ptr(), tcs.data_ptr(), shad.data_ptr(),
         sph.data_ptr(), lc.data_ptr(), cab.data_ptr(), counts.data_ptr(), n_tris.data_ptr(),
-        out.data_ptr(), r, s, lights, faces, g, depth, _seed_const(seed), eps, shadow_eps,
+        out.data_ptr(), r, n, s, lights, faces, depth, _seed_const(seed), eps, shadow_eps,
         torch.cuda.current_stream(dev).cuda_stream))
     fused_kernel.launches += 1
     return out
@@ -354,10 +435,11 @@ fused_kernel.launches = 0
 def fused_trace(o, d, scene: Scene, ray_ids, cfg) -> torch.Tensor:
     """One wavefront through the fused kernel -> colors [R, 3] (no gradient).
 
-    The caller checks `fused_supported` first.
+    The caller checks `fused_supported` first. On the card: two launches,
+    the table build and K3.
     """
     with torch.no_grad():
-        tables = [t.contiguous() for t in fused_tables(scene.detach())]
+        tables = fused_tables(scene.detach())
         return fused_kernel(o.detach().contiguous(), d.detach().contiguous(), ray_ids, *tables,
                             seed=cfg.seed, eps=float(cfg.eps),
                             shadow_eps=float(cfg.shadow_eps), depth=cfg.depth,

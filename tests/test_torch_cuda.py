@@ -4,7 +4,7 @@ Marked `cuda`: a CUDA kernel has no CPU mode, so these skip where
 `torch.cuda.is_available()` is false. On a machine with the card:
 `python -m pytest --noconftest tests/test_torch_cuda.py -q` (builds the
 kernels with nvcc at first use). Bars:
-* K1, K4 (tests/test_torch_rt_mxu.py): winner agreement >= 99.9% and t
+* K1 (tests/test_torch_rt_mxu.py): winner agreement >= 99.9% and t
   within 1e-5 of max(|t|, 1) where winners agree (FMA-contracted sums vs
   the plain version's separately rounded ones); K2: occlusion agreement
   >= 99.9%; K1, K2: their kept count per group equal to `_prep_mxu`'s,
@@ -12,7 +12,9 @@ kernels with nvcc at first use). Bars:
   K5, K6 (built with -fmad=false): equal to their plain versions bit for
   bit, and so is their kept count per bundle;
 * K3 (tests/test_fused.py:38-46): at most 0.2% of pixels off by more than
-  1e-2, the rest within 3e-5;
+  1e-2, the rest within 3e-5; its table build and K4 (built with
+  -fmad=false, constants rounded as PyTorch on the CPU): equal to their
+  plain versions on a CPU copy, bit for bit;
 * rendered images within the test_rt_mxu.py image bars of the CPU port.
 """
 
@@ -20,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread: the suite's parallel workers share the cores
 
 from esctp1raytracer_tpu_torch.core.camera import Camera  # noqa: E402
 from esctp1raytracer_tpu_torch.core.intersect import EPS, closest_hit  # noqa: E402
@@ -213,13 +216,23 @@ MIXED_CAM = Camera.look_at((0.0, 2.5, 7.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=4
 
 def _lane_args(scene, o, d):
     tris = scene.triangles
-    return (torch.tensor([EPS], device=o.device), lane_pallas.valid_prefix(tris.valid),
-            lane_pallas.lane_tri_constants(tris).contiguous(), o.contiguous(), d.contiguous())
+    return (EPS, tris.v0, tris.v1, tris.v2, tris.valid, o.contiguous(), d.contiguous())
 
 
-@pytest.mark.parametrize("name", ["cornell", "icospheres"])
+def _cpu(args):
+    return [x.cpu() if torch.is_tensor(x) else x for x in args]
+
+
+@pytest.mark.parametrize("name", ["cornell", "icospheres", "limit"])
 def test_lane_kernel_matches_plain(dev, scene, name):
-    sc = b.cornell_box() if name == "cornell" else scene.to(dev)
+    """K4 against its plain version (constants, valid prefix, sweep) on a
+    CPU copy, bit for bit: "cornell" has 36 valid triangles of 512 slots
+    (trailing padding), "icospheres" 2,564 of 3,072, "limit" all 4,096 valid
+    (the shared-memory limit, 208 KB)."""
+    sc = {"cornell": lambda: b.cornell_box(device="cpu"), "icospheres": lambda: scene,
+          "limit": lambda: b.random_scene(4092, extent=4.0, device="cpu")}[name]().to(dev)
+    if name == "limit":
+        assert sc.triangles.capacity == 4096 and bool(sc.triangles.valid.all())
     cam = CORNELL_CAM if name == "cornell" else CAM
     o, d = (x.reshape(-1, 3) for x in cam.to(dev).ray_grid(160, 117))  # not a block multiple
     args = _lane_args(sc, o, d)
@@ -227,24 +240,50 @@ def test_lane_kernel_matches_plain(dev, scene, name):
     t, idx = lane_pallas.lane_kernel(*args)
     torch.cuda.synchronize()
     assert lane_pallas.lane_kernel.launches == n0 + 1
-    t2, idx2 = lane_pallas._lane_search_plain(*args)
-    same = idx == idx2
-    assert same.float().mean().item() >= 0.999
-    rel = (t - t2).abs()[same] / t2.abs()[same].clamp(min=1.0)
-    assert rel.max().item() < 1e-5
+    t2, idx2 = lane_pallas._lane_plain(*_cpu(args))
+    assert torch.equal(t.cpu(), t2) and torch.equal(idx.cpu(), idx2)
     assert (idx >= 0).float().mean().item() > 0.3
+    t0, _ = lane_pallas.lane_kernel(*args[:5], o[:0], d[:0])
+    assert t0.shape == (0,) and lane_pallas.lane_kernel.launches == n0 + 1
+
+
+FUSED_SCENES = {
+    "cornell_g1": lambda: b.cornell_box(pad_multiple=128, device="cpu"),
+    "cornell": lambda: b.cornell_box(device="cpu"),
+    "mixed": lambda: b.mixed_scene(device="cpu"),
+    "mirror": lambda: b.cornell_variant("mirror", device="cpu"),
+    "limit": lambda: b.random_scene(2044, extent=4.0, device="cpu"),  # 2,048 valid
+}
+
+
+@pytest.mark.parametrize("name", list(FUSED_SCENES))
+def test_fused_tables_kernel_matches_cpu(dev, name):
+    """The table build on the card, bit for bit against the plain tensor-op
+    version on the CPU (the tables that equal the JAX package's)."""
+    sc = FUSED_SCENES[name]()
+    if name == "limit":
+        assert sc.triangles.capacity == fused_pallas.FUSED_TRI_LIMIT
+    n0 = fused_pallas.fused_tables.launches
+    got = fused_pallas.fused_tables(sc.to(dev))
+    torch.cuda.synchronize()
+    assert fused_pallas.fused_tables.launches == n0 + 1
+    want = fused_pallas._fused_tables_plain(sc)
+    for k, a, w in zip(("tcs", "shad", "sph", "lc", "cab", "counts", "n_tris"), got, want):
+        a = a.cpu()
+        assert a.dtype == w.dtype and a.shape == w.shape, k
+        if a.is_floating_point():
+            a, w = a.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(a, w), (k, int((a != w).sum()))
 
 
 @pytest.mark.parametrize("name,cam,depth", [("cornell", CORNELL_CAM, 1),
                                             ("mixed", MIXED_CAM, 4),
                                             ("mirror", CORNELL_CAM, 2)])
 def test_fused_kernel_matches_plain(dev, name, cam, depth):
-    build = {"cornell": b.cornell_box, "mixed": b.mixed_scene,
-             "mirror": lambda: b.cornell_variant("mirror")}[name]
-    sc = build()
+    sc = FUSED_SCENES[name]().to(dev)
     o, d = (x.reshape(-1, 3).contiguous() for x in cam.to(dev).ray_grid(96, 71))
     ids = torch.arange(o.shape[0], device=dev) + 5
-    tables = [t.contiguous() for t in fused_pallas.fused_tables(sc)]
+    tables = fused_pallas.fused_tables(sc)
     kw = dict(seed=1, eps=EPS, shadow_eps=1e-4, depth=depth, lights=sc.lights.num_lights,
               faces=sc.lights.max_faces)
     n0 = fused_pallas.fused_kernel.launches
@@ -259,21 +298,68 @@ def test_fused_kernel_matches_plain(dev, name, cam, depth):
     assert flipped.mean() <= 2e-3 and np.abs(a - p)[~flipped].max() <= 3e-5
 
 
-def test_fused_route_on_card_matches_cpu_and_differentiates(dev):
+@pytest.mark.parametrize("count", [0, 1, 31, 33, 129, "stride"])
+def test_fused_kernel_ray_counts(dev, count):
+    """K3 at ray counts around the warp's 32-ray tile, and past the
+    persistent grid's stride (two strides and a ragged tail), on the mixed
+    scene at depth 2, against its plain version."""
+    sc = b.mixed_scene(device="cpu").to(dev)
+    kw = dict(seed=2, eps=EPS, shadow_eps=1e-4, depth=2, lights=sc.lights.num_lights,
+              faces=sc.lights.max_faces)
+    tables = fused_pallas.fused_tables(sc)
+    n = tables[0].shape[1] // lane_pallas.TCS_W
+    shape = fused_pallas.launch_shape(1 << 24, n, sc.spheres.capacity, kw["lights"], kw["faces"])
+    stride = shape["blocks"] * shape["threads"]
+    assert shape["blocks"] == torch.cuda.get_device_properties(dev).multi_processor_count * \
+        shape["blocks_per_sm"]
+    r = 2 * stride + 77 if count == "stride" else count
+    w = 512
+    o, d = (x.reshape(-1, 3)[:r].contiguous()
+            for x in MIXED_CAM.to(dev).ray_grid(w, -(-max(r, 1) // w)))
+    ids = torch.arange(r, device=dev) * 3
+    n0 = fused_pallas.fused_kernel.launches
+    a = fused_pallas.fused_kernel(o, d, ids, *tables, **kw)
+    torch.cuda.synchronize()
+    assert a.shape == (r, 3) and fused_pallas.fused_kernel.launches == n0 + (r > 0)
+    p = fused_pallas._fused_plain(o, d, ids, *tables, **kw)
+    diff = (a - p).abs().amax(-1)
+    flipped = diff > 1e-2
+    assert int(flipped.sum()) <= 2e-3 * r
+    if r:
+        assert np.isfinite(a.cpu().numpy()).all() and diff[~flipped].max().item() <= 3e-5
+
+
+def test_fused_route_on_card_matches_cpu_and_differentiates(dev, monkeypatch):
+    """The fused route on the card: the forward is one table build and one
+    K3 launch, with neither `build_clusters` nor `lane_tri_constants`
+    called; the backward's lane route launches K4 twice (camera and shadow
+    rays) and builds no constants on the host either."""
+    from esctp1raytracer_tpu_torch.accel import clusters
+    from esctp1raytracer_tpu_torch.core.render import trace_rays
+
     scene = b.cornell_box(device="cpu")
     cfg = RenderConfig(backend="auto")
     a = render(scene, CORNELL_CAM, 48, 36, cfg).numpy()
-    n0 = (fused_pallas.fused_kernel.launches, lane_pallas.lane_kernel.launches)
+    calls = []
+    for mod, fn in ((clusters, "build_clusters"), (lane_pallas, "lane_tri_constants")):
+        monkeypatch.setattr(mod, fn, lambda *x, _f=getattr(mod, fn), _n=fn: calls.append(_n)
+                            or _f(*x))
+
+    def launches():
+        return (fused_pallas.fused_tables.launches, fused_pallas.fused_kernel.launches,
+                lane_pallas.lane_kernel.launches)
+
+    n0 = launches()
     sc = scene.to(dev)
     params = [p.detach().clone().requires_grad_(True) for p in float_params(sc)]
     o, d = (x.reshape(-1, 3) for x in CORNELL_CAM.to(dev).ray_grid(48, 36))
-    from esctp1raytracer_tpu_torch.core.render import trace_rays
-
     color = trace_rays(o, d, merge_params(sc, params), torch.arange(o.shape[0], device=dev), cfg)
+    torch.cuda.synchronize()
+    assert [x - y for x, y in zip(launches(), n0)] == [1, 1, 0]
     grads = torch.autograd.grad((color * color).sum(), params)
     torch.cuda.synchronize()
-    assert fused_pallas.fused_kernel.launches == n0[0] + 1
-    assert lane_pallas.lane_kernel.launches > n0[1]  # the backward's lane route
+    assert [x - y for x, y in zip(launches(), n0)] == [1, 1, 2]  # the backward's lane route
+    assert calls == []
     diff = np.abs(color.detach().cpu().numpy().reshape(36, 48, 3) - a)
     assert diff.mean() < 1e-4 and (diff > 1e-2).mean() < 5e-3
     assert all(bool(torch.isfinite(g).all()) for g in grads)
@@ -283,19 +369,29 @@ def test_fused_route_on_card_matches_cpu_and_differentiates(dev):
 def test_lane_and_fused_wrappers_reject_bad_inputs(dev):
     sc = b.cornell_box()
     o, d = (x.reshape(-1, 3).contiguous() for x in CORNELL_CAM.to(dev).ray_grid(16, 16))
-    eps, n, tcs, o, d = _lane_args(sc, o, d)
-    with pytest.raises(ValueError, match="n_tris"):
-        lane_pallas.lane_kernel(eps, n.long(), tcs, o, d)
-    with pytest.raises(ValueError, match="tcs"):
-        lane_pallas.lane_kernel(eps, n, tcs.cpu(), o, d)
-    tables = [t.contiguous() for t in fused_pallas.fused_tables(sc)]
+    eps, v0, v1, v2, valid, o, d = _lane_args(sc, o, d)
+    with pytest.raises(ValueError, match="valid"):
+        lane_pallas.lane_kernel(eps, v0, v1, v2, valid.long(), o, d)
+    with pytest.raises(ValueError, match="v1"):
+        lane_pallas.lane_kernel(eps, v0, v1.cpu(), v2, valid, o, d)
+    with pytest.raises(ValueError, match="contiguous"):
+        lane_pallas.lane_kernel(eps, v0, v1, v2, valid, o, d.t().contiguous().t())
+    tables = fused_pallas.fused_tables(sc)
     kw = dict(seed=0, eps=EPS, shadow_eps=1e-4, depth=1, lights=1, faces=2)
+    ids = torch.arange(256, device=dev)
     with pytest.raises(ValueError, match="limits"):
-        fused_pallas.fused_kernel(o, d, torch.arange(256, device=dev), *tables,
-                                  **dict(kw, depth=5))
+        fused_pallas.fused_kernel(o, d, ids, *tables, **dict(kw, depth=5))
     with pytest.raises(ValueError, match="counts"):
-        fused_pallas.fused_kernel(o, d, torch.arange(256, device=dev), *tables[:5],
-                                  tables[5].long(), tables[6], **kw)
+        fused_pallas.fused_kernel(o, d, ids, *tables[:5], tables[5].long(), tables[6], **kw)
+    shifted = torch.empty(tables[1].numel() + 1, device=dev)[1:].view(tables[1].shape)
+    shifted.copy_(tables[1])
+    with pytest.raises(ValueError, match="aligned"):
+        fused_pallas.fused_kernel(o, d, ids, tables[0], shifted, *tables[2:], **kw)
+    big = b.random_scene(2100, extent=4.0)  # 2,104 triangles in 2,560 slots
+    with pytest.raises(ValueError, match="limits"):
+        fused_pallas.fused_tables(big)
+    with pytest.raises(ValueError, match="ns"):
+        fused_pallas.fused_tables(sc.map(lambda n, t: t.double() if n == "triangles.ns" else t))
 
 
 def _tile_args(tris, o, d, tl, exclude_oversized):

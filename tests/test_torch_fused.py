@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread: the suite's parallel workers share the cores
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -275,3 +276,22 @@ def _spy(fn, seen):
 
     search.occlusion = fn.occlusion
     return search
+
+
+@pytest.mark.parametrize("name,eye,depth", [("cornell", CORNELL_EYE, 1), ("mixed", MIXED_EYE, 2)])
+def test_plain_frame_same_without_skip(name, eye, depth, monkeypatch):
+    """The plain K3 (its closest-hit sweep and its shadow sweep) gives
+    identical colors with the exact division skip and without it."""
+    from esctp1raytracer_tpu_torch.kernels import lane_pallas as pl
+
+    ps = to_port(SCENES[name]())
+    o, d = rays(eye, 24, 18)
+    ids = torch.arange(o.shape[0])
+    kw = dict(seed=0, eps=pr.RenderConfig().eps, shadow_eps=pr.RenderConfig().shadow_eps,
+              depth=depth, lights=ps.lights.num_lights, faces=ps.lights.max_faces)
+    tables = pf.fused_tables(ps)
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    with_skip = pf._fused_plain(o, d, ids, *tables, **kw)
+    monkeypatch.setattr(pl, "plane_skip", lambda det, num, eps: torch.zeros_like(det, dtype=bool))
+    assert torch.equal(pf._fused_plain(o, d, ids, *tables, **kw), with_skip)
+    assert with_skip.sum().item() > 1.0

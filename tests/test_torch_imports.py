@@ -10,7 +10,8 @@ import sys
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread: the suite's parallel workers share the cores
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

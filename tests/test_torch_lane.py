@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread: the suite's parallel workers share the cores
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -135,12 +136,15 @@ def test_plain_version_tie_rule_and_bound():
     tris = floor.map(lambda _, a: torch.cat([a[0:1], a[0:1], a[1:2]]))
     o = torch.tensor([[0.5, 1.0, 0.5], [-0.5, 1.0, -0.5]])
     d = torch.tensor([[0.0, -1.0, 0.0], [0.0, -1.0, 0.0]])
-    tcs = pl.lane_tri_constants(tris)
-    eps = torch.tensor([EPS])
     before = pl.lane_kernel.launches
-    t, i = pl.lane_kernel(eps, torch.tensor([3], dtype=torch.int32), tcs, o, d)
+    t, i = pl.lane_kernel(EPS, tris.v0, tris.v1, tris.v2, tris.valid, o, d)
     assert i.tolist() == [0, 2] and torch.allclose(t, torch.ones(2))
-    t, i = pl.lane_kernel(eps, torch.tensor([2], dtype=torch.int32), tcs, o, d)
+    # Row 2 invalid: the valid prefix ends at 2, and so does the sweep.
+    valid = torch.tensor([True, True, False])
+    t, i = pl.lane_kernel(EPS, tris.v0, tris.v1, tris.v2, valid, o, d)
+    assert i.tolist() == [0, -1] and float(t[1]) == float(np.float32(1e30))
+    tcs = pl.lane_tri_constants(tris)
+    t, i = pl._lane_search_plain(EPS, torch.tensor([2], dtype=torch.int32), tcs, o, d)
     assert i.tolist() == [0, -1] and float(t[1]) == float(np.float32(1e30))
     assert pl.lane_kernel.launches == before
     assert pl.valid_prefix(to_port(jb.cornell_box()).triangles.valid).tolist() == [36]
@@ -167,3 +171,179 @@ def test_lane_routes_render_like_jax(over):
     flipped = diff > 1e-2
     assert flipped.mean() <= 2e-3 and np.abs(a - b)[~flipped].max() <= 3e-5
     assert b.sum() > 1.0
+
+
+# --------------------------------------------------------------------------
+# The exact division skip (lane_plane.cuh:plane_skip, lane_pallas.plane_skip)
+# --------------------------------------------------------------------------
+
+
+def test_skip_predicate_edge_cases():
+    """Where plane_skip holds, t = num * (1 / det) can never pass t >= eps,
+    or |det| < eps already rejects: numerators of +-0, NaN and +-inf,
+    |det| exactly eps and one ulp below it, infinite and NaN dets."""
+    eps = np.float32(EPS)
+    below = np.nextafter(eps, np.float32(0))
+    vals = np.array([0.0, -0.0, 1.0, -1.0, 3e-8, -3e-8, 1e30, -1e30, np.inf, -np.inf, np.nan,
+                     eps, -eps, below, -below], np.float32)
+    det, num = (torch.from_numpy(x) for x in np.meshgrid(vals, vals, indexing="ij"))
+    skip = pl.plane_skip(det, num, EPS)
+    ok_det = torch.abs(det) >= EPS
+    t = num * (1.0 / torch.where(ok_det, det, 1.0))
+    assert not bool((skip & ok_det & (t >= EPS)).any())
+    assert bool(skip[~ok_det].all())  # |det| < eps (and NaN) always skips
+    for n in (0.0, -0.0):  # a zero numerator skips whatever det's sign
+        assert bool(pl.plane_skip(torch.tensor([eps, -eps, np.inf]), torch.tensor([n] * 3),
+                                  EPS).all())
+    assert not bool(pl.plane_skip(torch.tensor([eps, -eps]), torch.tensor([2.0, -2.0]),
+                                  EPS).any())
+    # eps <= 0: only |det| < eps skips (a t of 0 could then pass t >= eps).
+    assert torch.equal(pl.plane_skip(det, num, 0.0), ~(torch.abs(det) >= 0.0))
+
+
+def _skip_case(seed=0, n_tri=300, n_ray=400):
+    """Random triangles (one degenerate, 20 invalid: zero normals), rays
+    from random origins, and rays that start on a triangle's plane (a zero
+    numerator) or run parallel to it (det 0)."""
+    rng = np.random.RandomState(seed)
+    v = rng.uniform(-2, 2, (n_tri, 3, 3)).astype(np.float32)
+    v[0, 2] = v[0, 0]  # degenerate: a zero normal although valid
+    valid = np.ones(n_tri, bool)
+    valid[rng.choice(n_tri, 20, replace=False)] = False
+    o = rng.uniform(-3, 3, (n_ray, 3)).astype(np.float32)
+    d = rng.normal(size=(n_ray, 3)).astype(np.float32)
+    o[:50] = v[:50, 0]  # on triangle k's plane: its numerator is exactly 0
+    o[50:100] *= -1.0
+    e1 = v[100:150, 1] - v[100:150, 0]
+    d[100:150] = e1  # parallel to triangle k's plane
+    d[150:160, 1:] = 0.0  # axis-aligned, with zero components
+    d[160:170] = np.inf
+    d[170:175, 0] = np.nan
+    tris = [torch.from_numpy(v[:, k].copy()) for k in range(3)]
+    return tris, torch.from_numpy(valid), torch.from_numpy(o), torch.from_numpy(d)
+
+
+def test_skip_rejects_only_rejected_pairs():
+    """Over seeded random pairs and the edge cases of `_skip_case`, no pair
+    that the skip rejects is accepted by plane_pair; with the skip, plane_pair
+    accepts the same pairs with the same t."""
+    (v0, v1, v2), valid, o, d = _skip_case()
+    c = pl._constants(v0, v1, v2, valid)
+    skip = pl.lane_plane_skips(o, d, c, EPS)
+    t, ok = pl.lane_plane_hits(o, d, c, EPS)
+    ts, oks = pl.lane_plane_hits(o, d, c, EPS, skip=True)
+    assert not bool((skip & ok).any())
+    assert torch.equal(ok, oks) and torch.equal(t, ts)
+    assert bool(skip[:, ~valid].all())  # zero-normal rows: det == 0
+    assert 0.2 < skip.float().mean().item() < 0.9 and ok.any()
+    assert bool(skip[torch.arange(50), torch.arange(50)].all())  # zero numerators
+
+
+@pytest.mark.parametrize("name", list(SCENES))
+def test_plain_search_same_without_skip(name, monkeypatch):
+    """The plain K4 (`_lane_plain`, the sweep of `_lane_search_plain`) gives
+    identical outputs with the skip and without it."""
+    js, eye, at = SCENES[name]
+    tris = to_port(js()).triangles
+    o, d = rays(Camera.look_at(eye, at, vfov=60.0, aspect=4 / 3), 40, 30)
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    args = (EPS, tris.v0, tris.v1, tris.v2, tris.valid, o, d)
+    with_skip = pl._lane_plain(*args)
+    monkeypatch.setattr(pl, "plane_skip", lambda det, num, eps: torch.zeros_like(det, dtype=bool))
+    without = pl._lane_plain(*args)
+    assert torch.equal(with_skip[0], without[0]) and torch.equal(with_skip[1], without[1])
+    assert (with_skip[1] >= 0).float().mean().item() > 0.3
+
+
+# --------------------------------------------------------------------------
+# The rounding that the kernels' constants copy (lane_plane.cuh:tri_constants)
+# --------------------------------------------------------------------------
+
+
+def _fmaf(a, b, c):
+    """fmaf on float32 arrays, exactly, in float64: the product is exact
+    (24 + 24 bits), TwoSum gives the sum's rounding error e, and the one
+    case where rounding twice differs from rounding once (the float64 sum
+    on a float32 midpoint, with e != 0) is settled by e's sign."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    c64 = c.astype(np.float64)
+    s = p + c64
+    bp = s - p
+    e = (p - (s - bp)) + (c64 - bp)
+    r = s.astype(np.float32)
+    other = np.where(s > r, np.nextafter(r, np.float32(np.inf)),
+                     np.nextafter(r, np.float32(-np.inf)))
+    tie = (s == (r.astype(np.float64) + other.astype(np.float64)) / 2) & (e != 0)
+    toward = np.where(e > 0, np.maximum(r, other), np.minimum(r, other))
+    return np.where(tie, toward, r)
+
+
+def _ref_constants(v0, v1, v2, valid):
+    """lane_tri_constants in numpy float32, each cross-product component
+    fmaf(a_i, b_j, -(a_j * b_i)), each 3-term sum ((0 + x) + y) + z: the
+    reduction starts from +0, which turns a sum of three -0 into +0."""
+    def cross(a, b):
+        return np.stack([_fmaf(a[:, 1], b[:, 2], -(a[:, 2] * b[:, 1])),
+                         _fmaf(a[:, 2], b[:, 0], -(a[:, 0] * b[:, 2])),
+                         _fmaf(a[:, 0], b[:, 1], -(a[:, 1] * b[:, 0]))], axis=1)
+
+    def dot(a, b):
+        return ((np.float32(0.0) + a[:, 0] * b[:, 0]) + a[:, 1] * b[:, 1]) + a[:, 2] * b[:, 2]
+
+    e1, e2 = v1 - v0, v2 - v0
+    n = np.where(valid[:, None], cross(e1, e2), np.float32(0.0))
+    nn = dot(n, n)
+    nn = np.where(nn > 0, nn, np.float32(1.0))[:, None]
+    wu, wv = cross(e2, n) / nn, cross(n, e1) / nn
+    return np.stack([n[:, 0], n[:, 1], n[:, 2], dot(n, v0), wu[:, 0], wu[:, 1], wu[:, 2],
+                     -dot(wu, v0), wv[:, 0], wv[:, 1], wv[:, 2], -dot(wv, v0),
+                     valid.astype(np.float32)], axis=1)
+
+
+def test_fmaf_reference_is_exact():
+    """The reference fmaf against exact rational arithmetic, on seeded values
+    and on constructed double-rounding ties."""
+    from fractions import Fraction
+
+    rng = np.random.RandomState(3)
+    a, b = (rng.normal(size=400) * 10 ** rng.uniform(-3, 3, 400)).astype(np.float32), \
+        rng.normal(size=400).astype(np.float32)
+    c = (-(a * b) * (1 + rng.normal(size=400) * 1e-3)).astype(np.float32)
+    # Ties: a*b = 1 + 2^-24 + 2^-60-ish cases, c = 2^-80 pushes off the midpoint.
+    a = np.concatenate([a, np.float32([1 + 2 ** -12, 1 + 2 ** -12])])
+    b = np.concatenate([b, np.float32([1 + 2 ** -12, 1 + 2 ** -12])])
+    c = np.concatenate([c, np.float32([2.0 ** -80, -(2.0 ** -80)])])
+    got = _fmaf(a, b, c)
+    for x, y, z, g in zip(a, b, c, got):
+        exact = Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z))
+        lo = np.float32(float(exact))  # within an ulp; pick the nearer neighbour exactly
+        cands = [lo, np.nextafter(lo, np.float32(np.inf)), np.nextafter(lo, np.float32(-np.inf))]
+        dist = [abs(Fraction(float(v)) - exact) for v in cands]
+        best = min(dist)
+        near = [v for v, dd in zip(cands, dist) if dd == best]
+        want = near[0] if len(near) == 1 else [v for v in near
+                                               if not (np.float32(v).view(np.int32) & 1)][0]
+        assert np.float32(g).view(np.int32) == np.float32(want).view(np.int32), (x, y, z)
+
+
+@pytest.mark.parametrize("name", ["random", "cornell", "icospheres"])
+def test_constants_round_as_fmaf(name):
+    """lane_tri_constants (PyTorch on the CPU) equals the numpy float64 ->
+    float32 reference of the fmaf form, bit for bit: the rounding that
+    csrc/lane_plane.cuh:tri_constants reproduces on the card."""
+    if name == "random":
+        rng = np.random.RandomState(7)
+        v = (rng.normal(size=(5000, 3, 3)) * 10 ** rng.uniform(-2, 2, (5000, 1, 1)))
+        v = v.astype(np.float32)
+        v[:10, 1] = v[:10, 0]  # degenerate
+        valid = rng.rand(5000) > 0.05
+        v0, v1, v2 = (v[:, k].copy() for k in range(3))
+    else:
+        tris = to_port(SCENES[name][0]()).triangles
+        v0, v1, v2 = (x.numpy() for x in (tris.v0, tris.v1, tris.v2))
+        valid = tris.valid.numpy()
+    got = pl.lane_tri_constants(TriangleBuffer.empty(len(valid), device="cpu").map(
+        lambda n, a: {"v0": torch.from_numpy(v0), "v1": torch.from_numpy(v1),
+                      "v2": torch.from_numpy(v2), "valid": torch.from_numpy(valid)}.get(n, a)))
+    want = _ref_constants(v0, v1, v2, valid)
+    np.testing.assert_array_equal(got.numpy().reshape(-1, 13).view(np.int32), want.view(np.int32))
