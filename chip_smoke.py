@@ -22,15 +22,29 @@ E. BASELINE config 5: random_scene(100_000) (100,004 triangles, 784
    kernels K5 (camera rays) and K6 (shadow rays); forward and fwd+bwd
    each run the 8,294,400-ray frame as one wavefront;
 F. random_scene(500_000), 1920x1080, depth 1: "auto" resolves to tile,
-   through four 131,072-triangle segments (`_sliced`).
+   through four 131,072-triangle segments (`_sliced`);
+G. the reference's own entry point, `python -m esctp1raytracer_tpu_torch`
+   (`cli.main`), in process: the Cornell OBJ (`write_cornell_obj`) at
+   1024x768 with --ispc ("auto" -> fused: the table build and K3); the
+   benchmark scene's meshes written as an OBJ (`write_obj`, 10,244
+   triangles in 10,752 slots once loaded) at 1920x1080 with --ispc ("auto"
+   -> mxtile: K1, K2); each PPM byte-identical to the one written from
+   `render` called directly on `scene_from_mesh(load_obj_with_mat(obj))`;
+   then the golden leg: the Cornell OBJ at 1024x768 in
+   light_mode="reference_cpp" for 8 seeds ("auto" -> lane: K4), the mean of
+   the frames clamped at 1, box-averaged by 4 with the reference C++
+   binary's own image (tests/golden/cornell_cpp_mean.npz) and held to
+   tests/test_golden.py's bars.
 
 Phases, any failure exits non-zero (no phase catches its own failure):
 1. device: needs a CUDA device (there is no CPU path); prints the card's
    name and power limit (nvidia-smi), the torch and CUDA versions, and
    turns TF32 off;
-2. build: builds the four CUDA sources from csrc/ with nvcc, one process
-   each, all started together; prints each kernel's registers, spills
-   and shared memory;
+2. build: builds the four CUDA sources from csrc/ with nvcc and the three
+   host C++ libraries from native/ with g++ (the OBJ loader, the PPM
+   writer, the BVH builder), one process each, all started together; a
+   host library that does not build fails the run; prints each kernel's
+   registers, spills and shared memory;
 3. kernels: each kernel against its plain PyTorch version on the inputs
    its main paths give it, with the bars of the JAX package's tests, and
    the time of each (CUDA events) beside its bound (the larger of its
@@ -73,7 +87,13 @@ Phases, any failure exits non-zero (no phase catches its own failure):
    neither `build_clusters` nor `lane_tri_constants`, its fwd+bwd launches
    K4 twice and builds no constants on the host, and `lane_tri_search` is
    one launch (counting spies); the layers of the flagship's forward, and
-   of the Cornell and config-4 steps, timed alone;
+   of the Cornell and config-4 steps, timed alone. Path G: each CLI run
+   and the golden leg with the counters set to 0 just before and read
+   just after (exit 0, `Mode single/auto` on stderr, its kernels launched);
+   it prints the CLI's stderr block and wall time, the native OBJ load,
+   the direct render and the native PPM write times of the 1920x1080
+   frame (the Python loader's and writer's beside them, the two writers
+   byte-identical), and the golden numbers beside their bars;
 5. prints the wall time, {"kernels": [...]} and, as the last line, the
    result line.
 
@@ -84,25 +104,37 @@ Usage: python3 chip_smoke.py   (from the repository root)
 """
 
 import argparse
+import contextlib
 import gc
+import io
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
+import numpy as np
 import torch
 
-from esctp1raytracer_tpu_torch.accel import clusters
+from esctp1raytracer_tpu_torch import cli
+from esctp1raytracer_tpu_torch.accel import clusters, native_bvh
 from esctp1raytracer_tpu_torch.core.camera import Camera
 from esctp1raytracer_tpu_torch.core.render import RenderConfig, render, resolve_backend, trace_rays
+from esctp1raytracer_tpu_torch.io import native_ppm
+from esctp1raytracer_tpu_torch.io.ppm import read_ppm, write_ppm, write_ppm_python
 from esctp1raytracer_tpu_torch.kernels import _build, fused_pallas, lane_pallas, rt_mxu, rt_tile
 from esctp1raytracer_tpu_torch.kernels.cull import block_cull_mask
 from esctp1raytracer_tpu_torch.parallel.sharding import float_params, merge_params
+from esctp1raytracer_tpu_torch.scene import native_loader
 from esctp1raytracer_tpu_torch.scene.builders import (
-    bench_scene, cornell_box, mixed_scene, random_scene,
+    bench_meshes, bench_scene, cornell_box, mixed_scene, random_scene, scene_from_mesh,
+    write_cornell_obj, write_obj,
 )
+from esctp1raytracer_tpu_torch.scene.matjson import load_obj_with_mat
+from esctp1raytracer_tpu_torch.utils import nativebuild
 
 CSRC = "esctp1raytracer_tpu_torch/csrc/"
 TPU = "esctp1raytracer_tpu/kernels/"
@@ -121,6 +153,10 @@ KERNELS = {
                          TPU + "rt_tile.py:328"),
 }
 SOURCES = ("rt_mxu", "lane", "fused", "rt_tile")
+# The host C++ of path G: each library's availability check (built with g++).
+NATIVE = {"objloader": native_loader.native_available, "ppm": native_ppm.native_available,
+          "bvh": native_bvh.native_bvh_available}
+GOLDEN = Path(__file__).resolve().parent / "tests" / "golden" / "cornell_cpp_mean.npz"
 TILE_SLICE = 262_144  # rays of config 5's wavefronts held against the plain versions
 # Each kernel's bound: the least time the card could take for its work, the
 # larger of its bytes over the memory rate and its float32 operations over
@@ -233,11 +269,20 @@ def device_phase():
 
 def build_phase():
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source, in parallel
+    # One nvcc per CUDA source and one g++ per host library, all in parallel.
+    with ThreadPoolExecutor(len(SOURCES) + len(NATIVE)) as pool:
+        native = {name: pool.submit(fn) for name, fn in NATIVE.items()}
         libs = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
+        native = {name: f.result() for name, f in native.items()}
     for mod in (rt_mxu, lane_pallas, fused_pallas, rt_tile):
         mod._lib()
-    say(f"build: {time.perf_counter() - t0:.2f} s ({len(SOURCES)} sources in parallel)")
+    say(f"build: {time.perf_counter() - t0:.2f} s ({len(SOURCES)} CUDA sources and "
+        f"{len(NATIVE)} host libraries in parallel)")
+    # On the card's machine a host library that does not build is a failure,
+    # not a fallback to the Python loader or writer.
+    for name, ok in native.items():
+        check(ok, f"native {name} did not build: {nativebuild.last_build_error()}")
+        say(f"  native {name}: {nativebuild.library_path(name).name}")
     for name, lib in libs.items():
         say(f"  {lib.name}: nvcc {' '.join(_build.NVCC_FLAGS + _build.SOURCE_FLAGS.get(name, []))}")
         for line in lib.with_suffix(".log").read_text().splitlines():
@@ -1328,6 +1373,173 @@ def profile_phase(card, cases):
             say(f"profile {label}:   {ms:8.2f} ms x {n:5d}  {name[:100]}")
 
 
+# --------------------------------------------------------------------------
+# Path G: the reference's own entry point (OBJ in, P3 PPM out)
+# --------------------------------------------------------------------------
+
+
+def cli_run(card, label, argv, mode, need, results):
+    """cli.main(argv) with the launch counters set to 0 just before and read
+    just after: exit 0, the stderr block's `Mode` and each kernel of `need`
+    launched. Returns (wall ms, the CLI's own Duration line)."""
+    err = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    text = err.getvalue()
+    say(f"{label}: python -m esctp1raytracer_tpu_torch {' '.join(argv)}: exit {rc}, "
+        f"launches {counts}, wall {wall:.1f} ms  [{card}]")
+    for line in text.strip("\n").splitlines():
+        say(f"  stderr| {line}")
+    check(rc == 0, f"{label}: the CLI exited {rc}")
+    check(f"Mode      : {mode}" in text, f"{label}: stderr does not show Mode {mode}")
+    for name in need:
+        check(counts[name] > 0, f"{label}: {name} was not launched")
+    for name, n in counts.items():
+        results[name]["launches"] += n
+    duration = [ln.strip() for ln in text.splitlines() if "Duration" in ln]
+    return wall, duration[0] if duration else ""
+
+
+def same_ppm(label, cli_ppm, scene, cam, w, h, cfg, tmp):
+    """The CLI's PPM equals, byte for byte, the PPM of `render` called
+    directly on the same scene and camera; returns the direct render's
+    wall ms (the card synchronised) and its image on the host."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = render(scene, cam, w, h, cfg)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    direct = str(Path(tmp) / f"{label}-direct.ppm")
+    write_ppm(direct, img)
+    same = Path(cli_ppm).read_bytes() == Path(direct).read_bytes()
+    say(f"{label}: CLI PPM vs direct render's PPM ({w}x{h}): "
+        f"{'byte-identical' if same else 'DIFFERENT'}")
+    check(same, f"{label}: the CLI's PPM differs from the direct render's")
+    return ms, img.cpu().numpy()
+
+
+def golden_leg(card, obj, results, seeds=8, scale=4):
+    """The Cornell OBJ at 1024x768 in light_mode="reference_cpp" (auto ->
+    lane: K4), one frame per seed, each clamped at 1, their mean and the
+    golden (the reference C++ binary's 6-run mean) box-averaged by `scale`,
+    held to tests/test_golden.py's bars."""
+    scene = scene_from_mesh(load_obj_with_mat(obj))
+    cam = Camera.look_at((0.0, 1.0, 2.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=1024 / 768)
+    cfgs = [RenderConfig(backend="auto", light_mode="reference_cpp", shadow_eps=1.1920929e-07,
+                         seed=s) for s in range(seeds)]
+    check(resolve_backend(cfgs[0], scene) == "lane",
+          f"golden: auto resolves to {resolve_backend(cfgs[0], scene)!r}, not 'lane'")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = [torch.clamp(render(scene, cam, 1024, 768, cfg), max=1.0) for cfg in cfgs]
+    mean = torch.stack(frames).mean(0).cpu().numpy()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    check(counts["lane_kernel"] > 0, "golden: K4 was not launched")
+    for name, n in counts.items():
+        results[name]["launches"] += n
+
+    def box(img, k):
+        hh, ww, c = img.shape
+        return img.reshape(hh // k, k, ww // k, k, c).mean((1, 3))
+
+    gold = box(np.load(GOLDEN)["image"].astype(np.float32) / 255.0, scale)
+    mine = box(mean, scale)
+    patch = np.abs(box(gold, 8) - box(mine, 8)).max(-1)
+    hh, ww, _ = gold.shape
+    regions = {"left wall": (slice(hh // 3, hh // 2), slice(0, ww // 12)),
+               "right wall": (slice(hh // 3, hh // 2), slice(ww - ww // 12, ww)),
+               "back wall top": (slice(2 * hh // 3, 3 * hh // 4), slice(ww // 3, 2 * ww // 3))}
+    region_err = {name: float(np.abs(mine[rs, cs].mean((0, 1)) - gold[rs, cs].mean((0, 1))).max())
+                  for name, (rs, cs) in regions.items()}
+    out = {"mean_diff": float(abs(mine.mean() - gold.mean())),
+           "patch_median": float(np.median(patch)), "patch_share_below_0.12":
+           float((patch < 0.12).mean()), "region_max_err": region_err, "seeds": seeds,
+           "frames_ms": ms, "launches": counts["lane_kernel"]}
+    say(f"golden (Cornell OBJ, 1024x768, {seeds} seeds, reference_cpp, lane/K4, compared at "
+        f"{1024 // scale}x{768 // scale}): |mean diff| {out['mean_diff']:.5f} (< 0.02), patch "
+        f"median {out['patch_median']:.5f} (< 0.03), share of patches < 0.12 "
+        f"{out['patch_share_below_0.12']:.4f} (> 0.9), region max errors "
+        f"{ {k: round(v, 5) for k, v in region_err.items()} } (< 0.08); {seeds} frames + mean "
+        f"{ms:.1f} ms wall  [{card}]")
+    check(out["mean_diff"] < 0.02, f"golden: |mean diff| {out['mean_diff']} >= 0.02")
+    check(out["patch_median"] < 0.03, f"golden: patch median {out['patch_median']} >= 0.03")
+    check(out["patch_share_below_0.12"] > 0.9,
+          f"golden: {out['patch_share_below_0.12']} of patches < 0.12, not > 0.9")
+    for name, err in region_err.items():
+        check(err < 0.08, f"golden: {name} colour off by {err} >= 0.08")
+    return out
+
+
+def entry_point_phase(card, results):
+    """Path G: the host libraries built; the Cornell OBJ and the flagship's
+    meshes (as an OBJ) through the CLI, each PPM equal to a direct render's;
+    the golden leg."""
+    for name, fn in NATIVE.items():
+        check(fn(), f"native {name} is not available: {nativebuild.last_build_error()}")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # Cornell, --ispc: auto -> fused (the table build and K3).
+        obj, ppm = str(Path(tmp) / "cornell.obj"), str(Path(tmp) / "cornell.ppm")
+        write_cornell_obj(obj)
+        wall, duration = cli_run(card, "G Cornell", ["-m", obj, "-v", "0,1,2", "-l", "0,1,0",
+                                                     "-w", "1024,768", "--ispc", "-o", ppm],
+                                 "single/auto", ["fused_tables", "fused_kernel"], results)
+        check(read_ppm(ppm).shape == (768, 1024, 3), "G Cornell: the PPM's shape")
+        scene = scene_from_mesh(load_obj_with_mat(obj))
+        cam = Camera.look_at((0.0, 1.0, 2.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=1024 / 768)
+        check(resolve_backend(RenderConfig(backend="auto"), scene) == "fused",
+              "G Cornell: auto does not resolve to fused")
+        same_ppm("G Cornell", ppm, scene, cam, 1024, 768, RenderConfig(backend="auto"), tmp)
+        out["cornell"] = {"cli_wall_ms": wall, "cli_duration": duration}
+
+        # The flagship's meshes written as an OBJ, --ispc: auto -> mxtile (K1, K2).
+        obj, ppm = str(Path(tmp) / "bench.obj"), str(Path(tmp) / "bench.ppm")
+        write_obj(obj, bench_meshes())
+        t0 = time.perf_counter()
+        meshes = native_loader.load_obj_native(obj)
+        load_native_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        scene = scene_from_mesh(load_obj_with_mat(obj))
+        torch.cuda.synchronize()
+        load_py_ms = (time.perf_counter() - t0) * 1e3
+        n_valid, cap = int(scene.triangles.valid.sum()), scene.triangles.capacity
+        say(f"G flagship OBJ: {sum(m.num_faces for m in meshes)} triangles; loaded table "
+            f"{n_valid} valid in {cap} slots")
+        check((n_valid, cap) == (10_244, 10_752), f"G flagship: table {n_valid}/{cap}")
+        check(resolve_backend(RenderConfig(backend="auto"), scene) == "mxtile",
+              "G flagship: auto does not resolve to mxtile")
+        wall, duration = cli_run(card, "G flagship", ["-m", obj, "-v", "0,2,6", "-l", "0,1,0",
+                                                      "-w", "1920,1080", "--ispc", "-o", ppm],
+                                 "single/auto", ["mxu_kernel", "mxu_occl_kernel"], results)
+        cam = Camera.look_at((0.0, 2.0, 6.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=1920 / 1080)
+        render_ms, img = same_ppm("G flagship", ppm, scene, cam, 1920, 1080,
+                                  RenderConfig(backend="auto"), tmp)
+        t0 = time.perf_counter()
+        native_ppm.write_ppm_native(str(Path(tmp) / "native.ppm"), img)
+        write_native_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        write_ppm_python(str(Path(tmp) / "python.ppm"), img)
+        write_py_ms = (time.perf_counter() - t0) * 1e3
+        check((Path(tmp) / "native.ppm").read_bytes() == (Path(tmp) / "python.ppm").read_bytes(),
+              "G flagship: the native and Python PPM writers differ at 1920x1080")
+        say(f"G flagship 1920x1080 [{card}]: native OBJ load {load_native_ms:.1f} ms (Python "
+            f"loader + table to the card {load_py_ms:.1f} ms), render {render_ms:.1f} ms wall "
+            f"(card synchronised), native PPM write {write_native_ms:.1f} ms (Python writer "
+            f"{write_py_ms:.1f} ms, byte-identical); CLI wall {wall:.1f} ms, {duration}")
+        out["flagship"] = {"cli_wall_ms": wall, "cli_duration": duration,
+                           "native_load_ms": load_native_ms, "python_load_ms": load_py_ms,
+                           "render_ms": render_ms, "native_write_ms": write_native_ms,
+                           "python_write_ms": write_py_ms}
+        out["golden"] = golden_leg(card, str(Path(tmp) / "cornell.obj"), results)
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1428,6 +1640,7 @@ def main():
     paths["soup500k"] = path_phase(card, "soup 500k", soup500, soup_cam_1080, 1920, 1080, auto,
                                    "tile", k56, k56, results, reps=3, min_launches=nseg)
     del soup500
+    paths["entry_point"] = entry_point_phase(card, results)
     feeder_check(flag, flag_cam, 1920, 1080, auto)
     fused_feeder_check(card, corn, corn_cam, 1024, 768, auto)
     layer_phase(card, seen)

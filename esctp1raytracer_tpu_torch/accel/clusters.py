@@ -92,3 +92,11 @@ def build_clusters(tris: TriangleBuffer) -> ClusteredTriangles:
         cluster_max=torch.amax(bmax.reshape(c, CLUSTER, 3), dim=1),
         oversized=oversized_sorted,
     )
+
+
+def cluster_table(clustered: ClusteredTriangles) -> torch.Tensor:
+    """[8, C] float32 table: rows min xyz, max xyz, then two rows of zeros."""
+    c = clustered.cluster_min.shape[0]
+    rows = [clustered.cluster_min.T, clustered.cluster_max.T,
+            clustered.cluster_min.new_zeros((2, c))]
+    return torch.cat(rows, dim=0)

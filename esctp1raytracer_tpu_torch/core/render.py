@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from esctp1raytracer_tpu_torch.core.camera import Camera
@@ -31,6 +32,7 @@ from esctp1raytracer_tpu_torch.kernels.fused_pallas import (
     _fallback_cfg, fused_supported, fused_trace_diff,
 )
 from esctp1raytracer_tpu_torch.scene.types import Scene
+from esctp1raytracer_tpu_torch.utils.debug import TRACE, current_level
 
 
 @dataclass(frozen=True)
@@ -136,6 +138,8 @@ def trace_rays(o, d, scene: Scene, ray_ids: torch.Tensor, cfg: RenderConfig,
         # one scatter-add per bounce in the backward.
         hit, trow = closest_hit(o, d, scene, eps, block_size=cfg.block_size,
                                 use_mxu=use_mxu, tri_search=tri_search, with_row=True)
+        if current_level() >= TRACE:
+            _trace_summary(bounce, hit)
         local, hit_p, normal, ks = shade(
             o, d, hit, scene, cfg.seed, ray_ids, occl, shadow_eps=cfg.shadow_eps,
             bounce=bounce, light_mode=cfg.light_mode, trow=trow)
@@ -152,6 +156,15 @@ def trace_rays(o, d, scene: Scene, ray_ids: torch.Tensor, cfg: RenderConfig,
     return color
 
 
+def _trace_summary(bounce: int, hit) -> None:
+    """The reference dumps per-hit info under --trace (src/ispc/trace.ispc:94-100,
+    src/main.cpp:607-616); for a wavefront: the bounce's hit count and ray 0's
+    hit record. It reads them back from the device, so it runs only at TRACE."""
+    t0, p0, u0, v0 = (x[0].detach().cpu().numpy() for x in (hit.t, hit.prim, hit.u, hit.v))
+    print(f"trace[bounce {bounce}]: hits={int(hit.hit.sum())}/{hit.hit.shape[0]} "
+          f"t[0]={t0} prim[0]={p0} u[0]={u0} v[0]={v0}", flush=True)
+
+
 def render(scene: Scene, camera: Camera, width: int, height: int,
            cfg: RenderConfig = RenderConfig()) -> torch.Tensor:
     """Render a [height, width, 3] float32 image (row h = image row h)."""
@@ -160,3 +173,9 @@ def render(scene: Scene, camera: Camera, width: int, height: int,
     d = d.reshape(-1, 3)
     ray_ids = torch.arange(o.shape[0], dtype=torch.int64, device=o.device)
     return trace_rays(o, d, scene, ray_ids, cfg).reshape(height, width, 3)
+
+
+def render_to_numpy(scene: Scene, camera: Camera, width: int, height: int,
+                    cfg: RenderConfig = RenderConfig()) -> np.ndarray:
+    """`render`, copied to the host as a numpy array [height, width, 3]."""
+    return render(scene, camera, width, height, cfg).detach().cpu().numpy()

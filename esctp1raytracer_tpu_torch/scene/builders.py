@@ -8,13 +8,15 @@ Scenes: `bench_scene()` (the benchmark workload: two subdivision-4
 icospheres, a ground plane and an area light, 10,244 triangles), the
 Cornell box and its variants (`cornell_box`, `cornell_variant`), and the
 BASELINE configs 1 to 5 (`sphere_plane_scene`, `ten_sphere_scene`,
-`mesh_scene`, `mixed_scene`, `random_scene`). Tables are built with numpy
+`mesh_scene`, `mixed_scene`, `random_scene`); `write_obj` and
+`write_cornell_obj` write meshes out as OBJ+MTL files. Tables are built with numpy
 on the host and land on `device`, the card unless the caller names
 another (`device="cpu"`, as the CPU tests do).
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -235,6 +237,34 @@ def cornell_box(pad_multiple: int = DEFAULT_PAD_MULTIPLE,
                            device=device)
 
 
+def _write_mtl_entry(fh, name: str, m: Material) -> None:
+    fh.write(f"newmtl {name}\n")
+    fh.write(f"  Ns {m.ns}\n")
+    fh.write(f"  Ka {m.ka[0]} {m.ka[1]} {m.ka[2]}\n")
+    fh.write(f"  Kd {m.kd[0]} {m.kd[1]} {m.kd[2]}\n")
+    fh.write(f"  Ks {m.ks[0]} {m.ks[1]} {m.ks[2]}\n")
+    fh.write(f"  Ke {m.ke[0]} {m.ke[1]} {m.ke[2]}\n\n")
+
+
+def write_cornell_obj(obj_path: str, mtl_path: Optional[str] = None) -> None:
+    """Emit the Cornell scene as OBJ+MTL files, byte for byte as the JAX
+    package does (a fixture for the loaders and the CLI). Each quad is its
+    own `g` group, so the short box keeps its own material here;
+    `cornell_meshes()` keeps the reference file's grouping."""
+    if mtl_path is None:
+        mtl_path = os.path.splitext(obj_path)[0] + ".mtl"
+    with open(mtl_path, "w") as fh:
+        for name, m in _CORNELL_MATERIALS.items():
+            _write_mtl_entry(fh, name, m)
+    with open(obj_path, "w") as fh:
+        fh.write(f"mtllib {os.path.basename(mtl_path)}\n")
+        for i, (name, quad) in enumerate(_CORNELL_QUADS):
+            fh.write(f"g {name}_{i}\nusemtl {name}\n")
+            for vx, vy, vz in quad:
+                fh.write(f"v {vx} {vy} {vz}\n")
+            fh.write("f -4 -3 -2 -1\n")
+
+
 # --- Cornell variants (procedural equivalents of the reference's model files)
 
 _MIRROR_MATERIAL = Material.make(  # CornellBox-Mirror.mtl tallBox
@@ -358,6 +388,38 @@ def cornell_variant(name: str = "original", device="cuda") -> Scene:
         return scene_from_mesh(_cornell_shell(drop_groups=no_boxes + ("light",)), device=device)
     raise ValueError(f"unknown cornell variant {name!r}; expected one of "
                      + "|".join(CORNELL_VARIANTS))
+
+
+def write_obj(obj_path: str, meshes: Sequence[MeshData],
+              mtl_path: Optional[str] = None) -> None:
+    """Serialize meshes as OBJ+MTL (de-indexed corners, optional normals),
+    byte for byte as the JAX package does. Each value is written as
+    `str(np.float32)`, the shortest text that reads back to the same bits."""
+    if mtl_path is None:
+        mtl_path = os.path.splitext(obj_path)[0] + ".mtl"
+    with open(mtl_path, "w") as fh:
+        for i, mesh in enumerate(meshes):
+            _write_mtl_entry(fh, f"m{i}_{mesh.name}", mesh.material)
+    with open(obj_path, "w") as fh:
+        fh.write(f"mtllib {os.path.basename(mtl_path)}\n")
+        v_base = 1  # OBJ indices are 1-based and global across groups
+        n_base = 1
+        for i, mesh in enumerate(meshes):
+            fh.write(f"g {mesh.name}_{i}\nusemtl m{i}_{mesh.name}\n")
+            for x, y, z in mesh.vertices.reshape(-1, 3):
+                fh.write(f"v {x} {y} {z}\n")
+            if mesh.normals is not None:
+                for x, y, z in mesh.normals.reshape(-1, 3):
+                    fh.write(f"vn {x} {y} {z}\n")
+                for f in range(mesh.num_faces):
+                    a, b = v_base + 3 * f, n_base + 3 * f
+                    fh.write(f"f {a}//{b} {a+1}//{b+1} {a+2}//{b+2}\n")
+                n_base += 3 * mesh.num_faces
+            else:
+                for f in range(mesh.num_faces):
+                    a = v_base + 3 * f
+                    fh.write(f"f {a} {a+1} {a+2}\n")
+            v_base += 3 * mesh.num_faces
 
 
 # --- BASELINE.json procedural configs -------------------------------------
@@ -495,16 +557,21 @@ def mixed_scene(device="cuda") -> Scene:
     return scene_from_mesh(meshes, spheres=spheres, device=device)
 
 
-def bench_scene(device="cuda") -> Scene:
-    """The benchmark scene: 2 * 5120 + 2 + 2 = 10,244 triangles (10,752 padded)."""
-    meshes = [
+def bench_meshes() -> List[MeshData]:
+    """The benchmark scene's meshes (bench.py:175-183): two subdivision-4
+    icospheres (one smooth-shaded), a ground plane and an area light."""
+    return [
         icosphere_mesh(subdivisions=4, radius=1.0, center=(-1.3, 1.0, 0.0)),
         icosphere_mesh(subdivisions=4, radius=1.0, center=(1.3, 1.0, 0.0),
                        smooth=False),
         _ground_plane(),
         _area_light(center=(0.0, 6.0, 2.0), half=1.5),
     ]
-    return scene_from_mesh(meshes, device=device)
+
+
+def bench_scene(device="cuda") -> Scene:
+    """The benchmark scene: 2 * 5120 + 2 + 2 = 10,244 triangles (10,752 padded)."""
+    return scene_from_mesh(bench_meshes(), device=device)
 
 
 def random_scene(num_triangles: int = 100_000, seed: int = 0,

@@ -122,3 +122,70 @@ def test_oversized_occlusion_match(scenes):
                                torch.from_numpy(tl), ov_p, EPS)
     np.testing.assert_array_equal(occ_p.numpy(), np.asarray(occ_j))
     assert occ_p.any()
+
+
+# AABB slab test, cluster table and BVH: exact (the same single-rounded
+# operations, and the same numpy builder; the C++ builder equals it).
+
+
+def test_aabb_intersect_matches():
+    from esctp1raytracer_tpu.accel.aabb import aabb_intersect as j_aabb
+    from esctp1raytracer_tpu_torch.accel.aabb import aabb_intersect
+
+    rng = np.random.RandomState(3)
+    o = rng.randn(4096, 1, 3).astype(np.float32) * 4
+    d = rng.randn(4096, 1, 3).astype(np.float32)
+    d[::7, 0, 1] = 0.0  # axis-parallel rays: inf reciprocals
+    with np.errstate(divide="ignore"):
+        inv = (1.0 / d).astype(np.float32)
+    lo = rng.randn(1, 16, 3).astype(np.float32)
+    hi = lo + rng.rand(1, 16, 3).astype(np.float32) * 2
+    got = aabb_intersect(*(torch.from_numpy(x) for x in (o, inv, lo, hi)))
+    ref = j_aabb(*(jnp.asarray(x) for x in (o, inv, lo, hi)))
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    assert 0 < int(got[2].sum()) < got[2].numel()
+
+
+def test_cluster_table_matches(scenes):
+    from esctp1raytracer_tpu.accel.clusters import cluster_table as j_table
+    from esctp1raytracer_tpu_torch.accel.clusters import cluster_table
+
+    js, ps = scenes
+    got = cluster_table(build_clusters(ps.triangles))
+    ref = np.asarray(j_table(j_build_clusters(js.triangles)))
+    assert got.dtype == torch.float32
+    assert tuple(got.shape) == ref.shape == (8, ps.triangles.capacity // 128)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("use_native", [False, True])
+def test_bvh_nodes_match(scenes, use_native):
+    from esctp1raytracer_tpu.accel.bvh import build_bvh as j_build_bvh
+    from esctp1raytracer_tpu_torch.accel.bvh import build_bvh
+    from esctp1raytracer_tpu_torch.accel.native_bvh import native_bvh_available
+
+    assert native_bvh_available()  # the sandbox has g++
+    js, ps = scenes
+    ref = j_build_bvh(js.triangles, use_native=False)
+    got = build_bvh(ps.triangles, use_native=use_native)
+    for f in ("bmin", "bmax", "left", "right", "start", "count", "order", "verts"):
+        a, b = getattr(got, f), getattr(ref, f)
+        assert a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    assert got.num_nodes == ref.num_nodes > 1
+
+
+def test_bvh_intersect_matches_the_search(scenes):
+    from esctp1raytracer_tpu_torch.accel.bvh import build_bvh
+    from esctp1raytracer_tpu_torch.core.intersect import argmin_hit
+
+    _, ps = scenes
+    bvh = build_bvh(ps.triangles)
+    o, d = rays(12, 12)
+    t_ref, p_ref, _ = argmin_hit(torch.from_numpy(o), torch.from_numpy(d), ps)
+    for i in range(o.shape[0]):
+        t, p = bvh.intersect(o[i], d[i])
+        assert p == int(p_ref[i]), i
+        if p >= 0:
+            assert abs(t - float(t_ref[i])) < 1e-4

@@ -23,7 +23,11 @@ import esctp1raytracer_tpu_torch as rt
 mods = [m.name for m in pkgutil.walk_packages(rt.__path__, rt.__name__ + ".")]
 for name in mods:
     __import__(name)
-assert len(mods) >= 16, mods
+new = {"cli", "__main__", "io.ppm", "io.native_ppm", "scene.objloader", "scene.native_loader",
+       "scene.matjson", "accel.bvh", "accel.native_bvh", "utils.debug", "utils.timing",
+       "utils.nativebuild", "utils.profiling"}
+assert {rt.__name__ + "." + m for m in new} <= set(mods), sorted(mods)
+assert len(mods) >= 36, mods
 
 from esctp1raytracer_tpu_torch.kernels import rt_mxu
 from esctp1raytracer_tpu_torch.scene import builders as b
@@ -49,6 +53,21 @@ assert float(cimg.max()) > 0 and all(bool(torch.isfinite(p.grad).all())
 assert rt_mxu.mxu_kernel.launches == 0 and rt_mxu.mxu_occl_kernel.launches == 0
 assert fused_pallas.fused_kernel.launches == 0 and lane_pallas.lane_kernel.launches == 0
 assert rt_mxu._LIB is None and fused_pallas._LIB is None and lane_pallas._LIB is None
+
+# The host I/O and the CLI: OBJ written, loaded (Python and C++), rendered, saved.
+import os, tempfile
+from esctp1raytracer_tpu_torch import cli
+from esctp1raytracer_tpu_torch.accel.bvh import build_bvh
+from esctp1raytracer_tpu_torch.scene.native_loader import load_obj_native
+
+with tempfile.TemporaryDirectory() as tmp:
+    obj, out = os.path.join(tmp, "c.obj"), os.path.join(tmp, "c.ppm")
+    b.write_cornell_obj(obj)
+    assert sum(m.num_faces for m in rt.load_obj(obj)) == sum(
+        m.num_faces for m in load_obj_native(obj)) == 36
+    assert cli.main(["-m", obj, "-w", "16,12", "--ispc", "--device", "cpu", "-o", out]) == 0
+    assert rt.read_ppm(out).shape == (12, 16, 3)
+    assert build_bvh(corn.triangles).num_nodes > 1
 
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "jaxlib", "esctp1raytracer_tpu.")))
