@@ -34,7 +34,27 @@ G. the reference's own entry point, `python -m esctp1raytracer_tpu_torch`
    light_mode="reference_cpp" for 8 seeds ("auto" -> lane: K4), the mean of
    the frames clamped at 1, box-averaged by 4 with the reference C++
    binary's own image (tests/golden/cornell_cpp_mean.npz) and held to
-   tests/test_golden.py's bars.
+   tests/test_golden.py's bars;
+H. training on one rank, at the flagship's width: `fit_scene` on the
+   flagship at 1920x1080 ("auto" -> mxtile: K1, K2), the target its true
+   render, the start with the triangles' kd halved, `param_filter` fitting
+   triangles.kd, 6 Adam steps at lr 0.05 with a checkpoint every 3; then a
+   second run resumed from the step-3 checkpoint. The loss falls, one K1
+   and one K2 launch per step, the resumed run equals the uninterrupted
+   one within RESUME_RTOL / RESUME_ATOL, and the checkpoint loaded into a
+   fresh template equals `scene_to_numpy` of the fitted scene;
+I. the sharded renderer and trainer (`parallel/`), ranks of this script
+   (`--rank-leg`, the torchrun environment, each with a time-out) on the
+   one card: (a) one rank over NCCL: `loss_and_grad_sharded` on the
+   flagship at 1920x1080; (b) two ranks over gloo, rays = 2, on the
+   flagship (K1/K2 per rank) and on Cornell at 1024x768 (the table build
+   and K3 per rank, K4 in the backward): `render_sharded`,
+   `loss_and_grad_sharded` and one `train_step_sharded`; (c) four ranks
+   over gloo, rays = 2 x prims = 2, on the flagship: `render_sharded` and
+   `loss_and_grad_sharded` (the prims split scans with `_scan_blocks`, no
+   kernel). Rank 0 writes its arrays; this process holds them against the
+   unsharded run (tests/test_sharding.py's image bar and :150-155's
+   gradient bars) and the train step's loss bit-equal on every rank.
 
 Phases, any failure exits non-zero (no phase catches its own failure):
 1. device: needs a CUDA device (there is no CPU path); prints the card's
@@ -93,7 +113,13 @@ Phases, any failure exits non-zero (no phase catches its own failure):
    it prints the CLI's stderr block and wall time, the native OBJ load,
    the direct render and the native PPM write times of the 1920x1080
    frame (the Python loader's and writer's beside them, the two writers
-   byte-identical), and the golden numbers beside their bars;
+   byte-identical), and the golden numbers beside their bars. Path H: the
+   counters set to 0 just before each of its two runs and read just after;
+   the ms of each step (the first apart), the Adam update,
+   `save_checkpoint` and `load_checkpoint`, and the peak memory. Path I:
+   each rank sets the counters to 0 just before each call and reads them
+   just after; each leg's ms per call (median of 3) and the share of one
+   call spent in the all-reduces;
 5. prints the wall time, {"kernels": [...]} and, as the last line, the
    result line.
 
@@ -105,9 +131,13 @@ Usage: python3 chip_smoke.py   (from the repository root)
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import io
 import json
+import os
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -118,15 +148,20 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from esctp1raytracer_tpu_torch import cli
 from esctp1raytracer_tpu_torch.accel import clusters, native_bvh
 from esctp1raytracer_tpu_torch.core.camera import Camera
 from esctp1raytracer_tpu_torch.core.render import RenderConfig, render, resolve_backend, trace_rays
+from esctp1raytracer_tpu_torch.grad import fit_scene, optimize
 from esctp1raytracer_tpu_torch.io import native_ppm
 from esctp1raytracer_tpu_torch.io.ppm import read_ppm, write_ppm, write_ppm_python
 from esctp1raytracer_tpu_torch.kernels import _build, fused_pallas, lane_pallas, rt_mxu, rt_tile
 from esctp1raytracer_tpu_torch.kernels.cull import block_cull_mask
+from esctp1raytracer_tpu_torch.parallel import (
+    init_distributed, loss_and_grad_sharded, make_mesh, render_sharded, train_step_sharded,
+)
 from esctp1raytracer_tpu_torch.parallel.sharding import float_params, merge_params
 from esctp1raytracer_tpu_torch.scene import native_loader
 from esctp1raytracer_tpu_torch.scene.builders import (
@@ -134,7 +169,9 @@ from esctp1raytracer_tpu_torch.scene.builders import (
     write_cornell_obj, write_obj,
 )
 from esctp1raytracer_tpu_torch.scene.matjson import load_obj_with_mat
+from esctp1raytracer_tpu_torch.scene.types import scene_to_numpy
 from esctp1raytracer_tpu_torch.utils import nativebuild
+from esctp1raytracer_tpu_torch.utils.checkpoint import load_checkpoint
 
 CSRC = "esctp1raytracer_tpu_torch/csrc/"
 TPU = "esctp1raytracer_tpu/kernels/"
@@ -158,6 +195,16 @@ NATIVE = {"objloader": native_loader.native_available, "ppm": native_ppm.native_
           "bvh": native_bvh.native_bvh_available}
 GOLDEN = Path(__file__).resolve().parent / "tests" / "golden" / "cornell_cpp_mean.npz"
 TILE_SLICE = 262_144  # rays of config 5's wavefronts held against the plain versions
+# Path H: the resumed run against the uninterrupted one (the card's backward
+# scatter-adds with atomics, so gradients differ in the last bits run to run).
+RESUME_RTOL = 1e-4  # losses, relative
+RESUME_ATOL = 1e-4  # fitted kd (each Adam step moves it by up to lr = 0.05)
+# Path I: each leg's mesh; the prims split runs `_scan_blocks`, whose
+# [rays, 512]-wide blocks take 262,144-ray chunks to keep four ranks' worth
+# of intermediates on the card (a chunk size, not a smaller frame).
+LEG_MESH = {"nccl1": dict(rays=1), "gloo2": dict(rays=2), "gloo4": dict(rays=2, prims=2)}
+PRIMS_CFG = RenderConfig(backend="auto", ray_chunk=262_144)
+FLAG_WH, CORN_WH = (1920, 1080), (1024, 768)  # path I's frames
 # Each kernel's bound: the least time the card could take for its work, the
 # larger of its bytes over the memory rate and its float32 operations over
 # the float32 peak (H100 SXM data sheet, dense, at the full 700 W). No
@@ -1540,13 +1587,409 @@ def entry_point_phase(card, results):
     return out
 
 
+# --------------------------------------------------------------------------
+# Path H: training on one rank (fit_scene: Adam and checkpoints)
+# --------------------------------------------------------------------------
+
+
+def training_phase(card, results, scene, cam, w, h, cfg, steps=6, every=3, lr=0.05):
+    """Path H: `fit_scene` on the flagship, the target its true render, the
+    start with the triangles' kd halved and `param_filter` fitting
+    triangles.kd: `steps` Adam steps with a checkpoint every `every`, then a
+    second run resumed from the step-`every` checkpoint (copied aside by a
+    spy on `save_checkpoint` before the first run overwrites it). Checks:
+    the loss falls; one K1 and one K2 launch per step; the resumed run's
+    losses and kd equal the uninterrupted run's within RESUME_RTOL and
+    RESUME_ATOL (the backward's `index_add_` atomics make the card's
+    gradients differ in the last bits from run to run); the checkpoint
+    loaded into a fresh template equals `scene_to_numpy` of the fitted
+    scene. Times: each step (host clock between the Adam updates, the card
+    synchronised, checkpoint writes taken out), the Adam update alone,
+    `save_checkpoint` and `load_checkpoint`, and the peak memory."""
+    with torch.no_grad():
+        target = render(scene, cam, w, h, cfg)
+    start = dataclasses.replace(scene, triangles=dataclasses.replace(
+        scene.triangles, kd=scene.triangles.kd * 0.5))
+
+    def fit_kd(i, leaf):
+        return leaf is start.triangles.kd
+
+    real_adam, real_save = optimize.adam_update, optimize.save_checkpoint
+    log = {"adam_ms": [], "ends": [], "saves": []}
+
+    def adam_spy(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_adam(*a, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        log["adam_ms"].append((t1 - t0) * 1e3)
+        log["ends"].append(t1)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path, aside = str(Path(tmp) / "fit.npz"), str(Path(tmp) / f"fit_step{every}.npz")
+
+        def save_spy(where, sc, step, extra=None):
+            t0 = time.perf_counter()
+            real_save(where, sc, step, extra)
+            log["saves"].append((t0, time.perf_counter()))
+            if where == path and step == every:
+                shutil.copy(path, aside)
+
+        runs = {}
+        optimize.adam_update, optimize.save_checkpoint = adam_spy, save_spy
+        try:
+            for what, ck in (("uninterrupted", path), ("resumed", aside)):
+                for key in log:
+                    log[key] = []
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                t_start = time.perf_counter()
+                fit = fit_scene(start, target, cam, steps=steps, lr=lr, cfg=cfg,
+                                param_filter=fit_kd, checkpoint_path=ck, checkpoint_every=every,
+                                log_every=0)
+                counts = read_counts()
+                ends = [t_start] + log["ends"]
+                step_ms = [(b - a) * 1e3 - sum((s1 - s0) * 1e3 for s0, s1 in log["saves"]
+                                                if a <= s0 < b)
+                           for a, b in zip(ends, ends[1:])]
+                runs[what] = dict(fit=fit, counts=counts, step_ms=step_ms,
+                                  adam_ms=list(log["adam_ms"]),
+                                  save_ms=[(s1 - s0) * 1e3 for s0, s1 in log["saves"]],
+                                  peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+                n = fit.steps
+                say(f"H {what}: {n} steps, losses {[f'{x:.6e}' for x in fit.losses]}, launches "
+                    f"{counts}")
+                for name in KERNELS:
+                    want = n if name in ("mxu_kernel", "mxu_occl_kernel") else 0
+                    check(counts[name] == want, f"H {what}: {name} launched {counts[name]} "
+                          f"times in {n} steps, want {want}")
+                    results[name]["launches"] += counts[name]
+        finally:
+            optimize.adam_update, optimize.save_checkpoint = real_adam, real_save
+        whole, rest = runs["uninterrupted"]["fit"], runs["resumed"]["fit"]
+        check(whole.steps == steps and rest.steps == steps - every,
+              f"H: {whole.steps} and {rest.steps} steps, want {steps} and {steps - every}")
+        check(whole.losses[-1] < whole.losses[0],
+              f"H: the loss did not fall: {whole.losses[0]} -> {whole.losses[-1]}")
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(rest.losses, whole.losses[every:]))
+        kd_err = (rest.scene.triangles.kd - whole.scene.triangles.kd).abs().max().item()
+        kd_moved = (whole.scene.triangles.kd - start.triangles.kd).abs().max().item()
+        say(f"H resumed vs uninterrupted: losses within {loss_rel:.3e} relative (< "
+            f"{RESUME_RTOL}), kd within {kd_err:.3e} (< {RESUME_ATOL}; the fit moved kd by up "
+            f"to {kd_moved:.4f})")
+        check(loss_rel < RESUME_RTOL, f"H: resumed losses off by {loss_rel} relative")
+        check(kd_err < RESUME_ATOL, f"H: resumed kd off by {kd_err}")
+
+        fresh = bench_scene()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded, step, extra = load_checkpoint(path, fresh)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        check(step == steps and int(extra["adam_t"]) == steps, f"H: checkpoint at step {step}")
+        want, got = scene_to_numpy(whole.scene), scene_to_numpy(loaded)
+        check(list(got) == list(want), "H: the loaded checkpoint's leaves differ in name")
+        for name in want:
+            check(got[name].dtype == want[name].dtype and np.array_equal(got[name], want[name]),
+                  f"H: loaded leaf {name} differs from the fitted scene's")
+        check(all(a.device == b.device for (_, a), (_, b) in zip(loaded.leaves(), fresh.leaves())),
+              "H: the loaded checkpoint's leaves are not on the template's device")
+        size_mib = Path(path).stat().st_size / 2**20
+    u = runs["uninterrupted"]
+    out = {"steps": steps, "first_step_ms": u["step_ms"][0],
+           "warm_step_ms": statistics.median(u["step_ms"][1:]), "step_ms": u["step_ms"],
+           "adam_ms": statistics.median(u["adam_ms"]), "save_ms": u["save_ms"],
+           "load_ms": load_ms, "checkpoint_mib": size_mib, "peak_gib": u["peak_gib"],
+           "resumed_step_ms": runs["resumed"]["step_ms"], "losses": whole.losses,
+           "resume_loss_rel": loss_rel, "resume_kd_err": kd_err}
+    say(f"H flagship fit_scene {w}x{h} [{card}]: first step {out['first_step_ms']:.1f} ms, "
+        f"warm step {out['warm_step_ms']:.1f} ms median of "
+        f"{[round(x, 1) for x in u['step_ms'][1:]]}, Adam update {out['adam_ms']:.2f} ms, "
+        f"save_checkpoint {[round(x, 1) for x in u['save_ms']]} ms ({size_mib:.2f} MiB), "
+        f"load_checkpoint {load_ms:.1f} ms, peak {out['peak_gib']:.2f} GiB")
+    return out
+
+
+# --------------------------------------------------------------------------
+# Path I: the sharded renderer and trainer, ranks on the one card
+# --------------------------------------------------------------------------
+
+
+def image_agreement(label, got, want, held=True):
+    """tests/test_sharding.py's image bar: < 0.5% of pixels off by more than
+    1e-3, the median within 1e-5 (held unless `held` is false: then only
+    printed)."""
+    diff = np.abs(got - want).max(-1)
+    flipped, median = float((diff > 1e-3).mean()), float(np.median(diff))
+    say(f"  {label}: image share of pixels off by > 1e-3 {flipped:.5f} (< 0.005), median "
+        f"{median:.2e} (< 1e-5){'' if held else ', printed only'}")
+    if held:
+        check(flipped < 0.005 and median < 1e-5, f"{label}: the sharded image disagrees")
+    return {"flipped": flipped, "median": median}
+
+
+def grads_agreement(label, loss, grads, ref_loss, ref_grads):
+    """The loss within 1e-5 relative and each leaf within tests/test_sharding.py
+    :150-155's bars: |g - ref| <= 3e-4 * max|ref| + 3e-3 * |ref|."""
+    loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    worst = 0.0
+    for g, r in zip(grads, ref_grads):
+        scale = max(float(np.abs(r).max()), 1e-6)
+        worst = max(worst, float((np.abs(g - r) / (3e-4 * scale + 3e-3 * np.abs(r))).max()))
+    say(f"  {label}: loss within {loss_rel:.2e} relative (< 1e-5), worst gradient element at "
+        f"{worst:.3f} of its bar")
+    check(len(grads) == len(ref_grads) and loss_rel < 1e-5 and worst <= 1.0,
+          f"{label}: the sharded loss or gradients disagree")
+    return {"loss_rel": loss_rel, "worst_of_bar": worst}
+
+
+def reference_grads(scene, cam, w, h, cfg):
+    """Single device: mean(render^2) (target 0) and its gradients with
+    respect to every float leaf, from torch.autograd.grad, on the host."""
+    params = [p.detach().requires_grad_(True) for p in float_params(scene)]
+    loss = torch.mean(render(merge_params(scene, params), cam, w, h, cfg) ** 2)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return loss.item(), [np.zeros(tuple(p.shape), np.float32) if g is None
+                         else g.cpu().numpy() for p, g in zip(params, grads)]
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_leg(leg, world, out_dir, timeout=600):
+    """Run `leg` as `world` ranks of this script (the torchrun environment,
+    one shared deadline); any rank's failure or time-out fails the run."""
+    port, procs = free_port(), []
+    try:
+        for rank in range(world):
+            env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                       WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
+                       LOCAL_WORLD_SIZE=str(world))
+            with open(Path(out_dir) / f"{leg}_rank{rank}.log", "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--rank-leg", leg,
+                     "--out", str(out_dir)], stdout=log, stderr=subprocess.STDOUT, env=env,
+                    cwd=str(Path(__file__).resolve().parent)))
+        deadline = time.perf_counter() + timeout
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        check(False, f"I {leg}: a rank did not finish within {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, p in enumerate(procs):
+        if p.returncode != 0:
+            tail = (Path(out_dir) / f"{leg}_rank{rank}.log").read_text()[-4000:]
+            print(tail, file=sys.stderr)
+        check(p.returncode == 0, f"I {leg}: rank {rank} exited {p.returncode}")
+    infos = [json.loads((Path(out_dir) / f"{leg}_rank{r}.json").read_text())
+             for r in range(world)]
+    with np.load(Path(out_dir) / f"{leg}.npz") as data:
+        arrays = dict(data)
+    return infos, arrays
+
+
+def sharded_phase(card, results, flag, flag_cam, corn, corn_cam):
+    """Path I: the sharded renderer and trainer, ranks of this script on the
+    one card (`--rank-leg`): (a) one rank over NCCL, (b) two over gloo, rays
+    = 2, on the flagship and on Cornell, (c) four over gloo, rays = 2 x
+    prims = 2, on the flagship; each against the unsharded run computed
+    here with the same search: "auto" for (a) and (b), and for (c), whose
+    prims split scans with `_scan_blocks` (tensor ops, as the JAX package
+    does), the unsharded "mxu" route, which runs that scan on one device
+    (its image against "auto"'s mxtile is printed beside)."""
+    (fw, fh), (cw, ch) = FLAG_WH, CORN_WH
+    auto = RenderConfig(backend="auto")
+    with torch.no_grad():
+        ref = {"flag_image": render(flag, flag_cam, fw, fh, auto).cpu().numpy(),
+               "corn_image": render(corn, corn_cam, cw, ch, auto).cpu().numpy(),
+               "flag_image_mxu": render(flag, flag_cam, fw, fh, PRIMS_CFG.replace(
+                   backend="mxu")).cpu().numpy()}
+    ref["flag"] = reference_grads(flag, flag_cam, fw, fh, auto)
+    ref["corn"] = reference_grads(corn, corn_cam, cw, ch, auto)
+    ref["flag_mxu"] = reference_grads(flag, flag_cam, fw, fh, PRIMS_CFG.replace(backend="mxu"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for leg, world in (("nccl1", 1), ("gloo2", 2), ("gloo4", 4)):
+            t0 = time.perf_counter()
+            infos, arrays = spawn_leg(leg, world, tmp)
+            wall = time.perf_counter() - t0
+            info = infos[0]
+            say(f"I {leg}: {world} rank(s), backend {info['backend']}, mesh {info['mesh']}, "
+                f"wall {wall:.1f} s (process start included)  [{card}]")
+            for r in infos:
+                for sub, counts in r["launches"].items():
+                    for name, n in counts.items():
+                        results[name]["launches"] += n
+            rec = {"world": world, "backend": info["backend"], "mesh": info["mesh"],
+                   "wall_s": wall, "launches_rank0": info["launches"], "timings": info["timings"]}
+            for key, t in info["timings"].items():
+                say(f"  {key}: {t['ms']:.1f} ms median of {[round(x, 1) for x in t['runs']]}; "
+                    f"all-reduce {t['all_reduce_ms']:.2f} ms in {t['all_reduce_calls']} calls = "
+                    f"{100 * t['all_reduce_share']:.1f}% of a {t['spied_ms']:.1f} ms step "
+                    f"timed with the card synchronised around each  [{card}]")
+            say(f"  launches per call, rank 0: {info['launches']}")
+            for what in [k for k in ("flag", "corn") if f"{k}_loss" in arrays]:
+                n = len(ref[what][1])
+                grads = [arrays[f"{what}_g{i}"] for i in range(n)]
+                ref_key = "flag_mxu" if leg == "gloo4" else what
+                rec[f"{what}_grads"] = grads_agreement(
+                    f"{leg} {what} loss_and_grad_sharded vs unsharded ({ref_key})",
+                    arrays[f"{what}_loss"], grads, *ref[ref_key])
+            for what in [k for k in ("flag", "corn") if f"{k}_image" in arrays]:
+                ref_key = "flag_image_mxu" if leg == "gloo4" else f"{what}_image"
+                rec[f"{what}_image"] = image_agreement(
+                    f"{leg} {what} render_sharded vs render ({ref_key})", arrays[f"{what}_image"],
+                    ref[ref_key])
+                if leg == "gloo4":
+                    rec["flag_image_vs_auto"] = image_agreement(
+                        f"{leg} {what} render_sharded vs render (auto: mxtile)",
+                        arrays[f"{what}_image"], ref["flag_image"], held=False)
+            for what in ("flag", "corn"):
+                losses = {r.get(f"{what}_train_loss") for r in infos}
+                if f"{what}_train_loss" in info:
+                    say(f"  {leg} {what} train_step_sharded: loss {losses} on {world} ranks, "
+                        f"parameters moved on every rank: {all(r[what + '_moved'] for r in infos)}")
+                    check(len(losses) == 1, f"I {leg} {what}: the ranks' losses differ: {losses}")
+                    check(all(r[what + "_moved"] for r in infos),
+                          f"I {leg} {what}: a train step moved no parameter")
+            expect_leg_launches(leg, infos)
+            out[leg] = rec
+    one, two = out["nccl1"]["timings"]["flag_grad"]["ms"], out["gloo2"]["timings"]["flag_grad"]["ms"]
+    out["gloo2_over_nccl1_flag_grad"] = two / one
+    say(f"I: the flagship's sharded loss+grad, two gloo ranks {two:.1f} ms vs one NCCL rank "
+        f"{one:.1f} ms = {two / one:.2f}x  [{card}]")
+    return out
+
+
+def expect_leg_launches(leg, infos):
+    """The kernels each rank launched per call: K1/K2 once each per flagship
+    render or loss+grad on a rays-only mesh; Cornell's render one table
+    build and one K3, its loss+grad also two K4 (the backward's searches);
+    none on the prims split, which runs the tensor-op `_scan_blocks`."""
+    flag = dict(mxu_kernel=1, mxu_occl_kernel=1)
+    want = {"flag_render": flag, "flag_grad": flag,
+            "corn_render": dict(fused_tables=1, fused_kernel=1),
+            "corn_grad": dict(fused_tables=1, fused_kernel=1, lane_kernel=2)}
+    for r, info in enumerate(infos):
+        for sub, counts in info["launches"].items():
+            expect = {name: 0 if leg == "gloo4" else want[sub].get(name, 0) for name in KERNELS}
+            check(counts == expect, f"I {leg} rank {r} {sub}: launches {counts}, want {expect}")
+
+
+def timed_call(fn, reps=3):
+    """fn() once to warm, then `reps` timed runs (ranks lined up by a barrier,
+    host clock, the card synchronised), then one run with every all-reduce
+    timed alone (the card synchronised around each): its share of that run."""
+    fn()
+    runs = []
+    for _ in range(reps):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    real, spent = dist.all_reduce, []
+
+    def spy(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    dist.barrier()
+    torch.cuda.synchronize()
+    dist.all_reduce = spy
+    try:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        spied = (time.perf_counter() - t0) * 1e3
+    finally:
+        dist.all_reduce = real
+    return {"ms": statistics.median(runs), "runs": runs, "spied_ms": spied,
+            "all_reduce_ms": sum(spent), "all_reduce_calls": len(spent),
+            "all_reduce_share": sum(spent) / spied}
+
+
+def rank_main(leg, out_dir):
+    """One rank of a path-I leg: join the group from the torchrun environment
+    (the backend by `init_distributed`'s rule: NCCL for one rank on the one
+    card, gloo for ranks that share it), run the leg's calls once with the
+    launch counters set to 0 just before and read just after each, time
+    them, and write the results (arrays from rank 0)."""
+    check(torch.cuda.is_available(), "a path-I rank needs the CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = init_distributed()
+    check(world == int(os.environ["WORLD_SIZE"]), f"init_distributed gave world {world}")
+    backend = dist.get_backend()
+    check(backend == ("nccl" if world == 1 else "gloo"), f"{world} rank(s) chose {backend}")
+    rank = dist.get_rank()
+    try:
+        mesh = make_mesh(**LEG_MESH[leg])
+        info = {"backend": backend, "mesh": mesh.shape, "launches": {}, "timings": {}}
+        arrays = {}
+        cases = [("flag", bench_scene(), camera((0.0, 2.0, 6.0), *FLAG_WH), *FLAG_WH)]
+        if leg == "gloo2":
+            cases.append(("corn", cornell_box(), camera((0.0, 1.0, 2.0), *CORN_WH), *CORN_WH))
+        cfg = PRIMS_CFG if leg == "gloo4" else RenderConfig(backend="auto")
+        for what, scene, cam, w, h in cases:
+            target = torch.zeros((h, w, 3), device=scene.triangles.v0.device)
+            calls = {"grad": lambda: loss_and_grad_sharded(scene, target, cam, cfg, mesh)}
+            if leg != "nccl1":
+                calls["render"] = lambda: render_sharded(scene, cam, w, h, cfg, mesh)
+            for sub, fn in calls.items():
+                reset_counts()
+                res = fn()
+                info["launches"][f"{what}_{sub}"] = read_counts()
+                if sub == "render":
+                    arrays[f"{what}_image"] = res.cpu().numpy()
+                else:
+                    arrays[f"{what}_loss"] = res[0].cpu().numpy()
+                    arrays.update({f"{what}_g{i}": g.cpu().numpy() for i, g in enumerate(res[1])})
+                info["timings"][f"{what}_{sub}"] = timed_call(fn)
+            if leg == "gloo2":
+                new, loss = train_step_sharded(scene, target, cam, lr=1e-3, cfg=cfg, mesh=mesh)
+                info[f"{what}_train_loss"] = float(loss).hex()
+                info[f"{what}_moved"] = any(not torch.equal(a, b) for (_, a), (_, b)
+                                            in zip(scene.leaves(), new.leaves()))
+        (Path(out_dir) / f"{leg}_rank{rank}.json").write_text(json.dumps(info))
+        if rank == 0:
+            np.savez(Path(out_dir) / f"{leg}.npz", **arrays)
+    finally:
+        dist.destroy_process_group()
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="instead of the smoke run: build, then profile one fwd+bwd step "
                              "of the flagship, Cornell, config 4 and config 5 under "
                              "torch.profiler")
+    parser.add_argument("--rank-leg", choices=list(LEG_MESH),
+                        help="run as one rank of a path-I leg (started by path I itself, in "
+                             "the torchrun environment)")
+    parser.add_argument("--out", help="with --rank-leg: the directory for the rank's results")
     args = parser.parse_args()
+    if args.rank_leg:
+        rank_main(args.rank_leg, args.out)
+        return
     t_start = time.perf_counter()
     card = device_phase()
     build_phase()
@@ -1641,6 +2084,8 @@ def main():
                                    "tile", k56, k56, results, reps=3, min_launches=nseg)
     del soup500
     paths["entry_point"] = entry_point_phase(card, results)
+    paths["training"] = training_phase(card, results, flag, flag_cam, 1920, 1080, auto)
+    paths["sharded"] = sharded_phase(card, results, flag, flag_cam, corn, corn_cam)
     feeder_check(flag, flag_cam, 1920, 1080, auto)
     fused_feeder_check(card, corn, corn_cam, 1024, 768, auto)
     layer_phase(card, seen)

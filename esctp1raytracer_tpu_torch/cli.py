@@ -21,9 +21,11 @@ Strategy mapping (reference -> port):
   --bvh     flatten + BVH            -> backend "mxu" (the feature
             contraction; the reference BVH is slower than its own brute
             force, SURVEY quirk 3)
-  --thread  one thread per row       -> mode "sharded"
-Explicit --mode/--backend win over the mapped flags. The sharded renderer
-is not ported yet: --thread and --mode sharded exit 2 and render nothing.
+  --thread  one thread per row       -> mode "sharded": the ray grid split
+            over the ranks (`render_sharded`; one rank alone, the world's
+            ranks under torchrun), backend "auto" (also with --bvh)
+Explicit --mode/--backend win over the mapped flags. In sharded mode only
+rank 0 writes the image and prints the timing block.
 
 Extensions: --depth (Whitted reflection bounces), --seed, --vfov,
 --light-mode {area,reference_cpp}, --chunk, and, for the port only,
@@ -42,9 +44,6 @@ import sys
 from esctp1raytracer_tpu_torch.utils.debug import DEBUG, INFO, TRACE, set_level
 
 BACKENDS = ("jnp", "mxu", "pallas", "tile", "mxtile", "lane", "fused", "auto")
-SHARDED_MESSAGE = ("the sharded renderer (--thread, --mode sharded) is not ported yet: it "
-                   "waits for esctp1raytracer_tpu_torch/parallel/ (ROADMAP.md, Queue 1 "
-                   "item 16); nothing was rendered")
 
 
 def _vec3(text: str):
@@ -75,7 +74,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-w", dest="window", type=_vec2i, default=(1024, 768),
                    help="window size w,h")
     p.add_argument("--thread", action="store_true",
-                   help="reference strategy: data-parallel (-> sharded; not ported yet)")
+                   help="reference strategy: data-parallel (-> sharded)")
     p.add_argument("--bvh", action="store_true",
                    help="reference strategy: accelerated (-> mxu backend)")
     p.add_argument("--ispc", action="store_true",
@@ -172,13 +171,9 @@ def main(argv=None) -> int:
         mode = "single"
     if not mode:
         mode = "sharded" if args.thread else "single"
-    if not args.test:
-        if mode == "sharded":
-            print(SHARDED_MESSAGE, file=sys.stderr)
-            return 2
-        if not (args.model or args.scene):
-            print("No model: use -m model.obj or --scene", file=sys.stderr)
-            return 2
+    if not args.test and not (args.model or args.scene):
+        print("No model: use -m model.obj or --scene", file=sys.stderr)
+        return 2
 
     # Heavy imports after flag parsing so --help and usage errors stay fast.
     import torch
@@ -200,9 +195,23 @@ def main(argv=None) -> int:
             # scenes: the port's counterpart of the ISPC trace.
             backend = "auto"
         elif args.bvh:
-            backend = "mxu"
+            # --bvh --thread: accelerated + data-parallel -> the best
+            # kernel for the scene, sharded over the ranks.
+            backend = "auto" if mode == "sharded" else "mxu"
+        elif mode == "sharded":
+            backend = "auto"
         else:
             backend = "jnp"
+
+    rank = 0
+    if mode == "sharded":
+        import torch.distributed as dist
+
+        from esctp1raytracer_tpu_torch.parallel import init_distributed, make_mesh, render_sharded
+
+        # Before any tensor is made: under NCCL it binds the rank to its card.
+        init_distributed()
+        rank = dist.get_rank() if dist.is_initialized() else 0
 
     if args.model:
         from esctp1raytracer_tpu_torch.scene.matjson import load_obj_with_mat
@@ -220,13 +229,18 @@ def main(argv=None) -> int:
                        ray_chunk=args.chunk, light_mode=args.light_mode)
 
     with Timer("render") as timer:
-        image = render(scene, cam, width, height, cfg)
+        if mode == "sharded":
+            image = render_sharded(scene, cam, width, height, cfg, make_mesh())
+        else:
+            image = render(scene, cam, width, height, cfg)
         if image.is_cuda:
             torch.cuda.synchronize(image.device)
+    if rank:
+        return 0
 
     # stderr timing block, same fields as the reference (src/main.cpp:645-654).
     timer.fields = {
-        "Threaded": "false",
+        "Threaded": str(mode == "sharded").lower(),
         "Flattened": str(backend == "mxu").lower(),
         "ISPC": str(args.ispc or backend in ("fused", "pallas")).lower(),
         "Mode": f"{mode}/{backend}",

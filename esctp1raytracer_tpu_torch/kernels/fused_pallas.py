@@ -38,8 +38,7 @@ from esctp1raytracer_tpu_torch.kernels import _build, lane_pallas
 from esctp1raytracer_tpu_torch.kernels.lane_pallas import (
     PLAIN_BLOCK, TCS_W, _lane_search_plain, lane_plane_hits, valid_prefix,
 )
-from esctp1raytracer_tpu_torch.parallel.sharding import float_params, merge_params
-from esctp1raytracer_tpu_torch.scene.types import Scene, TriangleBuffer
+from esctp1raytracer_tpu_torch.scene.types import Scene, TriangleBuffer, float_params, merge_params
 from esctp1raytracer_tpu_torch.utils import rng
 
 RAYS_PER_STEP = 1024  # the TPU kernel's tile of rays (its cull granularity)

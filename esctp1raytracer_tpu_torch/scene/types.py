@@ -213,6 +213,18 @@ class Scene(_Table):
         return self.lights.num_lights
 
 
+def float_params(scene: Scene) -> List[torch.Tensor]:
+    """The differentiable (floating) leaves as a flat list, in the JAX
+    package's leaf order (dataclass field order): the scene's own tensors."""
+    return [t for _, t in scene.leaves() if t.is_floating_point()]
+
+
+def merge_params(scene: Scene, params) -> Scene:
+    """Rebuild a Scene from float params + the original non-float leaves."""
+    it = iter(params)
+    return scene.map(lambda _, t: next(it) if t.is_floating_point() else t)
+
+
 def scene_from_numpy(d: Dict[str, np.ndarray], device="cuda") -> Scene:
     """Build a Scene on `device` from {dotted leaf name: array} (copies the arrays)."""
 

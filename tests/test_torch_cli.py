@@ -123,10 +123,24 @@ def test_cli_render_matches_jax(cornell_obj, tmp_path, capsys, name):
 @pytest.mark.parametrize("argv", [["--thread"], ["--mode", "sharded"], ["--bvh", "--thread"],
                                   ["--mode", "sharded", "--backend", "tile"]])
 def test_cli_refuses_sharded(cornell_obj, tmp_path, capsys, argv):
-    out = tmp_path / "s.ppm"
-    assert cli.main(["-m", cornell_obj, "-w", "8,6", "-o", str(out)] + argv + CPU) == 2
-    assert "item 16" in capsys.readouterr().err
-    assert not out.exists()
+    """The sharded modes render (one rank here; the JAX CLI shards over its
+    8 virtual devices): the same PPM and report as the JAX CLI's, Threaded."""
+    argv = ["-m", cornell_obj, "-w", "8,6"] + argv
+    mine, ref = str(tmp_path / "port.ppm"), str(tmp_path / "jax.ppm")
+    assert jcli.main(argv + ["-o", ref]) == 0
+    jax_out = capsys.readouterr()
+    assert cli.main(argv + CPU + ["-o", mine]) == 0
+    out = capsys.readouterr()
+    assert f"Rendered image in: {mine}" in out.out
+    a, b = read_ppm(mine), read_ppm(ref)
+    assert a.shape == b.shape == (6, 8, 3) and a.max() > 0.1
+    diff = np.abs(a - b)
+    assert diff.mean() < 1e-3 and (diff.max(-1) > 1.5 / 255).mean() <= 5e-3
+    got, want = stderr_fields(out.err), stderr_fields(jax_out.err)
+    got.pop("Devices")
+    want.pop("Devices")
+    assert got == want and got["Threaded"] == "true", (got, want)
+    assert got["Mode"].startswith("sharded/")
 
 
 def test_cli_without_a_model_exits_2(capsys):

@@ -547,3 +547,69 @@ def test_tile_wrappers_reject_bad_inputs(dev):
         rt_tile.tile_occl_kernel(eps, rays, aabbs, tc, tc)
     with pytest.raises(ValueError, match="sub-blocks"):
         rt_tile.tile_kernel(eps, rays, torch.zeros(8, 1025, device=dev), tc)
+
+
+def test_one_rank_nccl_loss_and_grad_equals_single_device(dev, scene, monkeypatch):
+    """One rank on one card: the backend rule picks NCCL, and the sharded
+    loss and gradients, all-reduced through it, equal the single-device
+    ones within tests/test_sharding.py:120-122's bars."""
+    import socket
+
+    import torch.distributed as dist
+
+    from esctp1raytracer_tpu_torch.parallel import (
+        init_distributed, loss_and_grad_sharded, make_mesh,
+    )
+
+    for key in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
+                "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(key, raising=False)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    assert init_distributed(f"localhost:{port}", 1, 0) == 1
+    try:
+        assert dist.get_backend() == "nccl"
+        sc, cam, cfg = scene.to(dev), CAM.to(dev), RenderConfig(backend="mxtile")
+        target = torch.zeros((48, 64, 3), device=dev)
+        loss, grads = loss_and_grad_sharded(sc, target, cam, cfg, make_mesh())
+        params = [p.detach().requires_grad_(True) for p in float_params(sc)]
+        ref = torch.mean((render(merge_params(sc, params), cam, 64, 48, cfg) - target) ** 2)
+        ref_grads = torch.autograd.grad(ref, params, allow_unused=True)
+        np.testing.assert_allclose(loss.item(), ref.item(), rtol=1e-5)
+        for g, r in zip(grads, ref_grads):
+            r = torch.zeros_like(g) if r is None else r
+            np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=1e-3, atol=1e-5)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_fit_scene_on_card_matches_cpu(dev, tmp_path):
+    """Three Adam steps on the card (fused forward, lane backward) match the
+    CPU's; the checkpoint comes back on the card with the template's dtypes."""
+    import dataclasses
+
+    from esctp1raytracer_tpu_torch.grad import fit_scene
+    from esctp1raytracer_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cfg, runs = RenderConfig(backend="auto"), {}
+    for device in ("cpu", dev):
+        true = b.sphere_plane_scene(device=device)
+        cam = Camera.look_at((0.0, 2.0, 6.0), (0.0, 1.0, 0.0), aspect=1.0, device=device)
+        start = dataclasses.replace(true, spheres=dataclasses.replace(
+            true.spheres, kd=true.spheres.kd * 0.5, ks=true.spheres.ks * 0.5))
+        path = str(tmp_path / f"{torch.device(device).type}.npz")
+        runs[device] = (fit_scene(start, render(true, cam, 32, 32, cfg), cam, steps=3, lr=0.05,
+                                  cfg=cfg, checkpoint_path=path, log_every=0,
+                                  param_filter=lambda i, p: p is start.spheres.kd
+                                  or p is start.spheres.ks), start, path)
+    (cpu, _, _), (card, start, path) = runs["cpu"], runs[dev]
+    np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-4)
+    for field in ("kd", "ks"):
+        np.testing.assert_allclose(getattr(card.scene.spheres, field).cpu().numpy(),
+                                   getattr(cpu.scene.spheres, field).numpy(), atol=1e-5)
+    loaded, step, extra = load_checkpoint(path, start)
+    assert step == 3 and int(extra["adam_t"]) == 3
+    for (name, a), (_, want) in zip(loaded.leaves(), card.scene.leaves()):
+        assert a.device == want.device and a.dtype == want.dtype, name
+        assert torch.equal(a, want), name

@@ -25,9 +25,10 @@ for name in mods:
     __import__(name)
 new = {"cli", "__main__", "io.ppm", "io.native_ppm", "scene.objloader", "scene.native_loader",
        "scene.matjson", "accel.bvh", "accel.native_bvh", "utils.debug", "utils.timing",
-       "utils.nativebuild", "utils.profiling"}
+       "utils.nativebuild", "utils.profiling", "grad", "grad.optimize", "utils.checkpoint",
+       "parallel.distributed", "parallel.sharding"}
 assert {rt.__name__ + "." + m for m in new} <= set(mods), sorted(mods)
-assert len(mods) >= 36, mods
+assert len(mods) >= 40, mods
 
 from esctp1raytracer_tpu_torch.kernels import rt_mxu
 from esctp1raytracer_tpu_torch.scene import builders as b
@@ -68,6 +69,20 @@ with tempfile.TemporaryDirectory() as tmp:
     assert cli.main(["-m", obj, "-w", "16,12", "--ispc", "--device", "cpu", "-o", out]) == 0
     assert rt.read_ppm(out).shape == (12, 16, 3)
     assert build_bvh(corn.triangles).num_nodes > 1
+
+# Training and the sharded renderer: one Adam step with a checkpoint, and
+# a one-rank mesh (no process group).
+from esctp1raytracer_tpu_torch.grad import fit_scene
+from esctp1raytracer_tpu_torch.parallel import make_mesh, render_sharded
+from esctp1raytracer_tpu_torch.utils.checkpoint import load_checkpoint
+
+with tempfile.TemporaryDirectory() as tmp:
+    ck = os.path.join(tmp, "fit.npz")
+    fit = fit_scene(corn, torch.zeros((12, 16, 3)), ccam, steps=1, cfg=rt.RenderConfig(),
+                    checkpoint_path=ck, log_every=0)
+    assert len(fit.losses) == 1 and load_checkpoint(ck, corn)[1] == 1
+assert torch.equal(render_sharded(corn, ccam, 16, 12, rt.RenderConfig(), make_mesh()),
+                   rt.render(corn, ccam, 16, 12, rt.RenderConfig()))
 
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "jaxlib", "esctp1raytracer_tpu.")))
