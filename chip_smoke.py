@@ -54,7 +54,19 @@ I. the sharded renderer and trainer (`parallel/`), ranks of this script
    `loss_and_grad_sharded` (the prims split scans with `_scan_blocks`, no
    kernel). Rank 0 writes its arrays; this process holds them against the
    unsharded run (tests/test_sharding.py's image bar and :150-155's
-   gradient bars) and the train step's loss bit-equal on every rank.
+   gradient bars) and the train step's loss bit-equal on every rank;
+J. the benchmark and matrix scripts, each run as a user runs it (a subprocess from the
+   repository root, reusing the kernels built in build/torch_kernels/):
+   scripts/bench_configs_torch.py on BASELINE configs 1-5 (a process each:
+   sphere_plane 256x256 and ten_sphere 512x512 depth 2 on fused, the
+   mesh at 1920x1080 on mxtile, config 4 on fused, config 5 on tile),
+   forward and fwd+bwd; scripts/run_matrix_torch.py on Cornell at 1024x768,
+   all five strategies, with the 4-seed golden leg (jnp, reference_cpp)
+   against the reference C++ binary's image; scripts/probe_device_loop_torch.py
+   on the flagship and config 4, forward and --grad;
+   examples/render_cornell_torch.py, its PPM byte-equal to a direct
+   render's; then configs 1 and 2's table builds and K3 frames against
+   their plain versions, as for Cornell.
 
 Phases, any failure exits non-zero (no phase catches its own failure):
 1. device: needs a CUDA device (there is no CPU path); prints the card's
@@ -119,7 +131,12 @@ Phases, any failure exits non-zero (no phase catches its own failure):
    `save_checkpoint` and `load_checkpoint`, and the peak memory. Path I:
    each rank sets the counters to 0 just before each call and reads them
    just after; each leg's ms per call (median of 3) and the share of one
-   call spent in the all-reduces;
+   call spent in the all-reduces. Path J: each script sets the counters to
+   0 just before each run it reports (a config's forward and fwd+bwd, a
+   strategy's first call, a probed frame) and reads them just after; the
+   kernels each launched must be those of its backend and no other; the
+   resolved backends, finite positive times, every strategy matching the
+   sequential one and the golden within tests/test_golden.py's bars;
 5. prints the wall time, {"kernels": [...]} and, as the last line, the
    result line.
 
@@ -157,7 +174,9 @@ from esctp1raytracer_tpu_torch.core.render import RenderConfig, render, resolve_
 from esctp1raytracer_tpu_torch.grad import fit_scene, optimize
 from esctp1raytracer_tpu_torch.io import native_ppm
 from esctp1raytracer_tpu_torch.io.ppm import read_ppm, write_ppm, write_ppm_python
-from esctp1raytracer_tpu_torch.kernels import _build, fused_pallas, lane_pallas, rt_mxu, rt_tile
+from esctp1raytracer_tpu_torch.kernels import (
+    _build, fused_pallas, lane_pallas, launches, rt_mxu, rt_tile,
+)
 from esctp1raytracer_tpu_torch.kernels.cull import block_cull_mask
 from esctp1raytracer_tpu_torch.parallel import (
     init_distributed, loss_and_grad_sharded, make_mesh, render_sharded, train_step_sharded,
@@ -165,35 +184,37 @@ from esctp1raytracer_tpu_torch.parallel import (
 from esctp1raytracer_tpu_torch.parallel.sharding import float_params, merge_params
 from esctp1raytracer_tpu_torch.scene import native_loader
 from esctp1raytracer_tpu_torch.scene.builders import (
-    bench_meshes, bench_scene, cornell_box, mixed_scene, random_scene, scene_from_mesh,
-    write_cornell_obj, write_obj,
+    bench_meshes, bench_scene, cornell_box, mesh_scene, mixed_scene, random_scene,
+    scene_from_mesh, sphere_plane_scene, ten_sphere_scene, write_cornell_obj, write_obj,
 )
 from esctp1raytracer_tpu_torch.scene.matjson import load_obj_with_mat
 from esctp1raytracer_tpu_torch.scene.types import scene_to_numpy
+from esctp1raytracer_tpu_torch.utils import device as devinfo
 from esctp1raytracer_tpu_torch.utils import nativebuild
 from esctp1raytracer_tpu_torch.utils.checkpoint import load_checkpoint
+from esctp1raytracer_tpu_torch.utils.timing import elapsed_ms
 
 CSRC = "esctp1raytracer_tpu_torch/csrc/"
 TPU = "esctp1raytracer_tpu/kernels/"
-# wrapper name: (module, plain version, its CUDA source, the TPU kernel it replaces)
-KERNELS = {
-    "mxu_kernel": (rt_mxu, rt_mxu._mxu_search_plain, "rt_mxu.cu", TPU + "rt_mxu.py:153"),
-    "mxu_occl_kernel": (rt_mxu, rt_mxu._mxu_occl_plain, "rt_mxu.cu", TPU + "rt_mxu.py:215"),
-    "fused_tables": (fused_pallas, fused_pallas._fused_tables_plain, "fused.cu",
+# wrapper name (launches.WRAPPERS' order): (plain version, its CUDA source,
+# the TPU kernel it replaces)
+_PLAIN = {
+    "mxu_kernel": (rt_mxu._mxu_search_plain, "rt_mxu.cu", TPU + "rt_mxu.py:153"),
+    "mxu_occl_kernel": (rt_mxu._mxu_occl_plain, "rt_mxu.cu", TPU + "rt_mxu.py:215"),
+    "fused_tables": (fused_pallas._fused_tables_plain, "fused.cu",
                      TPU + "fused_pallas.py:91 fused_tables (XLA ops, not a Pallas kernel)"),
-    "fused_kernel": (fused_pallas, fused_pallas._fused_plain, "fused.cu",
-                     TPU + "fused_pallas.py:162"),
-    "lane_kernel": (lane_pallas, lane_pallas._lane_plain, "lane.cu",
-                    TPU + "lane_pallas.py:69"),
-    "tile_kernel": (rt_tile, rt_tile._tile_search_plain, "rt_tile.cu", TPU + "rt_tile.py:241"),
-    "tile_occl_kernel": (rt_tile, rt_tile._tile_occl_plain, "rt_tile.cu",
-                         TPU + "rt_tile.py:328"),
+    "fused_kernel": (fused_pallas._fused_plain, "fused.cu", TPU + "fused_pallas.py:162"),
+    "lane_kernel": (lane_pallas._lane_plain, "lane.cu", TPU + "lane_pallas.py:69"),
+    "tile_kernel": (rt_tile._tile_search_plain, "rt_tile.cu", TPU + "rt_tile.py:241"),
+    "tile_occl_kernel": (rt_tile._tile_occl_plain, "rt_tile.cu", TPU + "rt_tile.py:328"),
 }
+KERNELS = {name: _PLAIN[name] for name in launches.WRAPPERS}
 SOURCES = ("rt_mxu", "lane", "fused", "rt_tile")
 # The host C++ of path G: each library's availability check (built with g++).
 NATIVE = {"objloader": native_loader.native_available, "ppm": native_ppm.native_available,
           "bvh": native_bvh.native_bvh_available}
-GOLDEN = Path(__file__).resolve().parent / "tests" / "golden" / "cornell_cpp_mean.npz"
+REPO = Path(__file__).resolve().parent
+GOLDEN = REPO / "tests" / "golden" / "cornell_cpp_mean.npz"
 TILE_SLICE = 262_144  # rays of config 5's wavefronts held against the plain versions
 # Path H: the resumed run against the uninterrupted one (the card's backward
 # scatter-adds with atomics, so gradients differ in the last bits run to run).
@@ -205,6 +226,22 @@ RESUME_ATOL = 1e-4  # fitted kd (each Adam step moves it by up to lr = 0.05)
 LEG_MESH = {"nccl1": dict(rays=1), "gloo2": dict(rays=2), "gloo4": dict(rays=2, prims=2)}
 PRIMS_CFG = RenderConfig(backend="auto", ray_chunk=262_144)
 FLAG_WH, CORN_WH = (1920, 1080), (1024, 768)  # path I's frames
+# Path J: the kernels each script leg launches, by the backend it resolves to.
+K12, K3 = ("mxu_kernel", "mxu_occl_kernel"), ("fused_tables", "fused_kernel")
+K4, K56 = ("lane_kernel",), ("tile_kernel", "tile_occl_kernel")
+# bench_configs_torch.py: config -> (backend, forward's kernels, fwd+bwd's).
+# The fused backward re-derives the frame on lane (K4), or for config 4's
+# 2M rays at depth 4 on chunked mxtile (K1, K2).
+BENCH_LEGS = {"sphere_plane_256": ("fused", K3, K3 + K4),
+              "ten_sphere_512": ("fused", K3, K3 + K4),
+              "mesh10k_1080p": ("mxtile", K12, K12),
+              "mixed_1080p_d4": ("fused", K3, K3 + K12),
+              "soup100k_4k": ("tile", K56, K56)}
+# run_matrix_torch.py's strategies on Cornell: jnp and mxu are tensor
+# operations, auto is the fused route (the table build and K3).
+MATRIX_LEGS = {"sequential": (), "thread": K3, "bvh": (), "bvh_thread": K3, "ispc": K3}
+# probe_device_loop_torch.py: config -> (a forward frame's kernels, a fwd+bwd frame's).
+PROBE_LEGS = {"flagship_10k_1080p": (K12, K12), "mixed_1080p_d4": (K3, K3 + K12)}
 # Each kernel's bound: the least time the card could take for its work, the
 # larger of its bytes over the memory rate and its float32 operations over
 # the float32 peak (H100 SXM data sheet, dense, at the full 700 W). No
@@ -263,19 +300,8 @@ def say(*args):
     print(*args, flush=True)
 
 
-def cuda_ms(fn, iters=1):
-    """Mean milliseconds per call of fn() over iters calls, from CUDA events."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def wrapper(name):
-    return getattr(KERNELS[name][0], name)
+    return launches.WRAPPERS[name]
 
 
 def tensor_bytes(*tensors):
@@ -289,23 +315,11 @@ def bound(ops, nbytes):
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
-def reset_counts():
-    for name in KERNELS:
-        wrapper(name).launches = 0
-
-
-def read_counts():
-    torch.cuda.synchronize()
-    return {name: wrapper(name).launches for name in KERNELS}
-
 
 def device_phase():
     check(torch.cuda.is_available(),
           "torch.cuda.is_available() is false: this smoke run needs an NVIDIA GPU")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = devinfo.card("cuda")
     say(card)
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device 0 = {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
@@ -394,8 +408,8 @@ def time_pair(name, fn_k, fn_p, iters_k, iters_p, card, what):
     """The kernel's time (median of 3 windows of iters_k calls) and the plain
     version's (one window of iters_p calls), ms per call."""
     fn_k()
-    ms = statistics.median(cuda_ms(fn_k, iters_k) for _ in range(3))
-    plain_ms = cuda_ms(fn_p, iters_p)
+    ms = statistics.median(elapsed_ms(fn_k, "cuda", iters_k) for _ in range(3))
+    plain_ms = elapsed_ms(fn_p, "cuda", iters_p)
     say(f"{name} [{what}]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms  [{card}]")
     return ms, plain_ms
 
@@ -430,7 +444,7 @@ def mxtile_check(name, label, args, ov_buf, wavefront):
     check(torch.equal(cnt_k, cnt), f"{label}: cnt_out differs from _prep_mxu's cnt on "
           f"{int((cnt_k != cnt).sum())} of {cnt.numel()} groups")
     identical(f"{label} without cnt_out vs with it", wrapper(name)(*args), out_k)
-    out_p = KERNELS[name][1](*args)
+    out_p = KERNELS[name][0](*args)
     if name == "mxu_kernel":
         return (*search_agreement(label, out_k, out_p), lists)
     agree = (out_k == out_p).float().mean().item()
@@ -441,7 +455,7 @@ def mxtile_check(name, label, args, ov_buf, wavefront):
         over, folded = rt_tile._oversized_occl(oo, dd, t_limit, ov_buf, eps_f), out_k[:r] > 0
         check(torch.equal(folded, (wrapper(name)(*args[:4])[:r] > 0) | over), f"{label}: K2 "
               "with the oversized sub-block differs from K2 without it ORed with _oversized_occl")
-        split = (KERNELS[name][1](*args[:4])[:r] > 0) | over
+        split = (KERNELS[name][0](*args[:4])[:r] > 0) | over
         agree_split = (folded == split).float().mean().item()
         say(f"{label}: K2 with the oversized sub-block against the plain segment sweep ORed "
             f"with _oversized_occl: agreement {agree_split:.6f}")
@@ -515,36 +529,40 @@ def mxtile_work(name, args, lists, ov_buf, wavefront):
             full * MXU_PAIR_OPS_FULL)
 
 
-def mxtile_kernels(card, seen, results):
-    """K1 and K2 on the flagship's camera and shadow wavefronts, as the entry
+def mxtile_kernels(card, seen, results, what="flagship 1080p", key=None):
+    """K1 and K2 on a frame's camera and shadow wavefronts, as the entry
     points call them (`mxtile_check`), each timed beside its plain version
-    and its bound, with the full count of the bound beside it."""
+    and its bound, with the full count of the bound beside it. The entries
+    go into the kernels line's own keys, or under `key`."""
     with torch.no_grad():
         for wavefront in seen[:2]:
             name, args, ov_buf = mxtile_args(wavefront)
-            agree, max_abs, rel, share, lists = mxtile_check(name, name, args, ov_buf, wavefront)
+            agree, max_abs, rel, share, lists = mxtile_check(
+                name, f"{name} [{what}]", args, ov_buf, wavefront)
             if rel is None:
-                say(f"{name}: occlusion agrees {agree:.6f}, occluded {share:.4f}; cnt_out "
-                    "equals _prep_mxu's cnt; the oversized fold equals _oversized_occl")
+                say(f"{name} [{what}]: occlusion agrees {agree:.6f}, occluded {share:.4f}; "
+                    "cnt_out equals _prep_mxu's cnt; the oversized fold equals _oversized_occl")
             else:
-                say(f"{name}: winners agree {agree:.6f}, max abs t err {max_abs:.3e}, "
+                say(f"{name} [{what}]: winners agree {agree:.6f}, max abs t err {max_abs:.3e}, "
                     f"max rel t err {rel:.3e}, hits {share:.4f}; cnt_out equals _prep_mxu's cnt")
             _, ids, cnt, _ = lists
             n_pad = list_split(args[2], ids, cnt).float()
-            say(f"{name}: groups {cnt.shape[0]}, blocks {args[2].shape[1]}, mean list "
+            say(f"{name} [{what}]: groups {cnt.shape[0]}, blocks {args[2].shape[1]}, mean list "
                 f"{cnt.float().mean().item():.2f} (max {int(cnt.max())}), of which padding-only "
                 f"{n_pad.mean().item():.2f}, swept {(cnt - n_pad).mean().item():.2f}")
             ms, plain_ms = time_pair(name, lambda: wrapper(name)(*args),
-                                     lambda: KERNELS[name][1](*args), 20, 2, card,
-                                     "flagship 1080p")
+                                     lambda: KERNELS[name][0](*args), 20, 2, card, what)
             ops, nbytes, full_ops = mxtile_work(name, args, lists, ov_buf, wavefront)
             bound_ms, bound_by = bound(ops, nbytes)
             full_ms, _ = bound(full_ops, nbytes)
-            say(f"{name} [flagship 1080p]: bound {bound_ms:.3f} ms ({bound_by}; {ops:.4g} "
+            say(f"{name} [{what}]: bound {bound_ms:.3f} ms ({bound_by}; {ops:.4g} "
                 f"operations); by the full count {full_ms:.3f} ms ({full_ops:.4g})")
-            results[name].update(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=bound_ms, bound_by=bound_by,
-                                 bound_ms_full_count=full_ms, at="flagship 1920x1080, depth 1")
+            entry = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, bound_ms_full_count=full_ms)
+            if key is None:
+                results[name].update(entry, at="flagship 1920x1080, depth 1")
+            else:
+                results[name][key] = dict(entry, at=what)
 
 
 def mxtile_backward_kernels(card, scene, cam, w, h, cfg, results):
@@ -583,7 +601,7 @@ def mxtile_backward_kernels(card, scene, cam, w, h, cfg, results):
                             + f"/{lists[2].float().mean().item():.2f}-{n_pad:.2f}")
                 if "ms" not in s and i <= centre < i + chunk:
                     s["ms"], s["plain_ms"] = time_pair(
-                        name, lambda: wrapper(name)(*args), lambda: KERNELS[name][1](*args),
+                        name, lambda: wrapper(name)(*args), lambda: KERNELS[name][0](*args),
                         20, 2, card, f"config 4 backward, rays {i}+, bounce {bounce}")
                     ops, nbytes, full_ops = mxtile_work(name, args, lists, ov_buf, wavefront)
                     s["bound_ms"], s["bound_by"] = bound(ops, nbytes)
@@ -610,51 +628,55 @@ def skipped_pairs(o, d, c, eps, step=262_144):
     return n
 
 
+def lane_check(card, label, wavefront):
+    """K4 on one captured wavefront, with the arguments `lane_tri_search`
+    gives it: within the bars of its plain version on the card, its t and
+    winners bit-identical to the plain version on a CPU copy (the constants
+    rounded as on the CPU), timed beside the plain version and its bound.
+    Returns the kernels-line entry."""
+    _, oo, dd, tris, eps, _ = wavefront
+    plain = KERNELS["lane_kernel"][0]
+    with torch.no_grad():
+        args = (eps, tris.v0, tris.v1, tris.v2, tris.valid, oo.contiguous(), dd.contiguous())
+        out_k = lane_pallas.lane_kernel(*args)
+        agree, max_abs, rel, share = search_agreement(f"lane_kernel [{label}]", out_k,
+                                                      plain(*args))
+        cpu = plain(*(x.cpu() if torch.is_tensor(x) else x for x in args))
+        identical(f"lane_kernel [{label}] vs its plain version on a CPU copy",
+                  tuple(x.cpu() for x in out_k), cpu)
+        say(f"lane_kernel [{label}]: winners agree {agree:.6f} with the plain version on the "
+            f"card, max abs t err {max_abs:.3e}, max rel t err {rel:.3e}, hits {share:.4f}; "
+            "t and winners bit-identical to the plain version on a CPU copy")
+        ms, plain_ms = time_pair("lane_kernel", lambda: lane_pallas.lane_kernel(*args),
+                                 lambda: plain(*args), 20, 3, card, label)
+        # Every ray against every triangle below the valid prefix; a pair
+        # that the division skip rejects counts up to the skip.
+        n = int(lane_pallas.valid_prefix(tris.valid))
+        c = lane_pallas._constants(tris.v0, tris.v1, tris.v2, tris.valid)[:n]
+        pairs = oo.shape[0] * n
+        skipped = skipped_pairs(oo, dd, c, eps)
+        ops = skipped * SKIP_PAIR_OPS + (pairs - skipped) * PAIR_OPS
+        nbytes = tensor_bytes(*args[1:]) + oo.shape[0] * 8
+        bound_ms, bound_by = bound(ops, nbytes)
+        old_ms, _ = bound(pairs * PAIR_OPS, nbytes + 4 * lane_pallas.TCS_W * n)
+        say(f"lane_kernel [{label}]: bound {bound_ms:.4f} ms ({bound_by}; {pairs} pairs, of "
+            f"which the skip rejects {skipped / max(pairs, 1):.4f}); without the skip (40 per "
+            f"pair) {old_ms:.4f} ms; launch {lane_pallas.launch_shape(oo.shape[0], n)}")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bound_ms_no_skip_count=old_ms,
+                skipped_share=skipped / max(pairs, 1), at=label)
+
+
 def lane_kernels(card, o, d, scene, ids, results):
     """K4 on the Cornell frame's camera and shadow wavefronts (lane route),
-    with the arguments `lane_tri_search` gives it: within the bars of its
-    plain version on the card, and its t and winners bit-identical to the
-    plain version on a CPU copy (the constants rounded as on the CPU)."""
+    each held to `lane_check`."""
     seen = capture_wavefronts(o, d, scene, ids, RenderConfig(backend="lane"),
                               lane_pallas.lane_tri_search)
     check(len(seen) == 2, f"lane route made {len(seen)} searches, want 2 (camera, shadow)")
-    plain = KERNELS["lane_kernel"][1]
-    for k, what in enumerate(("camera", "shadow")):
-        _, oo, dd, tris, eps, _ = seen[k]
-        with torch.no_grad():
-            args = (eps, tris.v0, tris.v1, tris.v2, tris.valid, oo.contiguous(), dd.contiguous())
-            out_k = lane_pallas.lane_kernel(*args)
-            agree, max_abs, rel, share = search_agreement(f"lane_kernel ({what})", out_k,
-                                                          plain(*args))
-            cpu = plain(*(x.cpu() if torch.is_tensor(x) else x for x in args))
-            identical(f"lane_kernel ({what}) vs its plain version on a CPU copy",
-                      tuple(x.cpu() for x in out_k), cpu)
-            say(f"lane_kernel ({what}): winners agree {agree:.6f} with the plain version on the "
-                f"card, max abs t err {max_abs:.3e}, max rel t err {rel:.3e}, hits {share:.4f}; "
-                "t and winners bit-identical to the plain version on a CPU copy")
-            ms, plain_ms = time_pair("lane_kernel", lambda: lane_pallas.lane_kernel(*args),
-                                     lambda: plain(*args), 20, 3, card,
-                                     f"Cornell 1024x768 {what} wavefront")
-            # Every ray against every triangle below the valid prefix; a pair
-            # that the division skip rejects counts up to the skip.
-            n = int(lane_pallas.valid_prefix(tris.valid))
-            c = lane_pallas._constants(tris.v0, tris.v1, tris.v2, tris.valid)[:n]
-            pairs = oo.shape[0] * n
-            skipped = skipped_pairs(oo, dd, c, eps)
-            ops = skipped * SKIP_PAIR_OPS + (pairs - skipped) * PAIR_OPS
-            nbytes = tensor_bytes(*args[1:]) + oo.shape[0] * 8
-            bound_ms, bound_by = bound(ops, nbytes)
-            old_ms, _ = bound(pairs * PAIR_OPS, nbytes + 4 * lane_pallas.TCS_W * n)
-            say(f"lane_kernel [{what}]: bound {bound_ms:.4f} ms ({bound_by}; {pairs} pairs, of "
-                f"which the skip rejects {skipped / max(pairs, 1):.4f}); without the skip (40 per "
-                f"pair) {old_ms:.4f} ms; launch {lane_pallas.launch_shape(oo.shape[0], n)}")
-        entry = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                     bound_by=bound_by, bound_ms_no_skip_count=old_ms,
-                     skipped_share=skipped / max(pairs, 1))
-        if what == "camera":
-            results["lane_kernel"].update(entry, at="Cornell 1024x768 camera wavefront")
-        else:
-            results["lane_kernel"]["shadow_wavefront"] = entry
+    results["lane_kernel"].update(lane_check(card, "Cornell 1024x768 camera wavefront",
+                                             seen[0]))
+    results["lane_kernel"]["shadow_wavefront"] = lane_check(
+        card, "Cornell 1024x768 shadow wavefront", seen[1])
 
 
 def fused_tables_check(card, label, scene, results=None):
@@ -973,14 +995,14 @@ def tile_check(name, label, args, cnt, ov_buf, wavefront, rs):
     check(torch.equal(cnt_k, cnt), f"{label}: cnt_out differs from the lists' cnt on "
           f"{int((cnt_k != cnt).sum())} of {cnt.numel()} bundles")
     identical(f"{label} without cnt_out vs with it", wrapper(name)(*args), whole)
-    plain = KERNELS[name][1](*on_rays(args, rs))
+    plain = KERNELS[name][0](*on_rays(args, rs))
     if name == "tile_kernel":
         identical(label, (whole[0][rs], whole[1][rs]), plain)
     else:
         identical(label, whole[rs], plain)
         if ov_buf is not None:
             _, oo, dd, _, eps_f, t_limit = wavefront
-            split = (KERNELS[name][1](*on_rays(args[:4], rs)) > 0) | rt_tile._oversized_occl(
+            split = (KERNELS[name][0](*on_rays(args[:4], rs)) > 0) | rt_tile._oversized_occl(
                 oo[rs], dd[rs], t_limit[rs], ov_buf, eps_f)
             check(torch.equal(whole[rs] > 0, split),
                   f"{label}: K6 with the oversized sub-block differs from the segment sweep "
@@ -1022,9 +1044,9 @@ def tile_kernels(card, seen, w, results):
             del whole, plain
             sargs = on_rays(args, rs)
             ms, plain_ms = time_pair(name, lambda: wrapper(name)(*sargs),
-                                     lambda: KERNELS[name][1](*sargs), 10, 1, card,
+                                     lambda: KERNELS[name][0](*sargs), 10, 1, card,
                                      f"config 5 slice of {TILE_SLICE} rays")
-            whole_ms = cuda_ms(lambda: wrapper(name)(*args), 3)
+            whole_ms = elapsed_ms(lambda: wrapper(name)(*args), "cuda", 3)
             bound_ms, bound_by = bound(*tile_work(name, sargs, visits[bs], live[bs]))
             whole_bound_ms, _ = bound(*tile_work(name, args, visits, live))
             say(f"{name} [config 5]: slice kernel {ms:.3f} ms, bound {bound_ms:.3f} ms "
@@ -1069,9 +1091,10 @@ def tile_segment_kernels(card, seen, w, results):
                 whole, plain = tile_check(name, label, args, cnt,
                                           ov_buf if occl and k == 0 else None, wavefront, rs)
                 del whole
-                s["ms"].append(cuda_ms(lambda: wrapper(name)(*args)))
+                s["ms"].append(elapsed_ms(lambda: wrapper(name)(*args), "cuda"))
                 tc = args[3]
-                s["plain_ms"].append(cuda_ms(lambda: KERNELS[name][1](*on_rays(args, rs))))
+                s["plain_ms"].append(elapsed_ms(lambda: KERNELS[name][0](*on_rays(args, rs)),
+                                                "cuda"))
                 b_ms, b_by = bound(*tile_work(name, args, visits, live))
                 s["bound_ms"].append(b_ms)
                 s["bound_by"].append(b_by)
@@ -1143,10 +1166,10 @@ def path_phase(card, label, scene, cam, w, h, cfg, expect, fwd_kernels, bwd_kern
     runs = [("forward", fwd_kernels, False)] + ([("fwd+bwd", bwd_kernels, True)]
                                                if bwd_kernels else [])
     for what, need, backward in runs:
-        reset_counts()
+        launches.reset()
         with torch.set_grad_enabled(backward):
             color, loss, grads = step(0, backward)
-        counts = read_counts()
+        counts = launches.read()
         say(f"{label} {what}: launches {counts}, loss {loss.item():.6e}")
         for name in need:
             check(counts[name] >= min_launches,
@@ -1175,7 +1198,7 @@ def path_phase(card, label, scene, cam, w, h, cfg, expect, fwd_kernels, bwd_kern
     with torch.no_grad():
         step(1, backward=False)
         torch.cuda.reset_peak_memory_stats()
-        fwd = [cuda_ms(lambda: step(2 + k, backward=False)) for k in range(reps)]
+        fwd = [elapsed_ms(lambda: step(2 + k, backward=False), "cuda") for k in range(reps)]
     timing = {"forward_ms": statistics.median(fwd),
               "forward_peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     say(f"{label} forward    : {timing['forward_ms']:.2f} ms median of "
@@ -1185,7 +1208,7 @@ def path_phase(card, label, scene, cam, w, h, cfg, expect, fwd_kernels, bwd_kern
     if bwd_kernels:
         step(2 + reps)
         torch.cuda.reset_peak_memory_stats()
-        fb = [cuda_ms(lambda: step(3 + reps + k)) for k in range(reps)]
+        fb = [elapsed_ms(lambda: step(3 + reps + k), "cuda") for k in range(reps)]
         timing["fwd_bwd_ms"] = statistics.median(fb)
         timing["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         say(f"{label} forward+bwd: {timing['fwd_bwd_ms']:.2f} ms median of "
@@ -1230,7 +1253,7 @@ def layer_phase(card, seen):
         }
         for name, fn in layers.items():
             fn()
-            t = statistics.median(cuda_ms(fn) for _ in range(3))
+            t = statistics.median(elapsed_ms(fn, "cuda") for _ in range(3))
             say(f"layer {name:40s} {t:8.3f} ms  [{card}]")
 
 
@@ -1252,9 +1275,9 @@ def feeder_check(scene, cam, w, h, cfg):
     for (mod, name), fn in saved.items():
         setattr(mod, name, spy(name, fn))
     try:
-        reset_counts()
+        launches.reset()
         step(0)
-        counts = read_counts()
+        counts = launches.read()
     finally:
         for (mod, name), fn in saved.items():
             setattr(mod, name, fn)
@@ -1304,7 +1327,7 @@ def tile_layer_phase(card, seen):
         }
         for name, fn in layers.items():
             fn()
-            t = statistics.median(cuda_ms(fn) for _ in range(3))
+            t = statistics.median(elapsed_ms(fn, "cuda") for _ in range(3))
             say(f"layer config 5: {name:40s} {t:8.3f} ms  [{card}]")
 
 
@@ -1330,15 +1353,15 @@ def fused_feeder_check(card, scene, cam, w, h, cfg):
     try:
         got = {}
         for what, backward in (("forward", False), ("fwd+bwd", True)):
-            reset_counts()
+            launches.reset()
             with torch.set_grad_enabled(backward):
                 step(0, backward)
-            got[what] = read_counts()
+            got[what] = launches.read()
         o, d, _ = rays(cam, w, h)
-        reset_counts()
+        launches.reset()
         with torch.no_grad():
             lane_pallas.lane_tri_search(o, d, scene.triangles, float(cfg.eps))
-        got["lane_tri_search"] = read_counts()
+        got["lane_tri_search"] = launches.read()
     finally:
         for (mod, name), fn in saved.items():
             setattr(mod, name, fn)
@@ -1375,7 +1398,7 @@ def fused_layer_phase(card, label, scene, cam, w, h, cfg):
         }
         for name, fn in layers.items():
             fn()
-            t = statistics.median(cuda_ms(fn) for _ in range(3))
+            t = statistics.median(elapsed_ms(fn, "cuda") for _ in range(3))
             say(f"layer {label}: {name:58s} {t:8.3f} ms  [{card}]")
 
 
@@ -1430,12 +1453,12 @@ def cli_run(card, label, argv, mode, need, results):
     just after: exit 0, the stderr block's `Mode` and each kernel of `need`
     launched. Returns (wall ms, the CLI's own Duration line)."""
     err = io.StringIO()
-    reset_counts()
+    launches.reset()
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
         rc = cli.main(argv)
     wall = (time.perf_counter() - t0) * 1e3
-    counts = read_counts()
+    counts = launches.read()
     text = err.getvalue()
     say(f"{label}: python -m esctp1raytracer_tpu_torch {' '.join(argv)}: exit {rc}, "
         f"launches {counts}, wall {wall:.1f} ms  [{card}]")
@@ -1480,13 +1503,13 @@ def golden_leg(card, obj, results, seeds=8, scale=4):
                          seed=s) for s in range(seeds)]
     check(resolve_backend(cfgs[0], scene) == "lane",
           f"golden: auto resolves to {resolve_backend(cfgs[0], scene)!r}, not 'lane'")
-    reset_counts()
+    launches.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     frames = [torch.clamp(render(scene, cam, 1024, 768, cfg), max=1.0) for cfg in cfgs]
     mean = torch.stack(frames).mean(0).cpu().numpy()
     ms = (time.perf_counter() - t0) * 1e3
-    counts = read_counts()
+    counts = launches.read()
     check(counts["lane_kernel"] > 0, "golden: K4 was not launched")
     for name, n in counts.items():
         results[name]["launches"] += n
@@ -1646,12 +1669,12 @@ def training_phase(card, results, scene, cam, w, h, cfg, steps=6, every=3, lr=0.
                 gc.collect()
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
-                reset_counts()
+                launches.reset()
                 t_start = time.perf_counter()
                 fit = fit_scene(start, target, cam, steps=steps, lr=lr, cfg=cfg,
                                 param_filter=fit_kd, checkpoint_path=ck, checkpoint_every=every,
                                 log_every=0)
-                counts = read_counts()
+                counts = launches.read()
                 ends = [t_start] + log["ends"]
                 step_ms = [(b - a) * 1e3 - sum((s1 - s0) * 1e3 for s0, s1 in log["saves"]
                                                 if a <= s0 < b)
@@ -1955,9 +1978,9 @@ def rank_main(leg, out_dir):
             if leg != "nccl1":
                 calls["render"] = lambda: render_sharded(scene, cam, w, h, cfg, mesh)
             for sub, fn in calls.items():
-                reset_counts()
+                launches.reset()
                 res = fn()
-                info["launches"][f"{what}_{sub}"] = read_counts()
+                info["launches"][f"{what}_{sub}"] = launches.read()
                 if sub == "render":
                     arrays[f"{what}_image"] = res.cpu().numpy()
                 else:
@@ -1974,6 +1997,239 @@ def rank_main(leg, out_dir):
             np.savez(Path(out_dir) / f"{leg}.npz", **arrays)
     finally:
         dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------
+# Path J: the benchmark and matrix scripts, each as a user runs it
+# --------------------------------------------------------------------------
+
+
+def script_run(card, label, argv, out_dir, timeout):
+    """`python <argv>` from the repository root, its output to out_dir:
+    exit 0 within `timeout` s, or the run fails. Returns (stdout, wall s)."""
+    log = Path(out_dir) / f"{label}.log"
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, *argv], capture_output=True, text=True,
+                              timeout=timeout, cwd=str(REPO))
+    except subprocess.TimeoutExpired:
+        check(False, f"J {label}: {' '.join(argv)} did not finish within {timeout} s")
+    wall = time.perf_counter() - t0
+    log.write_text(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    say(f"J {label}: python {' '.join(argv)}: exit {proc.returncode}, wall {wall:.1f} s "
+        f"(process start included)  [{card}]")
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:] + proc.stderr[-6000:], file=sys.stderr)
+    check(proc.returncode == 0, f"J {label}: exit {proc.returncode}")
+    return proc.stdout, wall
+
+
+def expect_launches(label, counts, need):
+    """The kernels of `need` launched, every other kernel not."""
+    for name in KERNELS:
+        ok = counts[name] > 0 if name in need else counts[name] == 0
+        check(ok, f"J {label}: {name} launched {counts[name]} times "
+              f"({'want > 0' if name in need else 'want 0'}); all: {counts}")
+
+
+def add_launches(results, counts):
+    for name, n in counts.items():
+        results[name]["launches"] += n
+
+
+def bench_configs_leg(card, results, out_dir):
+    """scripts/bench_configs_torch.py on all five configs (a subprocess
+    each): the backends they resolve to, finite positive times, and the
+    kernels each leg launched matched to its backend."""
+    path = Path(out_dir) / "bench_configs.json"
+    script_run(card, "bench_configs", ["scripts/bench_configs_torch.py", f"--json={path}"],
+               out_dir, 900)
+    records = json.loads(path.read_text())
+    check([r["config"] for r in records] == list(BENCH_LEGS),
+          f"J bench_configs: configs {[r['config'] for r in records]}")
+    for r in records:
+        backend, fwd_need, bwd_need = BENCH_LEGS[r["config"]]
+        say(f"J bench_configs {r['config']}: backend {r['backend']}, {r['rays']} rays, "
+            f"forward {r['forward_ms']:.3f} ms ({r['forward_rays_per_s'] / 1e6:.2f} Mrays/s, "
+            f"peak {r['forward_peak_gib']:.2f} GiB), fwd+bwd {r['fwd_bwd_ms']:.3f} ms "
+            f"({r['fwd_bwd_rays_per_s'] / 1e6:.2f} Mrays/s, peak {r['fwd_bwd_peak_gib']:.2f} "
+            f"GiB); launches {r['launches']}  [{r['card']}]")
+        check(r["backend"] == backend, f"J {r['config']}: backend {r['backend']}, not {backend}")
+        for key in ("forward_ms", "fwd_bwd_ms", "forward_rays_per_s", "fwd_bwd_rays_per_s"):
+            check(np.isfinite(r[key]) and r[key] > 0, f"J {r['config']}: {key} = {r[key]}")
+        check(r["card"] == card, f"J {r['config']}: card {r['card']!r}")
+        expect_launches(f"{r['config']} forward", r["launches"]["forward"], fwd_need)
+        expect_launches(f"{r['config']} fwd+bwd", r["launches"]["fwd_bwd"], bwd_need)
+        for leg in r["launches"].values():
+            add_launches(results, leg)
+    return records
+
+
+def run_matrix_leg(card, results, out_dir):
+    """scripts/run_matrix_torch.py at 1024x768, all five strategies, with the
+    4-seed golden leg: every strategy matches the sequential one and the
+    golden passes its bars."""
+    path = Path(out_dir) / "run_matrix.json"
+    stdout, _ = script_run(card, "run_matrix", [
+        "scripts/run_matrix_torch.py", "--size", "1024x768", "--golden", str(GOLDEN),
+        "--out", str(Path(out_dir) / "run_matrix"), "--json", str(path)], out_dir, 600)
+    for line in stdout.strip().splitlines():
+        say(f"  run_matrix| {line}")
+    rec = json.loads(path.read_text())
+    check(rec["backend_platform"] == "gpu" and rec["card"] == card,
+          f"J run_matrix: platform {rec['backend_platform']}, card {rec['card']}")
+    check([s["strategy"] for s in rec["strategies"]] == list(MATRIX_LEGS),
+          f"J run_matrix: strategies {[s['strategy'] for s in rec['strategies']]}")
+    for s in rec["strategies"]:
+        expect_launches(f"run_matrix {s['strategy']}", s["launches"], MATRIX_LEGS[s["strategy"]])
+        add_launches(results, s["launches"])
+    g = rec["golden_vs_reference"]
+    say(f"J run_matrix golden ({g['size']}, {g['seeds_averaged']} seeds, reference_cpp, jnp): "
+        f"patch8 median {g['patch8_median']:.5f} (< 0.03), share < 0.12 "
+        f"{g['patch8_frac_lt_0.12']:.5f} (> 0.9), |mean diff| {g['mean_lum_delta']:.5f} "
+        f"(< 0.02), {g['render_4seed_ms']:.1f} ms for the 4 frames  [{card}]")
+    check(g["pass"], f"J run_matrix: the golden leg misses its bars: {g}")
+    check(rec["all_match"], f"J run_matrix: not all strategies match: "
+          f"{rec['cross_check_flip_frac']}")
+    return rec
+
+
+def probe_leg(card, results, out_dir):
+    """scripts/probe_device_loop_torch.py on the flagship and config 4,
+    forward and --grad: the loop difference and the profiled device time
+    per frame, and the kernels each frame launched."""
+    out = {}
+    for leg, extra in (("fwd", []), ("fwd+bwd", ["--grad"])):
+        path = Path(out_dir) / f"probe_{'grad' if extra else 'fwd'}.json"
+        script_run(card, f"probe {leg}", ["scripts/probe_device_loop_torch.py", "flagship",
+                                          "mixed_1080p_d4", *extra, f"--json={path}"],
+                   out_dir, 600)
+        records = json.loads(path.read_text())
+        check([r["config"] for r in records] == list(PROBE_LEGS),
+              f"J probe {leg}: configs {[r['config'] for r in records]}")
+        for r in records:
+            say(f"J probe {r['config']} {r['leg']}: loop {r['frame_ms']:.3f} ms/frame (k "
+                f"{r['loop_k']}, raw {r['raw_ms']}), profiled frame {r['device_frame_ms']:.3f} ms "
+                f"of device time in {r['device_ops']} operations, busy "
+                f"{r['busy_share']:.1%} of its {r['profiled_wall_ms']:.2f} ms; launches "
+                f"{r['launches_per_frame']}  [{r['card']}]")
+            check(r["leg"] == leg and r["device_frame_ms"] > 0 and r["device_ops"] > 0,
+                  f"J probe {r['config']} {leg}: {r}")
+            check(np.isfinite(r["frame_ms"]), f"J probe {r['config']} {leg}: frame_ms")
+            expect_launches(f"probe {r['config']} {leg}", r["launches_per_frame"],
+                            PROBE_LEGS[r["config"]][extra != []])
+            add_launches(results, r["launches_per_frame"])
+        out[leg] = records
+    return out
+
+
+def example_leg(card, out_dir):
+    """examples/render_cornell_torch.py: its PPM byte-equal to the PPM of a
+    direct render (Cornell 1024x768, backend mxu: tensor operations, no
+    hand kernel)."""
+    ppm = Path(out_dir) / "cornell_example.ppm"
+    _, wall = script_run(card, "render_cornell", ["examples/render_cornell_torch.py", str(ppm)],
+                         out_dir, 300)
+    direct = Path(out_dir) / "cornell_direct.ppm"
+    with torch.no_grad():
+        img = render(cornell_box(), camera((0.0, 1.0, 2.0), 1024, 768), 1024, 768,
+                     RenderConfig(backend="mxu"))
+    write_ppm(str(direct), img)
+    same = ppm.read_bytes() == direct.read_bytes()
+    say(f"J render_cornell: the example's PPM vs a direct render's (1024x768, mxu): "
+        f"{'byte-identical' if same else 'DIFFERENT'}")
+    check(same, "J render_cornell: the example's PPM differs from a direct render's")
+    return {"wall_s": wall}
+
+
+def golden_pixels_leg(card, out_dir):
+    """scripts/make_golden_pixels_torch.py with its render on the card: the
+    grid equal to the committed tests/golden/cornell_pixels_48x36.npz."""
+    path = Path(out_dir) / "cornell_pixels_48x36.npz"
+    stdout, wall = script_run(card, "make_golden_pixels", [
+        "scripts/make_golden_pixels_torch.py", "--out", str(path)], out_dir, 300)
+    for line in stdout.strip().splitlines():
+        say(f"  make_golden_pixels| {line}")
+    with np.load(path) as got, np.load(REPO / "tests" / "golden" /
+                                       "cornell_pixels_48x36.npz") as want:
+        same = set(got.files) == set(want.files) and all(
+            got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k])
+            for k in want.files)
+    say(f"J make_golden_pixels: the card's grid vs the committed one: "
+        f"{'equal' if same else 'DIFFERENT'}")
+    check(same, "J make_golden_pixels: the grid differs from tests/golden/cornell_pixels_48x36.npz")
+    return {"wall_s": wall}
+
+
+def scaling_leg(card, out_dir):
+    """scripts/bench_scaling_torch.py on the card: its ranks share the card
+    (one by NCCL, two and four by gloo), every section in the report, and
+    sharded(1) within its bar (exit 0)."""
+    path = Path(out_dir) / "scaling.md"
+    _, wall = script_run(card, "bench_scaling", ["scripts/bench_scaling_torch.py", "--out",
+                                                 str(path)], out_dir, 600)
+    text = path.read_text()
+    for line in text.strip().splitlines():
+        say(f"  bench_scaling| {line}")
+    for row in ("1: nccl, 2: gloo, 4: gloo", "| sharded rays=4 | 4 |", "## Residual",
+                "## Sharded fwd+bwd train step", "| 2 x 2 |", "| 1 x 4 |"):
+        check(row in text, f"J bench_scaling: the report lacks {row!r}")
+    check(text.rstrip().endswith("PASS"), "J bench_scaling: no PASS")
+    return {"wall_s": wall}
+
+
+def scripts_phase(card, results):
+    """Path J: the benchmark and matrix scripts as subprocesses (reusing the
+    kernels built in build/torch_kernels/), then, in this process, each
+    kernel the scripts' new inputs reach against its plain version there:
+    configs 1 and 2's table builds and K3 frames, the K4 wavefronts of
+    their backward, and config 3's K1 and K2 wavefronts."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["bench_configs"] = bench_configs_leg(card, results, tmp)
+        out["run_matrix"] = run_matrix_leg(card, results, tmp)
+        out["probe"] = probe_leg(card, results, tmp)
+        out["example"] = example_leg(card, tmp)
+        out["make_golden_pixels"] = golden_pixels_leg(card, tmp)
+        out["bench_scaling"] = scaling_leg(card, tmp)
+    auto = RenderConfig(backend="auto")
+    for key, label, scene, eye, (w, h), depth in (
+            ("config1", "config 1, sphere_plane 256x256, depth 1", sphere_plane_scene(),
+             (0.0, 2.0, 6.0), (256, 256), 1),
+            ("config2", "config 2, ten_sphere 512x512, depth 2", ten_sphere_scene(),
+             (0.0, 4.0, 8.0), (512, 512), 2)):
+        cfg = auto.replace(depth=depth)
+        check(resolve_backend(cfg, scene) == "fused", f"J {label}: auto is not fused")
+        results["fused_tables"][key] = fused_tables_check(card, label, scene)
+        o, d, ids = rays(camera(eye, w, h), w, h)
+        results["fused_kernel"][key] = fused_kernel_check(card, o, d, scene, ids, cfg, label,
+                                                          iters_p=3)
+        # The backward re-derives the frame on the lane route: K4 on each of
+        # its wavefronts (camera and shadow rays per bounce).
+        fb = fused_pallas._bwd_cfg(scene, cfg, o.shape[0])
+        check(fb.backend == "lane" and not fb.ray_chunk,
+              f"J {label}: the backward runs {fb.backend!r} in chunks of {fb.ray_chunk}")
+        seen = capture_wavefronts(o, d, scene, ids, fb, lane_pallas.lane_tri_search)
+        check(len(seen) == 2 * depth, f"J {label}: the backward made {len(seen)} searches, "
+              f"want {2 * depth}")
+        results["lane_kernel"][f"{key}_backward"] = [
+            lane_check(card, f"{label} backward, search {k + 1} of {len(seen)}", wavefront)
+            for k, wavefront in enumerate(seen)]
+        del o, d, ids, seen
+    scene3, w, h = mesh_scene(4), 1920, 1080
+    check(resolve_backend(auto, scene3) == "mxtile", "J config 3: auto is not mxtile")
+    o, d, ids = rays(camera((0.0, 2.0, 6.0), w, h), w, h)
+    seen = capture_wavefronts(o, d, scene3, ids, auto, rt_mxu.mxu_tile_search,
+                              rt_mxu.mxu_tile_occlusion)
+    check(len(seen) == 2, f"J config 3 made {len(seen)} searches, want 2 (camera, shadow)")
+    del o, d, ids
+    mxtile_kernels(card, seen, results, "config 3, mesh_scene(4) 1920x1080", "config3")
+    out["wall_s"] = time.perf_counter() - t0
+    say(f"J: {out['wall_s']:.1f} s of smoke wall time  [{card}]")
+    return out
 
 
 def main():
@@ -1995,7 +2251,7 @@ def main():
     build_phase()
     results = {name: {"name": name, "route": "cuda", "source": CSRC + src, "replaces": rep,
                       "launches": 0, "library_ms": None}
-               for name, (_, _, src, rep) in KERNELS.items()}
+               for name, (_, src, rep) in KERNELS.items()}
 
     # Scenes and frames of the six paths.
     flag = bench_scene()
@@ -2086,6 +2342,7 @@ def main():
     paths["entry_point"] = entry_point_phase(card, results)
     paths["training"] = training_phase(card, results, flag, flag_cam, 1920, 1080, auto)
     paths["sharded"] = sharded_phase(card, results, flag, flag_cam, corn, corn_cam)
+    paths["scripts"] = scripts_phase(card, results)
     feeder_check(flag, flag_cam, 1920, 1080, auto)
     fused_feeder_check(card, corn, corn_cam, 1024, 768, auto)
     layer_phase(card, seen)

@@ -8,7 +8,9 @@ rendering and differentiating on every backend (`jnp`, `mxu`, `mxtile`,
 `lane`, `fused`, `tile` and `auto`), both light modes, the benchmark,
 Cornell and BASELINE config 1 to 5 scenes, OBJ/MTL loading, the PPM writer,
 the BVH and the CLI (`python -m esctp1raytracer_tpu_torch -m model.obj -o
-out.ppm`); see ROADMAP.md for what is still to port.
+out.ppm`), training (`grad.fit_scene`, checkpoints), the sharded renderer
+(`parallel/`), the NumPy test oracle (`testing/`) and the benchmark and matrix scripts
+(`scripts/*_torch.py`); see ROADMAP.md for what is left.
 """
 
 from esctp1raytracer_tpu_torch.scene.types import (

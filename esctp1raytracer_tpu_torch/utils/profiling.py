@@ -5,7 +5,9 @@ Counterpart of `esctp1raytracer_tpu/utils/profiling.py`, on
 timers printed to stderr (src/main.cpp:569-579, :645-654). Here: `trace()`
 records a region with torch.profiler and writes a Chrome trace (viewable in
 Perfetto), `annotate()` names sub-regions inside it, and `phase()` times a
-region on the host clock after synchronising the card.
+region on the host clock after synchronising the card. `device_time` runs
+one call under torch.profiler and sums the device time of the operations
+it ran: the time with the host taken out.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import torch
 
@@ -60,3 +62,23 @@ def phase(name: str, report: bool = True) -> Iterator[None]:
         torch.cuda.synchronize()
     if report:
         logger.info("phase %-16s %8.2f ms", name, (time.perf_counter() - start) * 1e3)
+
+
+def device_time(fn: Callable[[], object]) -> dict:
+    """fn() once under torch.profiler on the card: the device operations it
+    ran (kernels, copies, fills), their summed device time in ms, the wall
+    ms of the profiled call (the card synchronised) and the busy share
+    (device time over wall; one stream, so the operations do not overlap).
+    Needs a card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - start) * 1e3
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+    return {"device_ops": len(ops), "device_ms": busy, "wall_ms": wall,
+            "busy_share": busy / wall if wall > 0 else None}

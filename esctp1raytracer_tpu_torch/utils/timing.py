@@ -4,7 +4,8 @@ Counterpart of `esctp1raytracer_tpu/utils/timing.py`: the reference
 prints its strategy flags and "Duration: <ms>" to stderr after a render
 (src/main.cpp:645-654), and `report` prints the same block. The timer
 reads the host clock only; a caller timing work on the card synchronises
-before the block exits.
+before the block exits. `elapsed_ms` times calls on the card with CUDA
+events, and on the CPU with the host clock.
 """
 
 from __future__ import annotations
@@ -12,6 +13,9 @@ from __future__ import annotations
 import sys
 import time
 from dataclasses import dataclass, field
+from typing import Callable
+
+import torch
 
 
 @dataclass
@@ -36,3 +40,21 @@ class Timer:
         for key, value in self.fields.items():
             print(f" {key:<10}: {value}", file=file)
         print(f"\n Duration  : {self.elapsed_ms:.3f} ms", file=file)
+
+
+def elapsed_ms(fn: Callable[[], object], device: str, iters: int = 1) -> float:
+    """Mean milliseconds per call of fn() over `iters` calls: between two
+    CUDA events on the card (the card synchronised after the second), on
+    the host clock on the CPU."""
+    if device == "cuda":
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters

@@ -26,7 +26,8 @@ for name in mods:
 new = {"cli", "__main__", "io.ppm", "io.native_ppm", "scene.objloader", "scene.native_loader",
        "scene.matjson", "accel.bvh", "accel.native_bvh", "utils.debug", "utils.timing",
        "utils.nativebuild", "utils.profiling", "grad", "grad.optimize", "utils.checkpoint",
-       "parallel.distributed", "parallel.sharding"}
+       "parallel.distributed", "parallel.sharding", "testing", "testing.oracle",
+       "kernels.launches", "utils.device"}
 assert {rt.__name__ + "." + m for m in new} <= set(mods), sorted(mods)
 assert len(mods) >= 40, mods
 
@@ -83,6 +84,18 @@ with tempfile.TemporaryDirectory() as tmp:
     assert len(fit.losses) == 1 and load_checkpoint(ck, corn)[1] == 1
 assert torch.equal(render_sharded(corn, ccam, 16, 12, rt.RenderConfig(), make_mesh()),
                    rt.render(corn, ccam, 16, 12, rt.RenderConfig()))
+
+# The benchmark and matrix scripts and the example, imported (not run): each imports the
+# port alone.
+import importlib.util
+for path in ("scripts/bench_configs_torch.py", "scripts/probe_device_loop_torch.py",
+             "scripts/run_matrix_torch.py", "scripts/make_golden_pixels_torch.py",
+             "scripts/bench_scaling_torch.py", "examples/render_cornell_torch.py"):
+    name = os.path.splitext(os.path.basename(path))[0]
+    spec = importlib.util.spec_from_file_location(name, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+from esctp1raytracer_tpu_torch.testing import oracle_render
+assert oracle_render(corn, (0, 1, 2), (0, 1, 0), 4, 3).shape == (3, 4, 3)
 
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "jaxlib", "esctp1raytracer_tpu.")))
