@@ -66,7 +66,20 @@ J. the benchmark and matrix scripts, each run as a user runs it (a subprocess fr
    on the flagship and config 4, forward and --grad;
    examples/render_cornell_torch.py, its PPM byte-equal to a direct
    render's; then configs 1 and 2's table builds and K3 frames against
-   their plain versions, as for Cornell.
+   their plain versions, as for Cornell;
+K. the root entry points: bench_torch.py as a user runs it (a subprocess,
+   reusing build/torch_kernels/): the 1080p fwd+bwd headline on mxtile and
+   the Cornell leg's vs_baseline, with one K1 and one K2 per fwd+bwd step and
+   8 table builds and 8 K3 per Cornell call, nothing else; entry_torch.entry()
+   (mesh_scene(4), 128x128, mxtile: one K1, one K2), its image against the
+   same route's plain versions on a CPU copy of its inputs; and
+   entry_torch.dryrun_multichip on 2 and 4 gloo ranks of this script sharing
+   the card (`--rank-leg dryrun2|dryrun4`): one sharded train step each of
+   jnp and mxu (no kernel; prims = 2 on four ranks), lane (K4), tile (K5,
+   K6) and auto (the table build and K3, K4 in the backward) on
+   sphere_plane_scene() with a 16x16 target, each loss finite, equal on
+   every rank and within 1e-5 of jnp's; then K5 and K6 on each rank's tile
+   wavefronts, bit-identical to their plain versions.
 
 Phases, any failure exits non-zero (no phase catches its own failure):
 1. device: needs a CUDA device (there is no CPU path); prints the card's
@@ -136,7 +149,10 @@ Phases, any failure exits non-zero (no phase catches its own failure):
    strategy's first call, a probed frame) and reads them just after; the
    kernels each launched must be those of its backend and no other; the
    resolved backends, finite positive times, every strategy matching the
-   sequential one and the golden within tests/test_golden.py's bars;
+   sequential one and the golden within tests/test_golden.py's bars. Path
+   K: the bench sets the counts to 0 just before its counted fwd+bwd step
+   and Cornell call and reads them just after; entry() and each dry-run
+   step likewise (each rank, each backend);
 5. prints the wall time, {"kernels": [...]} and, as the last line, the
    result line.
 
@@ -179,7 +195,8 @@ from esctp1raytracer_tpu_torch.kernels import (
 )
 from esctp1raytracer_tpu_torch.kernels.cull import block_cull_mask
 from esctp1raytracer_tpu_torch.parallel import (
-    init_distributed, loss_and_grad_sharded, make_mesh, render_sharded, train_step_sharded,
+    init_distributed, loss_and_grad_sharded, make_mesh, render_sharded, sharding,
+    train_step_sharded,
 )
 from esctp1raytracer_tpu_torch.parallel.sharding import float_params, merge_params
 from esctp1raytracer_tpu_torch.scene import native_loader
@@ -190,9 +207,11 @@ from esctp1raytracer_tpu_torch.scene.builders import (
 from esctp1raytracer_tpu_torch.scene.matjson import load_obj_with_mat
 from esctp1raytracer_tpu_torch.scene.types import scene_to_numpy
 from esctp1raytracer_tpu_torch.utils import device as devinfo
-from esctp1raytracer_tpu_torch.utils import nativebuild
+from esctp1raytracer_tpu_torch.utils import nativebuild, profiling
 from esctp1raytracer_tpu_torch.utils.checkpoint import load_checkpoint
 from esctp1raytracer_tpu_torch.utils.timing import elapsed_ms
+
+import entry_torch
 
 CSRC = "esctp1raytracer_tpu_torch/csrc/"
 TPU = "esctp1raytracer_tpu/kernels/"
@@ -1786,7 +1805,7 @@ def free_port():
         return s.getsockname()[1]
 
 
-def spawn_leg(leg, world, out_dir, timeout=600):
+def spawn_leg(leg, world, out_dir, timeout=600, path="I"):
     """Run `leg` as `world` ranks of this script (the torchrun environment,
     one shared deadline); any rank's failure or time-out fails the run."""
     port, procs = free_port(), []
@@ -1804,7 +1823,7 @@ def spawn_leg(leg, world, out_dir, timeout=600):
         for p in procs:
             p.wait(timeout=max(1.0, deadline - time.perf_counter()))
     except subprocess.TimeoutExpired:
-        check(False, f"I {leg}: a rank did not finish within {timeout} s")
+        check(False, f"{path} {leg}: a rank did not finish within {timeout} s")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -1814,7 +1833,7 @@ def spawn_leg(leg, world, out_dir, timeout=600):
         if p.returncode != 0:
             tail = (Path(out_dir) / f"{leg}_rank{rank}.log").read_text()[-4000:]
             print(tail, file=sys.stderr)
-        check(p.returncode == 0, f"I {leg}: rank {rank} exited {p.returncode}")
+        check(p.returncode == 0, f"{path} {leg}: rank {rank} exited {p.returncode}")
     infos = [json.loads((Path(out_dir) / f"{leg}_rank{r}.json").read_text())
              for r in range(world)]
     with np.load(Path(out_dir) / f"{leg}.npz") as data:
@@ -2004,7 +2023,7 @@ def rank_main(leg, out_dir):
 # --------------------------------------------------------------------------
 
 
-def script_run(card, label, argv, out_dir, timeout):
+def script_run(card, label, argv, out_dir, timeout, path="J"):
     """`python <argv>` from the repository root, its output to out_dir:
     exit 0 within `timeout` s, or the run fails. Returns (stdout, wall s)."""
     log = Path(out_dir) / f"{label}.log"
@@ -2013,22 +2032,22 @@ def script_run(card, label, argv, out_dir, timeout):
         proc = subprocess.run([sys.executable, *argv], capture_output=True, text=True,
                               timeout=timeout, cwd=str(REPO))
     except subprocess.TimeoutExpired:
-        check(False, f"J {label}: {' '.join(argv)} did not finish within {timeout} s")
+        check(False, f"{path} {label}: {' '.join(argv)} did not finish within {timeout} s")
     wall = time.perf_counter() - t0
     log.write_text(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
-    say(f"J {label}: python {' '.join(argv)}: exit {proc.returncode}, wall {wall:.1f} s "
+    say(f"{path} {label}: python {' '.join(argv)}: exit {proc.returncode}, wall {wall:.1f} s "
         f"(process start included)  [{card}]")
     if proc.returncode != 0:
         print(proc.stdout[-3000:] + proc.stderr[-6000:], file=sys.stderr)
-    check(proc.returncode == 0, f"J {label}: exit {proc.returncode}")
+    check(proc.returncode == 0, f"{path} {label}: exit {proc.returncode}")
     return proc.stdout, wall
 
 
-def expect_launches(label, counts, need):
+def expect_launches(label, counts, need, path="J"):
     """The kernels of `need` launched, every other kernel not."""
     for name in KERNELS:
         ok = counts[name] > 0 if name in need else counts[name] == 0
-        check(ok, f"J {label}: {name} launched {counts[name]} times "
+        check(ok, f"{path} {label}: {name} launched {counts[name]} times "
               f"({'want > 0' if name in need else 'want 0'}); all: {counts}")
 
 
@@ -2232,17 +2251,252 @@ def scripts_phase(card, results):
     return out
 
 
+# --------------------------------------------------------------------------
+# Path K: the root entry points (bench_torch.py, entry_torch.py)
+# --------------------------------------------------------------------------
+
+
+# bench_torch.py's launches: one fwd+bwd step of the flagship (mxtile), one
+# Cornell call (8 fused renders: a table build and K3 each).
+BENCH_LAUNCHES = {"fwd_bwd": dict(mxu_kernel=1, mxu_occl_kernel=1),
+                  "cornell": dict(fused_tables=8, fused_kernel=8)}
+# entry_torch.dryrun_multichip: the kernels of each backend's sharded train
+# step (jnp and mxu are tensor operations; auto is the fused route, its
+# backward on lane). The legs: ranks of this script sharing the card.
+DRYRUN_KERNELS = {"jnp": (), "mxu": (), "lane": K4, "tile": K56, "auto": K3 + K4}
+DRYRUN_LEGS = {"dryrun2": 2, "dryrun4": 4}
+DRYRUN_WH = 16  # the dry run's 16x16 target
+
+
+def bench_leg(card, results, out_dir):
+    """python3 bench_torch.py as a user runs it: exit 0, one JSON line with
+    the mxtile headline, vs_baseline from the Cornell leg, the kernels
+    already built (cache_hits), the launches of BENCH_LAUNCHES and no others."""
+    stdout, wall = script_run(card, "bench_torch", ["bench_torch.py"], out_dir, 600, path="K")
+    lines = stdout.strip().splitlines()
+    check(len(lines) == 1, f"K bench_torch: {len(lines)} lines on stdout, want 1")
+    rec = json.loads(lines[0])
+    for line in (Path(out_dir) / "bench_torch.log").read_text().split("--- stderr ---")[1] \
+            .strip().splitlines():
+        say(f"  bench_torch| {line}")
+    say(f"K bench_torch: {rec['value'] / 1e6:.3f} Mrays/s fwd+bwd ({rec['fwd_bwd_ms']:.3f} ms, "
+        f"host {rec['host_ms']['fwd_bwd']:.3f}), forward {rec['fwd_ms']:.3f} ms (host "
+        f"{rec['host_ms']['fwd']:.3f}), peaks {rec['peak_gib']['fwd']:.2f} / "
+        f"{rec['peak_gib']['fwd_bwd']:.2f} GiB; Cornell {rec['cornell_ms']:.4f} ms per render "
+        f"(host {rec['host_ms']['cornell']:.4f}), vs_baseline {rec['vs_baseline']}; setup "
+        f"{rec['setup_compile_s']} s, libraries loaded built {rec['cache_hits']}, built now "
+        f"{rec['cache_new_entries']}; launches {rec['launches']}  [{rec['card']}]")
+    check(rec["metric"] == "rays_per_s_chip_fwd_bwd_1080p" and rec["backend"] == "auto"
+          and rec["resolved_backend"] == "mxtile",
+          f"K bench_torch: metric {rec['metric']}, backend {rec['backend']} -> "
+          f"{rec['resolved_backend']}")
+    check(rec["value"] > 0 and rec["vs_baseline"] is not None and rec["vs_baseline"] > 0,
+          f"K bench_torch: value {rec['value']}, vs_baseline {rec['vs_baseline']}")
+    check(rec["card"] == card and rec["device"] == {"platform": "gpu",
+                                                    "kind": torch.cuda.get_device_name(0)},
+          f"K bench_torch: card {rec['card']!r}, device {rec['device']}")
+    check(rec["cache_hits"] == 2 and rec["cache_new_entries"] == 0,
+          f"K bench_torch: {rec['cache_hits']} libraries loaded built, "
+          f"{rec['cache_new_entries']} built (want rt_mxu and fused, built by phase 2)")
+    for leg, want in BENCH_LAUNCHES.items():
+        expect = {name: want.get(name, 0) for name in KERNELS}
+        check(rec["launches"][leg] == expect,
+              f"K bench_torch {leg}: launches {rec['launches'][leg]}, want {expect}")
+        add_launches(results, rec["launches"][leg])
+    rec["wall_s"] = wall
+    return rec
+
+
+def entry_leg(card, results):
+    """entry_torch.entry() on the card: one K1 and one K2 launch, and the
+    image against the same route's plain versions on a CPU copy of its
+    inputs, under tests/test_rt_mxu.py's bar (mean difference < 1e-4, < 0.5%
+    of values off by more than 1e-2)."""
+    fn, args = entry_torch.entry()
+    with torch.no_grad():
+        img, counts = launches.counted(lambda: fn(*args))
+    expect = {name: int(name in K12) for name in KERNELS}
+    check(counts == expect, f"K entry: launches {counts}, want {expect}")
+    add_launches(results, counts)
+    scene, o, d, ids = args
+    with torch.no_grad():
+        plain = fn(scene.map(lambda _, t: t.cpu()), o.cpu(), d.cpu(), ids.cpu())
+    diff = (img.cpu() - plain).abs()
+    mean, off = diff.mean().item(), (diff > 1e-2).float().mean().item()
+    check(bool(torch.isfinite(img).all()) and img.max().item() > 0, "K entry: the image")
+    check(mean < 1e-4 and off < 5e-3, f"K entry: image vs the plain versions: mean {mean}, "
+          f"share over 1e-2 {off}")
+    with torch.no_grad():
+        ms = statistics.median(elapsed_ms(lambda: fn(*args), "cuda", 5) for _ in range(3))
+    say(f"K entry (mesh_scene(4), 128x128, auto -> {resolve_backend(RenderConfig(backend='auto'), scene)}): "
+        f"{ms:.3f} ms per forward (median of 3 x 5); launches {counts}; vs the plain versions on "
+        f"a CPU copy: mean diff {mean:.2e} (< 1e-4), share over 1e-2 {off:.5f} (< 0.005)  [{card}]")
+    return {"ms": ms, "launches": counts, "image_mean_diff": mean, "image_share_over_1e-2": off}
+
+
+def dryrun_rank_main(leg, out_dir):
+    """One rank of a dry-run leg: join the group from the torchrun
+    environment (gloo: the ranks share the card), run
+    entry_torch.dryrun_multichip twice (the second warm, timed), write each
+    backend's loss (hex) and launches of the first run; rank 0 also the
+    losses as npz."""
+    check(torch.cuda.is_available(), "a dry-run rank needs the CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = init_distributed()
+    check(world == DRYRUN_LEGS[leg], f"init_distributed gave world {world}")
+    check(dist.get_backend() == "gloo", f"{world} ranks chose {dist.get_backend()}")
+    rank = dist.get_rank()
+    try:
+        t0 = time.perf_counter()
+        res = entry_torch.dryrun_multichip(world)
+        torch.cuda.synchronize()
+        first = (time.perf_counter() - t0) * 1e3
+        dist.barrier()
+        t0 = time.perf_counter()
+        again = entry_torch.dryrun_multichip(world)
+        torch.cuda.synchronize()
+        warm = (time.perf_counter() - t0) * 1e3
+        info = {"first_ms": first, "warm_ms": warm,
+                "losses": {b: float(r["loss"]).hex() for b, r in res.items()},
+                "launches": {b: r["launches"] for b, r in res.items()},
+                "warm_launches_same": all(again[b]["launches"] == r["launches"]
+                                          for b, r in res.items())}
+        (Path(out_dir) / f"{leg}_rank{rank}.json").write_text(json.dumps(info))
+        if rank == 0:
+            np.savez(Path(out_dir) / f"{leg}.npz",
+                     **{b: np.float32(r["loss"]) for b, r in res.items()})
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_leg(card, results, leg, out_dir):
+    """entry_torch.dryrun_multichip on DRYRUN_LEGS[leg] gloo ranks sharing
+    the card: each backend's loss finite, equal on every rank and within
+    1e-5 of jnp's, and each backend's kernels (DRYRUN_KERNELS) launched on
+    every rank, no others."""
+    world = DRYRUN_LEGS[leg]
+    t0 = time.perf_counter()
+    infos, _ = spawn_leg(leg, world, out_dir, timeout=300, path="K")
+    wall = time.perf_counter() - t0
+    losses = {b: float.fromhex(infos[0]["losses"][b]) for b in DRYRUN_KERNELS}
+    say(f"K {leg}: {world} gloo ranks, wall {wall:.1f} s (process start included); rank 0's "
+        f"dry run {infos[0]['first_ms']:.1f} ms, again {infos[0]['warm_ms']:.1f} ms (5 steps); "
+        f"losses {losses}  [{card}]")
+    for b, need in DRYRUN_KERNELS.items():
+        seen = {info["losses"][b] for info in infos}
+        check(len(seen) == 1, f"K {leg} {b}: the ranks' losses differ: {seen}")
+        check(np.isfinite(losses[b]) and abs(losses[b] - losses["jnp"]) <= 1e-5 * abs(losses["jnp"]),
+              f"K {leg} {b}: loss {losses[b]} against jnp's {losses['jnp']}")
+        for r, info in enumerate(infos):
+            expect_launches(f"{leg} rank {r} {b}", info["launches"][b], need, path="K")
+            add_launches(results, info["launches"][b])
+        check(all(info["warm_launches_same"] for info in infos),
+              f"K {leg}: the second dry run launched other counts")
+        say(f"  {leg} {b}: launches per rank {[info['launches'][b] for info in infos][0]}")
+    return {"world": world, "wall_s": wall, "losses": losses,
+            "first_ms": [info["first_ms"] for info in infos],
+            "warm_ms": [info["warm_ms"] for info in infos],
+            "launches_rank0": infos[0]["launches"]}
+
+
+def dryrun_tile_kernels(card, results):
+    """K5 and K6 on the dry run's tile wavefronts: each rank's shard of the
+    16x16 sphere-plane frame (4 triangles in 4 sub-blocks of 128, three of
+    them padding only; the shadow table's without the ground plane, which
+    goes to the oversized sub-block) on 2 and 4 rays-split
+    ranks, camera and shadow rays as the entry points call them; each held
+    to tile_check's bars (cnt_out equal to the plain lists' lengths, the
+    output bit-identical to the plain version's on the shard's rays).
+    Timed on rank 0's shard of the 2-rank split, beside its bound."""
+    scene = sphere_plane_scene()
+    cam = camera((0.0, 2.0, 6.0), DRYRUN_WH, DRYRUN_WH)
+    cfg = RenderConfig(backend="tile")
+    out = {name: {"shards": [], "max_abs_err": 0.0} for name in K56}
+    for world in DRYRUN_LEGS.values():
+        for rank in range(world):
+            mesh = sharding.Mesh(devices=np.arange(world).reshape(world, 1), rank=rank,
+                                 coords={"rays": rank, "prims": 0},
+                                 groups={"rays": None, "prims": None})
+            o, d, ids, _, sl = sharding._shard_rays(cam, DRYRUN_WH, DRYRUN_WH, mesh)
+            seen = capture_wavefronts(o[sl], d[sl], scene, ids[sl], cfg, rt_tile.tile_tri_search,
+                                      rt_tile.tile_occlusion)
+            check(len(seen) == 2, f"K dry run tile, rank {rank} of {world}: {len(seen)} "
+                  "searches, want 2 (camera, shadow)")
+            for wavefront in seen:
+                with torch.no_grad():
+                    name, args, ov_buf = tile_args(wavefront)
+                    r = wavefront[1].shape[0]
+                    cnt, visits, live = tile_sweeps(name, args)
+                    label = f"{name} [dry run, rank {rank} of {world}]"
+                    whole, plain = tile_check(name, label, args, cnt, ov_buf, wavefront,
+                                              slice(0, r))
+                    if name == "tile_kernel":
+                        _, err, _, _ = search_agreement(name, (whole[0][:r], whole[1][:r]), plain)
+                    else:
+                        err = float((whole[:r] - plain).abs().max().item())
+                rec = out[name]
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                rec["shards"].append({"world": world, "rank": rank, "rays": r,
+                                      "sub_blocks": args[3].shape[0],
+                                      "mean_list": cnt.float().mean().item(),
+                                      "oversized": ov_buf is not None})
+                if world == 2 and rank == 0:
+                    ms, plain_ms = time_pair(name, lambda: wrapper(name)(*args),
+                                             lambda: KERNELS[name][0](*args), 20, 3, card,
+                                             f"dry run tile, rank 0 of 2, {r} rays")
+                    bound_ms, bound_by = bound(*tile_work(name, args, visits, live))
+                    # At this size the wrapper's host work (its checks, `_group_boxes`)
+                    # can outlast the kernel: one call's device operations, profiled.
+                    prof = profiling.device_time(lambda: wrapper(name)(*args))
+                    rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                               device_ops=prof["device_ops"], device_ms=prof["device_ms"],
+                               at=f"sphere_plane_scene {DRYRUN_WH}x{DRYRUN_WH} tile, rank 0 of a "
+                                  f"2-rank rays split ({r} rays)")
+    for name, rec in out.items():
+        say(f"{name} [dry run tile]: {len(rec['shards'])} shard wavefronts of 2 and 4 ranks, "
+            f"{rec['shards'][0]['sub_blocks']} sub-block(s), each bit-identical to its plain "
+            f"version with cnt_out equal; kernel {rec['ms']:.4f} ms per wrapper call (one call "
+            f"profiled: {rec['device_ops']} device operations, {rec['device_ms']:.4f} ms of device "
+            f"time), plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.6f} ms "
+            f"({rec['bound_by']})  [{card}]")
+        results[name]["dryrun"] = rec
+    return out
+
+
+def root_entries_phase(card, results):
+    """Path K: bench_torch.py as a subprocess, entry() in this process, and
+    dryrun_multichip on 2 and 4 gloo ranks sharing the card, with K5/K6 on
+    the dry run's tile wavefronts against their plain versions."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["bench"] = bench_leg(card, results, tmp)
+        out["entry"] = entry_leg(card, results)
+        for leg in DRYRUN_LEGS:
+            out[leg] = dryrun_leg(card, results, leg, tmp)
+    out["tile_wavefronts"] = dryrun_tile_kernels(card, results)
+    out["wall_s"] = time.perf_counter() - t0
+    say(f"K: {out['wall_s']:.1f} s of smoke wall time  [{card}]")
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="instead of the smoke run: build, then profile one fwd+bwd step "
                              "of the flagship, Cornell, config 4 and config 5 under "
                              "torch.profiler")
-    parser.add_argument("--rank-leg", choices=list(LEG_MESH),
-                        help="run as one rank of a path-I leg (started by path I itself, in "
-                             "the torchrun environment)")
+    parser.add_argument("--rank-leg", choices=list(LEG_MESH) + list(DRYRUN_LEGS),
+                        help="run as one rank of a path-I leg or of a path-K dry run (started "
+                             "by that path itself, in the torchrun environment)")
     parser.add_argument("--out", help="with --rank-leg: the directory for the rank's results")
     args = parser.parse_args()
+    if args.rank_leg in DRYRUN_LEGS:
+        dryrun_rank_main(args.rank_leg, args.out)
+        return
     if args.rank_leg:
         rank_main(args.rank_leg, args.out)
         return
@@ -2343,6 +2597,7 @@ def main():
     paths["training"] = training_phase(card, results, flag, flag_cam, 1920, 1080, auto)
     paths["sharded"] = sharded_phase(card, results, flag, flag_cam, corn, corn_cam)
     paths["scripts"] = scripts_phase(card, results)
+    paths["root_entries"] = root_entries_phase(card, results)
     feeder_check(flag, flag_cam, 1920, 1080, auto)
     fused_feeder_check(card, corn, corn_cam, 1024, 768, auto)
     layer_phase(card, seen)

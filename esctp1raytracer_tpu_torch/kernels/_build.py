@@ -46,14 +46,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
+def lib_path(name: str) -> Path:
+    """Where the library of csrc/<name>.cu, as the sources and flags stand, is built."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + SOURCE_FLAGS.get(name, [])).encode())
+    for dep in sorted(CSRC.glob("*.cu*")):
+        digest.update(dep.name.encode() + dep.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu unless an up-to-date library exists; returns its path."""
     src = CSRC / f"{name}.cu"
     flags = NVCC_FLAGS + SOURCE_FLAGS.get(name, [])
-    digest = hashlib.sha256(" ".join(flags).encode())
-    for dep in sorted(CSRC.glob("*.cu*")):
-        digest.update(dep.name.encode() + dep.read_bytes())
-    lib = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    lib = lib_path(name)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

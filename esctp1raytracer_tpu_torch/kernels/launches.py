@@ -8,7 +8,7 @@ run and read them just after, to show which kernels the run went through.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -37,3 +37,11 @@ def read() -> Dict[str, int]:
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def counted(fn: Callable[[], object]) -> Tuple[object, Dict[str, int]]:
+    """(fn(), every wrapper's launches in that call): the counts set to 0
+    just before the call and read just after."""
+    reset()
+    out = fn()
+    return out, read()

@@ -42,3 +42,15 @@ def card(device: str) -> Optional[str]:
 def synchronize(device: str) -> None:
     if device == "cuda":
         torch.cuda.synchronize()
+
+
+def reset_peak(device: str) -> None:
+    """Start a peak-memory window on the card (the card synchronised first)."""
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gib(device: str) -> Optional[float]:
+    """The card's peak allocated memory since `reset_peak`, GiB (None on the CPU)."""
+    return torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None

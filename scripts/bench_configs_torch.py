@@ -59,16 +59,6 @@ CONFIGS = [
 ]
 
 
-def _peak_reset(device):
-    if device == "cuda":
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-
-
-def _peak_gib(device):
-    return torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
-
-
 ITERS, BATCHES = 2, 2  # timed calls per batch, batches (the best batch counts)
 
 
@@ -107,15 +97,10 @@ def run_config(name, make_scene, eye, width, height, depth, backward=True, devic
             best = min(best, elapsed_ms(fn, device, ITERS))
         return best
 
-    def counted(fn):
-        launches.reset()
-        out = fn()
-        return out, launches.read()
-
-    loss, fwd_launches = counted(fwd)
+    loss, fwd_launches = launches.counted(fwd)
     if not bool(torch.isfinite(loss)):
         raise RuntimeError(f"{name}: the forward loss is {loss.item()}")
-    _peak_reset(device)
+    dev.reset_peak(device)
     dt_f = timeit(fwd)
     record = {
         "config": name, "rays": rays, "tris": scene.num_triangles,
@@ -123,18 +108,18 @@ def run_config(name, make_scene, eye, width, height, depth, backward=True, devic
         "device": dev.kind(device), "card": dev.card(device),
         "forward_ms": dt_f,
         "forward_rays_per_s": rays / (dt_f / 1e3),
-        "forward_peak_gib": _peak_gib(device),
+        "forward_peak_gib": dev.peak_gib(device),
         "launches": {"forward": fwd_launches},
     }
     if backward:
-        grads, bwd_launches = counted(bwd)
+        grads, bwd_launches = launches.counted(bwd)
         if not all(g is None or bool(torch.isfinite(g).all()) for g in grads):
             raise RuntimeError(f"{name}: a gradient is not finite")
-        _peak_reset(device)
+        dev.reset_peak(device)
         dt_b = timeit(bwd)
         record["fwd_bwd_ms"] = dt_b
         record["fwd_bwd_rays_per_s"] = rays / (dt_b / 1e3)
-        record["fwd_bwd_peak_gib"] = _peak_gib(device)
+        record["fwd_bwd_peak_gib"] = dev.peak_gib(device)
         record["launches"]["fwd_bwd"] = bwd_launches
     print(json.dumps(record), flush=True)
     return record

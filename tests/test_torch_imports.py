@@ -85,12 +85,13 @@ with tempfile.TemporaryDirectory() as tmp:
 assert torch.equal(render_sharded(corn, ccam, 16, 12, rt.RenderConfig(), make_mesh()),
                    rt.render(corn, ccam, 16, 12, rt.RenderConfig()))
 
-# The benchmark and matrix scripts and the example, imported (not run): each imports the
-# port alone.
+# The benchmark and matrix scripts, the example and the root entry points (the
+# benchmark and entry()/dryrun_multichip), imported (not run): each imports the port alone.
 import importlib.util
 for path in ("scripts/bench_configs_torch.py", "scripts/probe_device_loop_torch.py",
              "scripts/run_matrix_torch.py", "scripts/make_golden_pixels_torch.py",
-             "scripts/bench_scaling_torch.py", "examples/render_cornell_torch.py"):
+             "scripts/bench_scaling_torch.py", "examples/render_cornell_torch.py",
+             "bench_torch.py", "entry_torch.py"):
     name = os.path.splitext(os.path.basename(path))[0]
     spec = importlib.util.spec_from_file_location(name, path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))

@@ -5,7 +5,9 @@ ranks are real processes: this file is its own worker (see the bottom),
 spawned as a gloo group on the CPU through `init_distributed` with the
 environment `torchrun` sets; rank 0 writes its results as npz, and the
 parent test holds them against the JAX package's sharded functions on
-its virtual CPU devices and against the port's unsharded ones.
+its virtual CPU devices and against the port's unsharded ones. Its
+"dryrun" scenario (`entry_torch.dryrun_multichip`) serves
+tests/test_torch_entry.py.
 
 Bars: images, tests/test_sharding.py's `assert_images_match` (at most
 0.5% of pixels off by more than 1e-3, the median within 1e-5: the two
@@ -165,8 +167,21 @@ def work_train2(mesh, out_dir):
             "fit_kd": fit.scene.spheres.kd.numpy(), "fit_ks": fit.scene.spheres.ks.numpy()}
 
 
+def work_dryrun(mesh, out_dir):
+    """entry_torch.dryrun_multichip on the world's ranks (it makes its own
+    meshes): each backend's loss and its updated scene's float leaves."""
+    import entry_torch
+
+    out = {}
+    for backend, res in entry_torch.dryrun_multichip(mesh.devices.size, device="cpu").items():
+        out[f"{backend}_loss"] = np.float32(res["loss"])
+        out[f"{backend}_launched"] = np.int64(sum(res["launches"].values()))
+        out.update({f"{backend}_p{i}": p.numpy() for i, p in enumerate(float_params(res["scene"]))})
+    return out
+
+
 WORK = {"rays4": (work_rays4, dict(rays=4)), "grid": (work_grid, dict(rays=2, prims=2)),
-        "train2": (work_train2, dict(rays=2))}
+        "train2": (work_train2, dict(rays=2)), "dryrun": (work_dryrun, dict())}
 
 
 def worker(scenario, out_dir):
