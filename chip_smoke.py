@@ -79,7 +79,34 @@ K. the root entry points: bench_torch.py as a user runs it (a subprocess,
    K6) and auto (the table build and K3, K4 in the backward) on
    sphere_plane_scene() with a 16x16 target, each loss finite, equal on
    every rank and within 1e-5 of jnp's; then K5 and K6 on each rank's tile
-   wavefronts, bit-identical to their plain versions.
+   wavefronts, bit-identical to their plain versions;
+L. two light sources of unequal face counts, and none: (L1) the benchmark
+   scene's meshes and a second area light, 1920x1080, "auto" -> mxtile: K1
+   on the camera wavefront and K2 on the R x 2 shadow wavefront within the
+   JAX tests' bars of their plain versions, one K1 and one K2 per step, a
+   64x48 frame against jnp; (L2) the Cornell meshes and a second light of
+   four faces on the ceiling (faces 2 and 4), 1024x768, "auto" -> fused at
+   depth 1 and 3: the table build bit-equal to its plain version on a CPU
+   copy, K3 bit-identical to its plain version, K4 bit-identical on the
+   backward's camera and R x 2 shadow wavefronts, the light draws on the
+   card bit-equal to the CPU's, one table build and one K3 per forward and
+   2 x depth K4 per backward; (L3) a subdivision-6 icosphere, the ground
+   plane and two area lights (81,926 triangles, one tile segment),
+   1920x1080, "auto" -> tile: K5 and K6 (on the R x 2 shadow wavefront)
+   bit-identical to their plain versions on a TILE_SLICE-ray slice, one K5
+   and one K6 per step; (L4) empty_nolight at 1024x768 on auto, fused,
+   lane, mxtile and tile: each route's search kernel (K4, K1, K5) on the
+   camera wavefront, the only one, against its plain version; the image
+   exactly black, every gradient zero and finite, the resolved route's
+   search launched once per step and no other kernel (fused and auto
+   resolve to lane); (L5) the ten Cornell variants at 512x512 through
+   "auto": finite, non-black but empty_nolight, against the jnp route (the
+   eps-window flips set aside within tests/test_fused.py's budget, the
+   image bar's mean on the rest), the route's kernels and no
+   other (K3 bit-identical to its plain version on the fused ones), the
+   Cornell signature; and reference_cpp's draws on a light of four faces
+   on the card bit-equal to the CPU's, on exactly its corners {f0c0, f0c1,
+   f0c2, f1c0}.
 
 Phases, any failure exits non-zero (no phase catches its own failure):
 1. device: needs a CUDA device (there is no CPU path); prints the card's
@@ -152,7 +179,10 @@ Phases, any failure exits non-zero (no phase catches its own failure):
    sequential one and the golden within tests/test_golden.py's bars. Path
    K: the bench sets the counts to 0 just before its counted fwd+bwd step
    and Cornell call and reads them just after; entry() and each dry-run
-   step likewise (each rank, each backend);
+   step likewise (each rank, each backend). Path L: each leg's forward and
+   fwd+bwd with the counts set to 0 just before and read just after, held
+   to the route's exact counts; the resolved backend, the times, the peak
+   memory and each kernel's time beside its bound printed per leg;
 5. prints the wall time, {"kernels": [...]} and, as the last line, the
    result line.
 
@@ -200,12 +230,15 @@ from esctp1raytracer_tpu_torch.parallel import (
 )
 from esctp1raytracer_tpu_torch.parallel.sharding import float_params, merge_params
 from esctp1raytracer_tpu_torch.scene import native_loader
+from esctp1raytracer_tpu_torch.core.shading import sample_lights
 from esctp1raytracer_tpu_torch.scene.builders import (
-    bench_meshes, bench_scene, cornell_box, mesh_scene, mixed_scene, random_scene,
-    scene_from_mesh, sphere_plane_scene, ten_sphere_scene, write_cornell_obj, write_obj,
+    _CORNELL_MATERIALS, CORNELL_VARIANTS, _area_light, _cornell_shell, _ground_plane, _quad_tris,
+    bench_meshes, bench_scene, cornell_box, cornell_variant, icosphere_mesh, mesh_scene,
+    mixed_scene, random_scene, scene_from_mesh, sphere_plane_scene, ten_sphere_scene,
+    write_cornell_obj, write_obj,
 )
 from esctp1raytracer_tpu_torch.scene.matjson import load_obj_with_mat
-from esctp1raytracer_tpu_torch.scene.types import scene_to_numpy
+from esctp1raytracer_tpu_torch.scene.types import Material, MeshData, scene_to_numpy
 from esctp1raytracer_tpu_torch.utils import device as devinfo
 from esctp1raytracer_tpu_torch.utils import nativebuild, profiling
 from esctp1raytracer_tpu_torch.utils.checkpoint import load_checkpoint
@@ -527,8 +560,8 @@ def mxtile_work(name, args, lists, ov_buf, wavefront):
         t, ok = rt_tile._oversized_hits(oo[sl], dd[sl], ov_buf, eps_f)
         hit = (ok & (t < t_limit[sl, None]))[:, runs]
         n = torch.where(hit.any(1), torch.argmax(hit.to(torch.int32), 1) + 1, hit.shape[1])
-        ov_pairs += int((n * live.view(-1)[sl]).sum())
-        done.view(-1)[sl] |= hit.any(1)
+        ov_pairs += int((n * live.view(-1)[:r][sl]).sum())  # not the group's padding rays
+        done.view(-1)[:r][sl] |= hit.any(1)
     pad = (aabbs[0:3] > aabbs[3:6]).any(0)
     full_occ = torch.zeros_like(live)
     pairs = full = 0
@@ -1029,24 +1062,26 @@ def tile_check(name, label, args, cnt, ov_buf, wavefront, rs):
     return whole, plain
 
 
-def tile_kernels(card, seen, w, results):
-    """K5 and K6 on config 5's camera and shadow wavefronts, as the entry
-    points call them (K5 culling by the hook's t_limit, K6 with the
-    oversized sub-block). Each kernel runs on the whole wavefront with
-    cnt_out, held equal to the plain path's list lengths there; its output
-    on TILE_SLICE rays of whole image rows, centred on the row with the
-    longest mean list, is held bit-identical to the plain version's on the
-    same slice. Timed: the kernel on the whole wavefront and on the slice,
-    the plain version on the slice, each beside its bound."""
+def tile_kernels(card, seen, w, results, what="config 5 3840x2160", key=None, lights=1):
+    """K5 and K6 on config 5's camera and shadow wavefronts (or another
+    frame's, whose entries go under `key`), as the entry points call them
+    (K5 culling by the hook's t_limit, K6 with the oversized sub-block).
+    Each kernel runs on the whole wavefront with cnt_out, held equal to the
+    plain path's list lengths there; its output on TILE_SLICE rays of whole
+    image rows (a shadow row holds `lights` rays per pixel), centred on the
+    row with the longest mean list, is held bit-identical to the plain
+    version's on the same slice. Timed: the kernel on the whole wavefront
+    and on the slice, the plain version on the slice, each beside its
+    bound."""
     for wavefront in seen[:2]:
         with torch.no_grad():
             name, args, ov_buf = tile_args(wavefront)
             r = wavefront[1].shape[0]
             cnt, visits, live = tile_sweeps(name, args)
-            rs, bs, heavy, mean = heavy_slice([cnt], r, w)
-            whole, plain = tile_check(name, f"{name} [config 5]", args, cnt, ov_buf, wavefront,
+            rs, bs, heavy, mean = heavy_slice([cnt], r, w * (1 if name == "tile_kernel" else lights))
+            whole, plain = tile_check(name, f"{name} [{what}]", args, cnt, ov_buf, wavefront,
                                       rs)
-            say(f"{name} [config 5]: {cnt.shape[0]} bundles x {args[3].shape[0]} sub-blocks, "
+            say(f"{name} [{what}]: {cnt.shape[0]} bundles x {args[3].shape[0]} sub-blocks, "
                 f"{list_stats(cnt, bs)}; {sweep_stats(visits, live)}; heaviest row {heavy} (mean "
                 f"{mean:.2f}); slice rays "
                 f"{rs.start}+{TILE_SLICE}; cnt_out equals the lists' cnt on the whole wavefront, "
@@ -1064,18 +1099,22 @@ def tile_kernels(card, seen, w, results):
             sargs = on_rays(args, rs)
             ms, plain_ms = time_pair(name, lambda: wrapper(name)(*sargs),
                                      lambda: KERNELS[name][0](*sargs), 10, 1, card,
-                                     f"config 5 slice of {TILE_SLICE} rays")
+                                     f"{what} slice of {TILE_SLICE} rays")
             whole_ms = elapsed_ms(lambda: wrapper(name)(*args), "cuda", 3)
             bound_ms, bound_by = bound(*tile_work(name, sargs, visits[bs], live[bs]))
             whole_bound_ms, _ = bound(*tile_work(name, args, visits, live))
-            say(f"{name} [config 5]: slice kernel {ms:.3f} ms, bound {bound_ms:.3f} ms "
+            say(f"{name} [{what}]: slice kernel {ms:.3f} ms, bound {bound_ms:.3f} ms "
                 f"({bound_by}); whole wavefront ({r} rays) kernel {whole_ms:.3f} ms, bound "
                 f"{whole_bound_ms:.3f} ms  [{card}]")
-        results[name].update(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, whole_ms=whole_ms, whole_bound_ms=whole_bound_ms,
-                             at=f"config 5 3840x2160 {'shadow' if name != 'tile_kernel' else 'camera'}"
-                                f" wavefront, slice of {TILE_SLICE} rays from ray {rs.start} "
-                                "(whole_*: the whole wavefront)")
+        entry = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, whole_ms=whole_ms, whole_bound_ms=whole_bound_ms,
+                     at=f"{what} {'shadow' if name != 'tile_kernel' else 'camera'}"
+                        f" wavefront, slice of {TILE_SLICE} rays from ray {rs.start} "
+                        "(whole_*: the whole wavefront)")
+        if key is None:
+            results[name].update(entry)
+        else:
+            results[name][key] = entry
 
 
 def tile_segment_kernels(card, seen, w, results):
@@ -1174,10 +1213,18 @@ def make_step(scene, o, d, ids, cfg):
 
 
 def path_phase(card, label, scene, cam, w, h, cfg, expect, fwd_kernels, bwd_kernels, results,
-               min_nonzero=8, small=(192, 108), reps=5, min_launches=1):
+               min_nonzero=8, small=(192, 108), reps=5, min_launches=1, exact=None, lit=True,
+               flip_bar=False):
     """Drive one main path: forward, then fwd+bwd, each with the launch
     counters reset just before and read just after; checks, and timings
-    over `reps` steps."""
+    over `reps` steps. `exact` ({"forward": counts, "fwd+bwd": counts})
+    holds every wrapper's count to its value; a scene that is not `lit`
+    must render exactly black, with every gradient exactly zero. The small
+    frame is held to the jnp backend's with the image bars; with `flip_bar`
+    the pixels off by > 1e-2 (eps-window near-ties, where the jnp route and
+    every search route of either package part) are set aside up to
+    tests/test_fused.py's budget of 0.2% of the pixels, and the image bar's
+    mean holds on the rest."""
     check(resolve_backend(cfg, scene) == expect,
           f"{label}: backend {cfg.backend!r} resolves to {resolve_backend(cfg, scene)!r}, "
           f"not {expect!r}")
@@ -1193,26 +1240,45 @@ def path_phase(card, label, scene, cam, w, h, cfg, expect, fwd_kernels, bwd_kern
         for name in need:
             check(counts[name] >= min_launches,
                   f"{label} {what}: {name} launched {counts[name]} times, < {min_launches}")
+        if exact is not None:
+            check(counts == exact[what], f"{label} {what}: launches {counts}, not {exact[what]}")
         for name, n in counts.items():
             results[name]["launches"] += n
         check(tuple(color.shape) == (w * h, 3), f"{label}: color shape {tuple(color.shape)}")
         check(bool(torch.isfinite(color).all()), f"{label}: non-finite pixel")
-        check(color.mean().item() > 0.01, f"{label}: image is black")
+        if lit:
+            check(color.mean().item() > 0.01, f"{label}: image is black")
+        else:
+            check(color.abs().max().item() == 0.0, f"{label}: an unlit image is not all zero")
         if backward:
             check(all(bool(torch.isfinite(g).all()) for g in grads), f"{label}: non-finite grad")
             nonzero = sum(bool((g != 0).any()) for g in grads)
             say(f"{label}: {nonzero} of {len(grads)} float leaves have a non-zero gradient")
-            check(nonzero >= min_nonzero, f"{label}: {nonzero} non-zero gradients < {min_nonzero}")
+            if lit:
+                check(nonzero >= min_nonzero,
+                      f"{label}: {nonzero} non-zero gradients < {min_nonzero}")
+            else:
+                check(nonzero == 0, f"{label}: {nonzero} non-zero gradients of an unlit image")
 
     # A small frame through the kernels against the plain `jnp` backend.
     sw, sh = small
     a = render(scene, cam, sw, sh, cfg)
     b = render(scene, cam, sw, sh, cfg.replace(backend="jnp"))
     diff = (a - b).abs()
+    flipped = diff.amax(-1) > 1e-2
+    rest = diff[~flipped]
+    rest_mean, rest_max = (rest.mean().item(), rest.max().item()) if rest.numel() else (0.0, 0.0)
     say(f"{label}: small frame {sw}x{sh} vs jnp backend: mean |diff| {diff.mean().item():.3e}, "
-        f"share > 1e-2 {(diff > 1e-2).float().mean().item():.5f}")
-    check(diff.mean().item() < 1e-4 and (diff > 1e-2).float().mean().item() < 5e-3,
-          f"{label}: small frame disagrees with the jnp backend")
+        f"share > 1e-2 {(diff > 1e-2).float().mean().item():.5f}; pixels off by > 1e-2 "
+        f"{flipped.float().mean().item():.6f} ({int(flipped.sum())}), the rest's mean |diff| "
+        f"{rest_mean:.3e}, max {rest_max:.3e}")
+    if flip_bar:
+        check(flipped.float().mean().item() <= 2e-3 and rest_mean < 1e-4,
+              f"{label}: small frame disagrees with the jnp backend (flip budget, mean of the "
+              "rest)")
+    else:
+        check(diff.mean().item() < 1e-4 and (diff > 1e-2).float().mean().item() < 5e-3,
+              f"{label}: small frame disagrees with the jnp backend")
 
     with torch.no_grad():
         step(1, backward=False)
@@ -2483,6 +2549,289 @@ def root_entries_phase(card, results):
     return out
 
 
+# --------------------------------------------------------------------------
+# Path L: two light sources of unequal face counts, and none
+# --------------------------------------------------------------------------
+
+# With no light the step launches its route's closest-hit search once, and
+# no shadow query; "auto" and "fused" go to lane (the fused gate takes a
+# scene with a light only, both packages' rule).
+NOLIGHT_ROUTES = {"auto": "lane", "fused": "lane", "lane": "lane", "mxtile": "mxtile",
+                  "tile": "tile"}
+# Each search route's closest-hit kernel and its search and occlusion hooks.
+SEARCH = {"lane": ("lane_kernel", lane_pallas.lane_tri_search, None),
+          "mxtile": ("mxu_kernel", rt_mxu.mxu_tile_search, rt_mxu.mxu_tile_occlusion),
+          "tile": ("tile_kernel", rt_tile.tile_tri_search, rt_tile.tile_occlusion)}
+# Each route's launches in one depth-1 step of a lit scene: (forward, fwd+bwd).
+LIT_LAUNCHES = {"fused": (dict(fused_tables=1, fused_kernel=1),
+                          dict(fused_tables=1, fused_kernel=1, lane_kernel=2)),
+                "mxtile": (dict(mxu_kernel=1, mxu_occl_kernel=1),) * 2,
+                "tile": (dict(tile_kernel=1, tile_occl_kernel=1),) * 2}
+VARIANT_WH = 512  # path L5's frames (tests/test_variants.py's camera, square)
+# tests/test_round2_fixes.py:121-160's light of four faces (12 corners), for
+# reference_cpp's corner draws.
+FOUR_FACE_LIGHT = np.asarray([
+    [[0.0, 5.0, 0.0], [1.0, 5.0, 0.0], [0.0, 5.0, 1.0]],
+    [[9.0, 5.0, 9.0], [8.0, 5.0, 9.0], [9.0, 5.0, 8.0]],
+    [[4.0, 5.0, 4.0], [5.0, 5.0, 4.0], [4.0, 5.0, 5.0]],
+    [[7.0, 5.0, 1.0], [6.0, 5.0, 1.0], [7.0, 5.0, 2.0]],
+], np.float32)
+
+
+def counts_of(**kw):
+    """Every wrapper's launch count: kw's, and 0 for the others."""
+    return {name: kw.get(name, 0) for name in KERNELS}
+
+
+def ceiling_light():
+    """Path L2's second Cornell light: four triangles (two quads) on the
+    ceiling beside the two-triangle light, with its material."""
+    y = 1.98
+    quads = [((0.4, y, -0.4), (0.4, y, -0.8), (0.6, y, -0.8), (0.6, y, -0.4)),
+             ((0.6, y, -0.4), (0.6, y, -0.8), (0.8, y, -0.8), (0.8, y, -0.4))]
+    return MeshData(name="light2", vertices=_quad_tris(quads), normals=None, uv=None,
+                    material=_CORNELL_MATERIALS["light"])
+
+
+def lights_line(label, scene, cfg):
+    lt = scene.lights
+    say(f"{label}: {int(scene.triangles.valid.sum())} triangles in {scene.triangles.capacity} "
+        f"slots, lights {lt.num_lights} of faces {lt.face_count.tolist()}; backend "
+        f"{cfg.backend!r} resolves to {resolve_backend(cfg, scene)!r}")
+
+
+def shadow_rows(label, seen, r, lights):
+    """The frame made a camera search and one shadow query of r x lights rays."""
+    check(len(seen) == 2 and seen[1][0] and seen[1][1].shape[0] == r * lights,
+          f"{label}: searches {[(w[0], w[1].shape[0]) for w in seen]}, want a camera search and "
+          f"a shadow query of {r} x {lights} rays")
+
+
+def draws_check(label, scene, mode, n=1 << 20):
+    """sample_lights on the card equal bit for bit to the CPU's (points and
+    light triangles), at bounce 1, seed 7."""
+    ids = torch.arange(n, device=scene.triangles.v0.device) * 3 + 1
+    got = sample_lights(scene, 7, ids, 1, mode)
+    want = sample_lights(scene.to("cpu"), 7, ids.cpu(), 1, mode)
+    identical(f"sample_lights [{label}, {mode}] on the card vs the CPU",
+              (got[0].cpu(), got[1].cpu()), want[:2])
+    say(f"sample_lights [{label}, {mode}]: {n} rays x {got[2]} lights, points and triangles "
+        "bit-equal to the CPU's")
+    return got[0]
+
+
+def fused_identical(card, o, d, scene, ids, cfg, what):
+    """`fused_kernel_check`, and K3 bit-identical to its plain version."""
+    rec = fused_kernel_check(card, o, d, scene, ids, cfg, what)
+    check(rec["max_abs_err"] == 0.0, f"fused_kernel [{what}]: max abs err {rec['max_abs_err']} "
+          "from its plain version, not bit-identical")
+    return dict(rec, at=what)
+
+
+def two_light_flagship_leg(card, results, auto):
+    """L1: the flagship's meshes and a second area light, 1920x1080, mxtile:
+    K1 and K2 on the camera and the R x 2 shadow wavefronts against their
+    plain versions, then the path (one K1 and one K2 per step)."""
+    scene = scene_from_mesh(bench_meshes() + [_area_light(center=(0.0, 6.0, -2.0), half=1.5)])
+    cam = camera((0.0, 2.0, 6.0), 1920, 1080)
+    lights_line("L1 flagship, two lights", scene, auto)
+    o, d, ids = rays(cam, 1920, 1080)
+    seen = capture_wavefronts(o, d, scene, ids, auto, rt_mxu.mxu_tile_search,
+                              rt_mxu.mxu_tile_occlusion)
+    shadow_rows("L1", seen, o.shape[0], 2)
+    del o, d, ids
+    mxtile_kernels(card, seen, results, what="L1 flagship + 2nd light 1080p", key="two_lights")
+    del seen
+    fwd, bwd = LIT_LAUNCHES["mxtile"]
+    return path_phase(card, "L1 flagship two lights", scene, cam, 1920, 1080, auto, "mxtile",
+                      list(fwd), list(bwd), results, small=(64, 48),
+                      exact={"forward": counts_of(**fwd), "fwd+bwd": counts_of(**bwd)})
+
+
+def two_light_cornell_leg(card, results, auto):
+    """L2: the Cornell shell and a four-face ceiling light (faces 2 and 4),
+    1024x768, fused: the table build bit-equal to its plain version on a
+    CPU copy, K3 bit-identical to its plain version at depth 1 and 3, K4 on
+    the backward's camera and R x 2 shadow wavefronts, the light draws on
+    the card equal to the CPU's, then the path at depth 1 and 3."""
+    scene = scene_from_mesh(_cornell_shell() + [ceiling_light()])
+    check(scene.lights.face_count.tolist() == [2, 4]
+          and fused_pallas.fused_supported(scene, 3, "area"),
+          "L2: the Cornell scene's lights are not of faces 2 and 4 within the fused gate")
+    cam = camera((0.0, 1.0, 2.0), 1024, 768)
+    lights_line("L2 Cornell, two lights", scene, auto)
+    results["fused_tables"]["two_lights"] = fused_tables_check(card, "L2 Cornell two lights",
+                                                               scene)
+    o, d, ids = rays(cam, 1024, 768)
+    for depth in (1, 3):
+        what = f"L2 Cornell two lights 1024x768, depth {depth}"
+        results["fused_kernel"][f"two_lights_depth{depth}"] = fused_identical(
+            card, o, d, scene, ids, auto.replace(depth=depth), what)
+    # The backward re-derives the frame on lane: its camera and shadow searches.
+    seen = capture_wavefronts(o, d, scene, ids, auto.replace(backend="lane"),
+                              lane_pallas.lane_tri_search)
+    check(len(seen) == 2 and seen[1][1].shape[0] == 2 * o.shape[0],
+          f"L2: the lane route made searches of {[w[1].shape[0] for w in seen]} rays, want "
+          f"{o.shape[0]} and {2 * o.shape[0]}")
+    for key, wavefront in zip(("camera", "shadow"), seen):
+        results["lane_kernel"][f"two_lights_{key}"] = lane_check(
+            card, f"L2 Cornell two lights {key} wavefront", wavefront)
+    del seen, o, d, ids
+    draws_check("L2 Cornell two lights", scene, "area")
+    out = {}
+    for depth in (1, 3):
+        fwd, bwd = LIT_LAUNCHES["fused"]
+        # The backward's lane route: a camera and a shadow search per bounce.
+        bwd = dict(bwd, lane_kernel=2 * depth)
+        out[f"depth{depth}"] = path_phase(
+            card, f"L2 Cornell two lights, depth {depth}", scene, cam, 1024, 768,
+            auto.replace(depth=depth), "fused", list(fwd), list(bwd), results, min_nonzero=7,
+            small=(128, 96), exact={"forward": counts_of(**fwd), "fwd+bwd": counts_of(**bwd)})
+    return out
+
+
+def two_light_tile_leg(card, results, auto):
+    """L3: a subdivision-6 icosphere, the ground plane and two area lights
+    (one segment of the tile route), 1920x1080: K5 and K6 (on the R x 2
+    shadow wavefront) bit-identical to their plain versions on a
+    TILE_SLICE-ray slice, then the path (one K5 and one K6 per step)."""
+    scene = scene_from_mesh([icosphere_mesh(subdivisions=6), _ground_plane(), _area_light(),
+                             _area_light(center=(3.0, 4.0, 2.0), half=0.5)])
+    n = scene.triangles.capacity
+    check(rt_mxu.MXU_TRI_LIMIT < n <= rt_tile.TILE_TRI_LIMIT,
+          f"L3: {n} triangle slots are not one tile segment above the mxtile limit")
+    cam = camera((0.0, 2.0, 6.0), 1920, 1080)
+    lights_line("L3 icosphere, two lights", scene, auto)
+    o, d, ids = rays(cam, 1920, 1080)
+    seen = capture_wavefronts(o, d, scene, ids, auto, rt_tile.tile_tri_search,
+                              rt_tile.tile_occlusion)
+    shadow_rows("L3", seen, o.shape[0], 2)
+    del o, d, ids
+    tile_kernels(card, seen, 1920, results, what="L3 icosphere(6) + 2 lights 1920x1080",
+                 key="two_lights", lights=2)
+    del seen
+    fwd, bwd = LIT_LAUNCHES["tile"]
+    return path_phase(card, "L3 tile two lights", scene, cam, 1920, 1080, auto, "tile",
+                      list(fwd), list(bwd), results,
+                      exact={"forward": counts_of(**fwd), "fwd+bwd": counts_of(**bwd)})
+
+
+def nolight_leg(card, results):
+    """L4: empty_nolight at 1024x768: each route's search kernel (K4, K1, K5)
+    on the frame's camera wavefront, the only one (no shadow query), against
+    its plain version; then each backend's path: exactly black, zero and
+    finite gradients, its route's search launched once per step and no
+    other kernel (no zero-size launch)."""
+    scene = cornell_variant("empty_nolight")
+    check(scene.lights.num_lights == 0, "L4: empty_nolight has a light")
+    cam = camera((0.0, 1.0, 2.0), 1024, 768)
+    o, d, ids = rays(cam, 1024, 768)
+    for route, (_, search, occlusion) in SEARCH.items():
+        seen = capture_wavefronts(o, d, scene, ids, RenderConfig(backend=route), search,
+                                  occlusion)
+        check(len(seen) == 1 and not seen[0][0], f"L4 {route}: {len(seen)} searches, want the "
+              "camera search alone")
+        what = f"L4 empty_nolight 1024x768 {route}"
+        if route == "lane":
+            results["lane_kernel"]["nolight"] = lane_check(card, what, seen[0])
+        elif route == "mxtile":
+            mxtile_kernels(card, seen, results, what=what, key="nolight")
+        else:
+            tile_kernels(card, seen, 1024, results, what=what, key="nolight")
+    del o, d, ids, seen
+    out = {}
+    for backend, route in NOLIGHT_ROUTES.items():
+        cfg = RenderConfig(backend=backend)
+        lights_line(f"L4 empty_nolight, {backend}", scene, cfg)
+        kernel = SEARCH[route][0]
+        once = counts_of(**{kernel: 1})
+        out[backend] = path_phase(card, f"L4 empty_nolight {backend}", scene, cam, 1024, 768, cfg,
+                                  route, [kernel], [kernel], results,
+                                  small=(128, 96), lit=False,
+                                  exact={"forward": once, "fwd+bwd": once})
+    return out
+
+
+def variants_leg(card, results, auto):
+    """L5: the ten Cornell variants at 512x512 through "auto": each held to
+    path_phase's checks (its full frame against the jnp route on the card,
+    `flip_bar`: the jnp route's eps-window near-ties at the shells' seams
+    flip up to 49 pixels of a 512x512 frame from every search route's,
+    lane's and mxu's too, 1.4e-4 to 2.5e-4 of mean |diff| on the empty
+    shells, and the sphere variant's highlights differ by up to 1e-3 on
+    the card), its route's kernels and no other, the Cornell
+    signature (red left, green right) where tests/test_variants.py checks
+    it; then reference_cpp's draws on a light of four faces equal to the
+    CPU's."""
+    cam = camera((0.0, 1.0, 2.0), VARIANT_WH, VARIANT_WH)
+    out = {}
+    for name in CORNELL_VARIANTS:
+        scene = cornell_variant(name)
+        route = resolve_backend(auto, scene)
+        lights_line(f"L5 {name}", scene, auto)
+        if scene.lights.num_lights:
+            fwd, bwd = LIT_LAUNCHES[route]
+            lit = dict(lit=True, min_nonzero=7)
+        else:
+            fwd = bwd = {SEARCH[route][0]: 1}
+            lit = dict(lit=False)
+        out[name] = dict(path_phase(card, f"L5 {name}", scene, cam, VARIANT_WH, VARIANT_WH, auto,
+                                    route, list(fwd), list(bwd), results,
+                                    small=(VARIANT_WH, VARIANT_WH), flip_bar=True,
+                                    exact={"forward": counts_of(**fwd),
+                                           "fwd+bwd": counts_of(**bwd)}, **lit),
+                         backend=route)
+        # Each route's kernels on the frame against their plain versions.
+        what = f"L5 {name} {VARIANT_WH}x{VARIANT_WH}"
+        o, d, ids = rays(cam, VARIANT_WH, VARIANT_WH)
+        if route == "fused":
+            results["fused_kernel"].setdefault("variants", {})[name] = fused_identical(
+                card, o, d, scene, ids, auto, what)
+        elif route == "mxtile":
+            seen = capture_wavefronts(o, d, scene, ids, auto, rt_mxu.mxu_tile_search,
+                                      rt_mxu.mxu_tile_occlusion)
+            mxtile_kernels(card, seen, results, what=what, key=f"variant_{name}")
+            del seen
+        else:
+            seen = capture_wavefronts(o, d, scene, ids, auto, lane_pallas.lane_tri_search)
+            results["lane_kernel"][f"variant_{name}"] = lane_check(card, what, seen[0])
+            del seen
+        del o, d, ids
+        if name in ("original", "mirror", "glossy", "sphere", "water"):
+            # tests/test_variants.py's columns 1 and -2 of 24, at this width.
+            img = render(scene, cam, VARIANT_WH, VARIANT_WH, auto)
+            h, k = VARIANT_WH // 2, VARIANT_WH // 16
+            left, right = img[h, k].tolist(), img[h, -k - 1].tolist()
+            check(left[0] > left[1] and right[1] > right[0],
+                  f"L5 {name}: left {left}, right {right}: not red left, green right")
+    quad = MeshData(name="light", vertices=FOUR_FACE_LIGHT, normals=None, uv=None,
+                    material=Material.make(ke=(10, 10, 10)))
+    floor = MeshData(name="floor", vertices=np.asarray([[[-9, 0, -9], [9, 0, -9], [0, 0, 9]]],
+                                                       np.float32),
+                     normals=None, uv=None, material=Material.make(kd=(1, 1, 1)))
+    p = draws_check("L5 four-face light", scene_from_mesh([floor, quad]), "reference_cpp")
+    corners = torch.unique(p.reshape(-1, 3).cpu(), dim=0)
+    want = torch.unique(torch.from_numpy(FOUR_FACE_LIGHT[[0, 0, 0, 1], [0, 1, 2, 0]]), dim=0)
+    check(torch.equal(corners, want), f"L5: reference_cpp drew corners {corners.tolist()}, "
+          f"not {{f0c0, f0c1, f0c2, f1c0}}")
+    return out
+
+
+def lights_phase(card, results, auto):
+    """Path L: L1-L5."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = {"L1_flagship": two_light_flagship_leg(card, results, auto),
+           "L2_cornell": two_light_cornell_leg(card, results, auto),
+           "L3_tile": two_light_tile_leg(card, results, auto),
+           "L4_nolight": nolight_leg(card, results),
+           "L5_variants": variants_leg(card, results, auto)}
+    out["wall_s"] = time.perf_counter() - t0
+    say(f"L: {out['wall_s']:.1f} s of smoke wall time  [{card}]")
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -2598,6 +2947,7 @@ def main():
     paths["sharded"] = sharded_phase(card, results, flag, flag_cam, corn, corn_cam)
     paths["scripts"] = scripts_phase(card, results)
     paths["root_entries"] = root_entries_phase(card, results)
+    paths["lights"] = lights_phase(card, results, auto)
     feeder_check(flag, flag_cam, 1920, 1080, auto)
     fused_feeder_check(card, corn, corn_cam, 1024, 768, auto)
     layer_phase(card, seen)

@@ -154,7 +154,9 @@ def shade(o, d, hit: HitRecord, scene: Scene, seed: int, ray_ids: torch.Tensor,
 
     p_light, _, num_l = sample_lights(scene, seed, ray_ids, bounce, light_mode)
     if num_l == 0:
-        return torch.zeros((r, 3), dtype=torch.float32, device=o.device), hit_p, normal, mat["ks"]
+        # The sum over no light source: exactly black, and still a function of
+        # the scene, so that a backward runs and gives zero gradients.
+        return torch.sum(hit_p[:, None, :][:, :0], dim=1), hit_p, normal, mat["ks"]
 
     l_vec = p_light - hit_p[:, None, :]  # [R, L, 3]
     dist = torch.sqrt(torch.clamp(torch.sum(l_vec * l_vec, dim=-1), min=_TINY))  # [R, L]

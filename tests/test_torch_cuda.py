@@ -30,7 +30,7 @@ from esctp1raytracer_tpu_torch.core.render import RenderConfig, render  # noqa: 
 from esctp1raytracer_tpu_torch.kernels import fused_pallas, lane_pallas, rt_mxu, rt_tile  # noqa: E402
 from esctp1raytracer_tpu_torch.parallel.sharding import float_params, merge_params  # noqa: E402
 from esctp1raytracer_tpu_torch.scene import builders as b  # noqa: E402
-from esctp1raytracer_tpu_torch.scene.types import TriangleBuffer  # noqa: E402
+from esctp1raytracer_tpu_torch.scene.types import MeshData, TriangleBuffer  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -149,6 +149,50 @@ def test_occl_kernel_matches_plain(dev, scene, name):
     assert 0.01 < occ[:r].float().mean().item() < 0.99
 
 
+def test_occl_kernel_two_light_shadow_wavefront(dev):
+    """K2 on the shadow wavefront of a two-light frame as `shade` builds it
+    (R x 2 rays, ray-major: each ray's lights in order), with the oversized
+    sub-block, against its plain version and the oversized sweep."""
+    from esctp1raytracer_tpu_torch.core.render import trace_rays
+
+    sc = b.scene_from_mesh([
+        b.icosphere_mesh(subdivisions=3, radius=1.0, center=(-1.3, 1.0, 0.0)),
+        b._ground_plane(),
+        b._area_light(center=(0.0, 6.0, 2.0), half=1.5),
+        b._area_light(center=(-3.0, 4.0, -1.0), half=0.5),
+    ], device="cpu").to(dev)
+    o, d = (x.reshape(-1, 3) for x in CAM.to(dev).ray_grid(96, 72))
+    seen = []
+
+    def occl(oo, dd, t_limit, tris, eps):
+        seen.append((oo, dd, t_limit, tris))
+        return rt_mxu.mxu_tile_occlusion(oo, dd, t_limit, tris, eps)
+
+    search = lambda *a, **k: rt_mxu.mxu_tile_search(*a, **k)  # noqa: E731
+    search.occlusion = occl
+    with torch.no_grad():
+        trace_rays(o, d, sc, torch.arange(o.shape[0], device=dev), RenderConfig(backend="mxtile"),
+                   tri_search=search)
+    (hp, sd, tl, tris), = seen
+    r = hp.shape[0]
+    assert r == 2 * o.shape[0] and torch.equal(hp[0::2], hp[1::2])
+    eps, rays, aabbs, tfq = _mxu_args(tris, hp, sd, tl, True)
+    _, ov_buf, _ = rt_mxu._segments(tris, True)
+    ov, _ = rt_tile._pack_sub(ov_buf)
+    cnt = torch.full((rays.shape[0] // 128,), -1, dtype=torch.int32, device=dev)
+    n0 = rt_mxu.mxu_occl_kernel.launches
+    occ = rt_mxu.mxu_occl_kernel(eps, rays, aabbs, tfq, ov, cnt)
+    occ0 = rt_mxu.mxu_occl_kernel(eps, rays, aabbs, tfq)
+    torch.cuda.synchronize()
+    assert rt_mxu.mxu_occl_kernel.launches == n0 + 2
+    assert torch.equal(cnt, _mxu_cnt(rays, aabbs))
+    occ2 = rt_mxu._mxu_occl_plain(eps, rays, aabbs, tfq, ov)
+    assert (occ == occ2).float().mean().item() >= 0.999
+    split = (occ0[:r] > 0) | rt_tile._oversized_occl(hp, sd, tl, ov_buf, EPS)
+    assert torch.equal(occ[:r] > 0, split)
+    assert 0.01 < occ[:r].float().mean().item() < 0.99
+
+
 def test_mxtile_segments_on_card_match_cpu(dev, scene, monkeypatch):
     """A multi-segment table (MXU_TRI_LIMIT cut to 1024: three segments) on
     the card against the port on the CPU (plain versions): first-wins for
@@ -247,12 +291,26 @@ def test_lane_kernel_matches_plain(dev, scene, name):
     assert t0.shape == (0,) and lane_pallas.lane_kernel.launches == n0 + 1
 
 
+def _cornell_two_lights():
+    """The Cornell shell and a second light of four faces on the ceiling:
+    lights of 2 and 4 faces (L*F = 8, the first light's tri_idx padded)."""
+    y = 1.98
+    quads = [((0.4, y, -0.4), (0.4, y, -0.8), (0.6, y, -0.8), (0.6, y, -0.4)),
+             ((0.6, y, -0.4), (0.6, y, -0.8), (0.8, y, -0.8), (0.8, y, -0.4))]
+    light = MeshData(name="light2", vertices=b._quad_tris(quads), normals=None, uv=None,
+                     material=b._CORNELL_MATERIALS["light"])
+    sc = b.scene_from_mesh(b._cornell_shell() + [light], device="cpu")
+    assert sc.lights.face_count.tolist() == [2, 4]
+    return sc
+
+
 FUSED_SCENES = {
     "cornell_g1": lambda: b.cornell_box(pad_multiple=128, device="cpu"),
     "cornell": lambda: b.cornell_box(device="cpu"),
     "mixed": lambda: b.mixed_scene(device="cpu"),
     "mirror": lambda: b.cornell_variant("mirror", device="cpu"),
     "limit": lambda: b.random_scene(2044, extent=4.0, device="cpu"),  # 2,048 valid
+    "two_lights": _cornell_two_lights,
 }
 
 
@@ -278,7 +336,9 @@ def test_fused_tables_kernel_matches_cpu(dev, name):
 
 @pytest.mark.parametrize("name,cam,depth", [("cornell", CORNELL_CAM, 1),
                                             ("mixed", MIXED_CAM, 4),
-                                            ("mirror", CORNELL_CAM, 2)])
+                                            ("mirror", CORNELL_CAM, 2),
+                                            ("two_lights", CORNELL_CAM, 1),
+                                            ("two_lights", CORNELL_CAM, 3)])
 def test_fused_kernel_matches_plain(dev, name, cam, depth):
     sc = FUSED_SCENES[name]().to(dev)
     o, d = (x.reshape(-1, 3).contiguous() for x in cam.to(dev).ray_grid(96, 71))
