@@ -9,9 +9,13 @@ leaf; `vs_baseline` is the Cornell box's forward at 1024x768 (the fused
 route) against the reference C++ renderer's measured rays/s in
 `reference_baseline.json`, as in bench.py.
 
-Protocol (bench.py's `time_it`): one further warm call, then the best of
-3 batches of 5 calls, each batch timed with CUDA events and the card
-synchronised (`utils/timing.elapsed_ms`), the host clock beside it. The
+Each timed call replays one CUDA graph on the card (`utils/graphs.py`),
+as bench.py jits `fwd_bwd`, `fwd_only` and the Cornell loop: the first
+call of each runs eagerly (the warm-up, counted for "launches"), the
+second captures. Protocol (bench.py's `time_it`): one further warm call
+(the capture), then the best of 3 batches of 5 calls, each batch timed
+with CUDA events and the card synchronised (`utils/timing.elapsed_ms`),
+the host clock beside it. The
 ray ids move on by the frame's ray count on every call, so no two calls
 draw the same light samples. One Cornell call is 8 renders, ids + i.
 
@@ -53,6 +57,7 @@ from esctp1raytracer_tpu_torch.kernels import (
 from esctp1raytracer_tpu_torch.scene.builders import bench_scene
 from esctp1raytracer_tpu_torch.scene.types import float_params, merge_params
 from esctp1raytracer_tpu_torch.utils import device as dev
+from esctp1raytracer_tpu_torch.utils.graphs import graphed
 from esctp1raytracer_tpu_torch.utils.timing import elapsed_ms
 
 METRIC = "rays_per_s_chip_fwd_bwd_1080p"
@@ -67,19 +72,22 @@ KERNEL_MODULES = {"rt_mxu": rt_mxu, "lane": lane_pallas, "fused": fused_pallas,
 
 
 def headline(scene, o, d, cfg):
-    """The headline's two calls on the frame's rays [R, 3]: fwd(ids) -> the
-    loss sum(color^2), fwd_bwd(ids) -> its gradients with respect to every
-    float leaf (made leaves that require grad once, here)."""
+    """The headline's two calls on the frame's rays [R, 3], each one CUDA
+    graph on the card with the ray ids its input: fwd(ids) -> the loss
+    sum(color^2), fwd_bwd(ids) -> its gradients with respect to every float
+    leaf (made leaves that require grad once, here)."""
     params = [p.detach().requires_grad_(True) for p in float_params(scene)]
 
     def loss(ids):
         color = trace_rays(o, d, merge_params(scene, params), ids, cfg)
         return torch.sum(color * color)
 
+    @graphed
     def fwd(ids):
         with torch.no_grad():
             return loss(ids)
 
+    @graphed
     def fwd_bwd(ids):
         return torch.autograd.grad(loss(ids), params, allow_unused=True)
 
@@ -87,9 +95,11 @@ def headline(scene, o, d, cfg):
 
 
 def cornell_call(scene, o, d, cfg):
-    """One timed Cornell call: CORNELL_REPS forward renders, ray ids + i
-    for the i-th (fresh light draws), their colors summed."""
+    """One timed Cornell call, one CUDA graph on the card: CORNELL_REPS
+    forward renders, ray ids + i for the i-th (fresh light draws; i is
+    added on the card), their colors summed."""
 
+    @graphed
     def call(ids):
         with torch.no_grad():
             return sum(torch.sum(trace_rays(o, d, scene, ids + i, cfg))

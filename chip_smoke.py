@@ -106,7 +106,21 @@ L. two light sources of unequal face counts, and none: (L1) the benchmark
    other (K3 bit-identical to its plain version on the fused ones), the
    Cornell signature; and reference_cpp's draws on a light of four faces
    on the card bit-equal to the CPU's, on exactly its corners {f0c0, f0c1,
-   f0c2, f1c0}.
+   f0c2, f1c0};
+M. the JAX package's compiled steps as CUDA graphs (utils/graphs.py), each
+   captured and replayed against the same step run eagerly (under
+   `graphs.disabled()`): the flagship forward and fwd+bwd through
+   `bench_torch.headline`, the Cornell call of 8 renders
+   (`bench_torch.cornell_call`), config 4 fwd+bwd, config 5 fwd+bwd (one
+   timed call each way), and `fit_scene` on the flagship (3 steps each way,
+   then its step `optimize.loss_and_grad`): the image or the forward's loss
+   bit-equal to the eager step's, the gradients within `grads_agreement`'s
+   bars, each kernel's launches per replay equal to the eager step's, two
+   replays at other ray ids (new kd for the fit step) other outputs, each
+   equal to the eager step's there; then a capture at TRACE level, which
+   must raise. Printed per step: the eager and graphed ms (CUDA events,
+   median of 5, ids moved on per call), the host ms per call, the capture
+   ms, the peak memory and the busy share of one step each way.
 
 Phases, any failure exits non-zero (no phase catches its own failure):
 1. device: needs a CUDA device (there is no CPU path); prints the card's
@@ -182,13 +196,16 @@ Phases, any failure exits non-zero (no phase catches its own failure):
    step likewise (each rank, each backend). Path L: each leg's forward and
    fwd+bwd with the counts set to 0 just before and read just after, held
    to the route's exact counts; the resolved backend, the times, the peak
-   memory and each kernel's time beside its bound printed per leg;
+   memory and each kernel's time beside its bound printed per leg. Path M:
+   each step's eager call and one replay with the counts set to 0 just
+   before and read just after, held equal;
 5. prints the wall time, {"kernels": [...]} and, as the last line, the
    result line.
 
 Usage: python3 chip_smoke.py   (from the repository root)
        python3 chip_smoke.py --profile   (instead: one fwd+bwd step each of
-       the flagship, Cornell, config 4 and config 5 under torch.profiler: device
+       the flagship, Cornell, config 4 and config 5 under torch.profiler, and
+       a replay of the flagship's and config 4's as one CUDA graph: device
        operations, device time, busy share of the step, costliest kernels)
 """
 
@@ -240,7 +257,7 @@ from esctp1raytracer_tpu_torch.scene.builders import (
 from esctp1raytracer_tpu_torch.scene.matjson import load_obj_with_mat
 from esctp1raytracer_tpu_torch.scene.types import Material, MeshData, scene_to_numpy
 from esctp1raytracer_tpu_torch.utils import device as devinfo
-from esctp1raytracer_tpu_torch.utils import nativebuild, profiling
+from esctp1raytracer_tpu_torch.utils import debug, graphs, nativebuild, profiling
 from esctp1raytracer_tpu_torch.utils.checkpoint import load_checkpoint
 from esctp1raytracer_tpu_torch.utils.timing import elapsed_ms
 
@@ -1497,7 +1514,13 @@ def profile_phase(card, cases):
     from torch.profiler import ProfilerActivity, profile
 
     for label, (scene, cam, w, h, cfg) in cases.items():
-        step = make_step(scene, *rays(cam, w, h), cfg)
+        o, d, ids = rays(cam, w, h)
+        if label.endswith("(graphed)"):  # path M's step, one CUDA graph
+            _, call = graphed_frame(scene, o, d, cfg)
+            step = lambda k: call(ids + k * ids.shape[0])  # noqa: E731
+            step(-1)  # the first call runs eagerly, the next captures
+        else:
+            step = make_step(scene, o, d, ids, cfg)
         step(0)
         walls = []
         for k in range(3):
@@ -1526,6 +1549,7 @@ def profile_phase(card, cases):
             f"unprofiled one  [{card}]")
         for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
             say(f"profile {label}:   {ms:8.2f} ms x {n:5d}  {name[:100]}")
+        graphs.clear()
 
 
 # --------------------------------------------------------------------------
@@ -1841,9 +1865,11 @@ def image_agreement(label, got, want, held=True):
 
 
 def grads_agreement(label, loss, grads, ref_loss, ref_grads):
-    """The loss within 1e-5 relative and each leaf within tests/test_sharding.py
-    :150-155's bars: |g - ref| <= 3e-4 * max|ref| + 3e-3 * |ref|."""
-    loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    """The loss within 1e-5 relative (unless both are None) and each leaf
+    within tests/test_sharding.py:150-155's bars: |g - ref| <= 3e-4 * max|ref|
+    + 3e-3 * |ref|."""
+    loss_rel = (0.0 if loss is None and ref_loss is None
+                else abs(float(loss) - float(ref_loss)) / abs(float(ref_loss)))
     worst = 0.0
     for g, r in zip(grads, ref_grads):
         scale = max(float(np.abs(r).max()), 1e-6)
@@ -2832,6 +2858,256 @@ def lights_phase(card, results, auto):
     return out
 
 
+# --------------------------------------------------------------------------
+# Path M: the JAX package's compiled steps as CUDA graphs (utils/graphs.py)
+# --------------------------------------------------------------------------
+
+
+def timed_calls(call, ids, stride, reps):
+    """`reps` calls at ids moved on by `stride` per call: per call, the CUDA
+    event ms from its start to its end and the host ms until it returned
+    (the card synchronised before each) -> (event medians, host median)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev, host = [], []
+    for k in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        call(ids + (100 + k) * stride)
+        end.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        ev.append(start.elapsed_time(end))
+    return statistics.median(ev), statistics.median(host), ev
+
+
+def busy_share(call, ids):
+    """One call under torch.profiler: (device ms, busy share), or (None, None)
+    when the profiler recorded no device operation in it."""
+    prof = profiling.device_time(lambda: call(ids))
+    if not prof["device_ops"]:
+        return None, None
+    return prof["device_ms"], prof["busy_share"]
+
+
+def held_outputs(label, got, want):
+    """The image (or else the loss) bit-equal to the eager step's, and the
+    gradients within grads_agreement's bars; returns that worst share."""
+    key = next((k for k in ("image", "loss") if k in want), None)
+    if key is not None:
+        check(torch.equal(got[key], want[key]), f"{label}: the graphed {key} differs from the "
+              "eager one")
+    if "grads" not in want:
+        return None
+    to_np = lambda gs: [np.zeros(1, np.float32) if g is None else g.cpu().numpy() for g in gs]
+    loss = (float(got["loss"]), float(want["loss"])) if "loss" in want else (None, None)
+    return grads_agreement(label, loss[0], to_np(got["grads"]), loss[1],
+                           to_np(want["grads"]))["worst_of_bar"]
+
+
+def graph_step(card, results, label, graphed_fn, call, ids, stride, reps=5):
+    """Path M for one step. `call(ids)` runs `graphed_fn` and returns a dict of
+    "image" and / or "loss" and "grads"; under `graphs.disabled()` it is the
+    eager step. Checks (a) the graphed outputs against the eager ones, (b)
+    the launches per replay equal to the eager step's, (c) two replays at
+    other ids give other images, each equal to the eager one at its ids;
+    prints (d) the eager and graphed ms (CUDA events, median of `reps`, ids
+    moved on per call), the host ms per call, the capture ms, the peak
+    memory and the busy share of one step of each."""
+    with graphs.disabled():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        want, eager = launches.counted(lambda: call(ids))
+        eager_peak = torch.cuda.max_memory_allocated() / 2**30
+        eager_ms, eager_host, eager_all = timed_calls(call, ids, stride, reps)
+    call(ids + stride)  # the first graphed call runs eagerly: the warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    call(ids + 2 * stride)  # the capture, then its replay
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    check(len(graphed_fn.cache) == 1, f"M {label}: {len(graphed_fn.cache)} cache entries")
+    got, replay = launches.counted(lambda: call(ids))
+    graph_peak = torch.cuda.max_memory_allocated() / 2**30
+    check(replay == eager and sum(eager.values()) > 0,
+          f"M {label}: launches per replay {replay}, the eager step's {eager}")
+    worst = held_outputs(f"M {label}", got, want)
+    other = call(ids + 3 * stride)
+    with graphs.disabled():
+        other_want = call(ids + 3 * stride)
+    held_outputs(f"M {label} at other ids", other, other_want)
+    key = next((k for k in ("image", "loss") if k in want), None)
+    moved = (not torch.equal(other[key], got[key]) if key else
+             any(not torch.equal(a, b) for a, b in zip(other["grads"], got["grads"])
+                 if a is not None))
+    check(moved, f"M {label}: replays at other ray ids gave the same {key or 'gradients'}")
+    graph_ms, graph_host, graph_all = timed_calls(call, ids, stride, reps)
+    dev_graph, busy_graph = busy_share(call, ids)
+    with graphs.disabled():
+        dev_eager, busy_eager = busy_share(call, ids)
+    for name in eager:
+        results[name]["launches"] += eager[name] + replay[name]
+    fmt = lambda x: "not measured" if x is None else f"{x:.1%}"
+    say(f"M {label}: launches per step {dict((k, v) for k, v in eager.items() if v)}, equal "
+        f"per replay; {key or 'gradients'} {'bit-equal to' if key else 'within the bars of'} "
+        f"the eager step's, also at other ray ids (gradients: worst element at "
+        f"{'-' if worst is None else f'{worst:.3f}'} of its bar)")
+    say(f"M {label}: eager {eager_ms:.3f} ms (host {eager_host:.3f} ms per call), graphed "
+        f"{graph_ms:.3f} ms (host {graph_host:.3f} ms per call), median of {reps}; capture "
+        f"{capture_ms:.1f} ms; peak {eager_peak:.2f} GiB eager, {graph_peak:.2f} GiB with the "
+        f"graph; busy {fmt(busy_eager)} eager, {fmt(busy_graph)} graphed  [{card}]")
+    return {"eager_ms": eager_ms, "graphed_ms": graph_ms, "eager_host_ms": eager_host,
+            "graphed_host_ms": graph_host, "eager_all_ms": eager_all, "graphed_all_ms": graph_all,
+            "capture_ms": capture_ms, "eager_peak_gib": eager_peak, "graphed_peak_gib": graph_peak,
+            "eager_device_ms": dev_eager, "graphed_device_ms": dev_graph,
+            "eager_busy": busy_eager, "graphed_busy": busy_graph, "launches": eager,
+            "grads_worst_of_bar": worst}
+
+
+def graphed_frame(scene, o, d, cfg):
+    """A fwd+bwd step as one graph: ids -> (image, loss, gradients of
+    sum(color^2) with respect to every float leaf)."""
+    params = [p.detach().requires_grad_(True) for p in float_params(scene)]
+
+    @graphs.graphed
+    def step(ids):
+        color = trace_rays(o, d, merge_params(scene, params), ids, cfg)
+        loss = torch.sum(color * color)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return color.detach(), loss.detach(), grads
+
+    def call(ids):
+        image, loss, grads = step(ids)
+        return {"image": image, "loss": loss, "grads": grads}
+
+    return step, call
+
+
+def fit_graph_leg(card, results, scene, cam, w, h, cfg, steps=3, lr=0.05):
+    """Three `fit_scene` steps on the flagship, graphed and eager (under
+    `graphs.disabled()`): the same launches (one K1 and one K2 per step),
+    the losses and the fitted kd within path H's bars; then the step's
+    loss and gradients (`optimize.loss_and_grad`) through `graph_step`, new
+    kd values in the place of new ray ids."""
+    with torch.no_grad():
+        target = render(scene, cam, w, h, cfg)
+    start = dataclasses.replace(scene, triangles=dataclasses.replace(
+        scene.triangles, kd=scene.triangles.kd * 0.5))
+    kw = dict(steps=steps, lr=lr, cfg=cfg, log_every=0,
+              param_filter=lambda i, leaf: leaf is start.triangles.kd)
+    runs = {}
+    for what in ("eager", "graphed"):
+        with graphs.disabled() if what == "eager" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit, counts = launches.counted(lambda: fit_scene(start, target, cam, **kw))
+            runs[what] = (fit, counts, (time.perf_counter() - t0) * 1e3)
+        for name, n in counts.items():
+            results[name]["launches"] += n
+    (ef, ec, ems), (gf, gc_, gms) = runs["eager"], runs["graphed"]
+    check(ec == gc_ and ec["mxu_kernel"] == steps and ec["mxu_occl_kernel"] == steps,
+          f"M fit_scene: launches {gc_} graphed, {ec} eager")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gf.losses, ef.losses))
+    kd_err = (gf.scene.triangles.kd - ef.scene.triangles.kd).abs().max().item()
+    say(f"M fit_scene {steps} steps: losses {[f'{x:.6e}' for x in gf.losses]} graphed, within "
+        f"{loss_rel:.3e} relative of eager (< {RESUME_RTOL}), kd within {kd_err:.3e} (< "
+        f"{RESUME_ATOL}); {ems:.1f} ms eager, {gms:.1f} ms graphed (first step eager, second "
+        f"the capture)  [{card}]")
+    check(loss_rel < RESUME_RTOL and kd_err < RESUME_ATOL, "M fit_scene: graphed and eager part")
+    frozen = tuple(not (leaf is scene.triangles.kd) for leaf in float_params(scene))
+    kd = scene.triangles.kd
+
+    def call(scale):
+        sc = dataclasses.replace(scene, triangles=dataclasses.replace(
+            scene.triangles, kd=kd * scale))
+        loss, grads = optimize.loss_and_grad(sc, target, cam, w, h, cfg, frozen)
+        return {"loss": loss, "grads": [g for g in grads if g is not None]}
+
+    graphs.clear()  # the fit above captured this key
+    out = graph_step(card, results, "fit step (loss_and_grad)", optimize.loss_and_grad, call,
+                     torch.full((), 0.5, device="cuda"), 0.001)
+    out.update(fit_eager_ms=ems, fit_graphed_ms=gms, fit_loss_rel=loss_rel, fit_kd_err=kd_err)
+    return out
+
+
+def trace_capture_check():
+    """(e): at TRACE level the first call runs eagerly and prints; the capture
+    that would follow raises."""
+    scene, cam = cornell_box(), camera((0.0, 1.0, 2.0), 64, 48)
+    level = debug.current_level()
+    debug.set_level(debug.TRACE)
+    try:
+        with torch.no_grad():
+            render(scene, cam, 64, 48, RenderConfig(backend="auto"))
+            try:
+                render(scene, cam, 64, 48, RenderConfig(backend="auto"))
+            except RuntimeError as exc:
+                raised = str(exc)
+            else:
+                raised = None
+    finally:
+        debug.set_level(level)
+    check(raised is not None and "TRACE" in raised, "M: a capture at TRACE level did not raise")
+    say(f"M TRACE: the second render at TRACE raised: {raised[:90]}...")
+
+
+def graph_phase(card, results, flag, flag_cam, corn, corn_cam, mixed, mixed_cam):
+    """Path M: each step the JAX package jits, captured and replayed, against
+    the eager port (`graph_step`): the flagship forward and fwd+bwd through
+    `bench_torch.headline`, the Cornell call of 8 renders
+    (`bench_torch.cornell_call`), config 4 fwd+bwd, config 5 fwd+bwd (one
+    timed call each way), `fit_scene` on the flagship; then a capture at
+    TRACE level, which must raise."""
+    import bench_torch
+
+    graphs.clear()
+    auto = RenderConfig(backend="auto")
+    out = {}
+    o, d, ids = rays(flag_cam, 1920, 1080)
+    fwd, fwd_bwd = bench_torch.headline(flag, o, d, auto)
+    out["flagship fwd"] = graph_step(card, results, "flagship fwd (bench_torch.headline)", fwd,
+                                     lambda i: {"loss": fwd(i)}, ids, ids.shape[0])
+    out["flagship fwd+bwd"] = graph_step(
+        card, results, "flagship fwd+bwd (bench_torch.headline)", fwd_bwd,
+        lambda i: {"grads": fwd_bwd(i)}, ids, ids.shape[0])
+    # What a replay keeps of the per-search table build (ROADMAP Queue 1 item
+    # 9a): its device time, which no graph removes.
+    with torch.no_grad():
+        for what, exclude in (("search", False), ("occlusion", True)):
+            list(rt_mxu._segments(flag.triangles, exclude)[0])
+            prof = profiling.device_time(lambda: list(rt_mxu._segments(flag.triangles,
+                                                                      exclude)[0]))
+            out[f"sort_pack_{what}"] = prof
+            say(f"M flagship sort + pack per {what}: {prof['device_ms']:.3f} ms of device time "
+                f"in {prof['device_ops']} operations, {prof['wall_ms']:.3f} ms of wall time "
+                f"eagerly  [{card}]")
+    graphs.clear()
+    o, d, ids = rays(corn_cam, 1024, 768)
+    cc = bench_torch.cornell_call(corn, o, d, auto.replace(backend="fused"))
+    out["Cornell x8"] = graph_step(card, results, "Cornell x8 (bench_torch.cornell_call)", cc,
+                                   lambda i: {"loss": cc(i)}, ids, ids.shape[0])
+    graphs.clear()
+    o, d, ids = rays(mixed_cam, 1920, 1080)
+    step, call = graphed_frame(mixed, o, d, auto.replace(depth=4))
+    out["config 4 fwd+bwd"] = graph_step(card, results, "config 4 fwd+bwd", step, call, ids,
+                                         ids.shape[0])
+    del step, call
+    graphs.clear()
+    soup = random_scene(100_000)
+    o, d, ids = rays(camera((0.0, 18.0, 45.0), 3840, 2160), 3840, 2160)
+    step, call = graphed_frame(soup, o, d, auto)
+    out["config 5 fwd+bwd"] = graph_step(card, results, "config 5 fwd+bwd", step, call, ids,
+                                         ids.shape[0], reps=1)
+    del step, call, soup, o, d, ids
+    graphs.clear()
+    out["fit_scene"] = fit_graph_leg(card, results, flag, flag_cam, 1920, 1080, auto)
+    graphs.clear()
+    trace_capture_check()
+    graphs.clear()
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -2870,8 +3146,10 @@ def main():
     d4 = auto.replace(depth=4)
     if args.profile:
         profile_phase(card, {"flagship": (flag, flag_cam, 1920, 1080, auto),
+                             "flagship (graphed)": (flag, flag_cam, 1920, 1080, auto),
                              "Cornell": (corn, corn_cam, 1024, 768, auto),
                              "config 4": (mixed, mixed_cam, 1920, 1080, d4),
+                             "config 4 (graphed)": (mixed, mixed_cam, 1920, 1080, d4),
                              "config 5": (soup, soup_cam, 3840, 2160, auto)})
         return
 
@@ -2948,6 +3226,8 @@ def main():
     paths["scripts"] = scripts_phase(card, results)
     paths["root_entries"] = root_entries_phase(card, results)
     paths["lights"] = lights_phase(card, results, auto)
+    paths["graphs"] = graph_phase(card, results, flag, flag_cam, corn, corn_cam, mixed,
+                                  mixed_cam)
     feeder_check(flag, flag_cam, 1920, 1080, auto)
     fused_feeder_check(card, corn, corn_cam, 1024, 768, auto)
     layer_phase(card, seen)

@@ -36,6 +36,12 @@ NO_HIT = -1
 SPHERE_PREHIT = True
 
 
+def vec3(like: torch.Tensor, x: float, y: float, z: float) -> torch.Tensor:
+    """The vector (x, y, z) in like's dtype on its device, made by fills: a
+    tensor copied from host memory could not be captured in a CUDA graph."""
+    return torch.stack([like.new_full((), v) for v in (x, y, z)])
+
+
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * b, dim=-1)
 
@@ -309,8 +315,8 @@ def closest_hit(o, d, scene: Scene, eps=EPS, block_size: int = 512,
     srow = select_rows(sph_packed, sphere_prim)  # [R, 4]
     c, r = srow[:, 0:3], srow[:, 3]
     m = is_s[:, None]
-    o_s = torch.where(m, o, o.new_tensor([0.0, 0.0, 3.0]))
-    d_s = torch.where(m, d, d.new_tensor([0.0, 0.0, -1.0]))
+    o_s = torch.where(m, o, vec3(o, 0.0, 0.0, 3.0))
+    d_s = torch.where(m, d, vec3(d, 0.0, 0.0, -1.0))
     c_s = torch.where(m, c, 0.0)
     r_s = torch.where(is_s, r, 1.0)
     t_sph, _ = sphere_intersect(o_s, d_s, c_s, r_s, eps)

@@ -33,6 +33,7 @@ from esctp1raytracer_tpu_torch.kernels.fused_pallas import (
 )
 from esctp1raytracer_tpu_torch.scene.types import Scene
 from esctp1raytracer_tpu_torch.utils.debug import TRACE, current_level
+from esctp1raytracer_tpu_torch.utils.graphs import graphed
 
 
 @dataclass(frozen=True)
@@ -165,9 +166,16 @@ def _trace_summary(bounce: int, hit) -> None:
           f"t[0]={t0} prim[0]={p0} u[0]={u0} v[0]={v0}", flush=True)
 
 
+@graphed(static_argnames=("width", "height", "cfg"))
 def render(scene: Scene, camera: Camera, width: int, height: int,
            cfg: RenderConfig = RenderConfig()) -> torch.Tensor:
-    """Render a [height, width, 3] float32 image (row h = image row h)."""
+    """Render a [height, width, 3] float32 image (row h = image row h).
+
+    On the card one CUDA graph per (scene and camera shapes, width, height,
+    cfg), as the JAX package jits it (utils/graphs.py): the camera rays,
+    `trace_rays` and the reshape. Under autograd with an input that
+    requires grad it runs eagerly, or inline in an enclosing capture.
+    """
     o, d = camera.ray_grid(width, height)
     o = o.reshape(-1, 3)
     d = d.reshape(-1, 3)

@@ -168,7 +168,7 @@ def shade(o, d, hit: HitRecord, scene: Scene, seed: int, ray_ids: torch.Tensor,
 
     # Missed primary rays: park the shadow origin far outside every box
     # so the culling drops them (the result is masked by `visible`).
-    far = hit_p.new_tensor([3e7, 3e7, 3e7])
+    far = hit_p.new_full((3,), 3e7)
     occl_origin = torch.where(hit.hit[:, None], hit_p, far)
 
     def flat(a):

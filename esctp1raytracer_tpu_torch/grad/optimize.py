@@ -5,9 +5,12 @@ arguments and Adam state: lists `m` and `v` and an int32 step `t`, so the
 checkpoint extras `adam_t`, `adam_m_{i}` and `adam_v_{i}` mean the same in
 both packages and a run started in one resumes in the other.
 
-Each step runs eagerly: the render, `torch.autograd.grad` of the
-mean-squared error with respect to the leaves that are fitted, and the
-Adam update under `torch.no_grad()`. With a `mesh` the loss and gradients
+Each step is the loss and its gradients, `loss_and_grad` (the render and
+`torch.autograd.grad` of the mean-squared error with respect to the
+leaves that are fitted), then the Adam update under `torch.no_grad()`.
+On the card `loss_and_grad` replays one CUDA graph per shape, as the JAX
+package jits it (utils/graphs.py); Adam and the checkpoints run eagerly,
+as there. With a `mesh` the loss and gradients
 come from `loss_and_grad_sharded` (rays and prims split over the ranks,
 gradients all-reduced). Every rank loads the checkpoint, since all hold
 the replicated scene; only rank 0 of the mesh writes it, so that ranks
@@ -33,8 +36,24 @@ from esctp1raytracer_tpu_torch.parallel.sharding import (
 from esctp1raytracer_tpu_torch.scene.types import Scene
 from esctp1raytracer_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from esctp1raytracer_tpu_torch.utils.debug import get_logger
+from esctp1raytracer_tpu_torch.utils.graphs import graphed
 
 logger = get_logger(__name__)
+
+
+@graphed(static_argnames=("width", "height", "cfg", "frozen"))
+def loss_and_grad(scene: Scene, target: torch.Tensor, camera: Camera, width: int, height: int,
+                  cfg: RenderConfig, frozen: tuple):
+    """mean((render(scene) - target)^2) and its gradients with respect to the
+    float leaves not `frozen` (None for the frozen ones)."""
+    with torch.enable_grad():
+        leaves = [p.detach().requires_grad_(not frz)
+                  for p, frz in zip(float_params(scene), frozen)]
+        img = render(merge_params(scene, leaves), camera, width, height, cfg)
+        loss = torch.mean((img - target) ** 2)
+        fitted = [p for p in leaves if p.requires_grad]
+        got = iter(torch.autograd.grad(loss, fitted, allow_unused=True) if fitted else ())
+    return loss.detach(), [next(got) if p.requires_grad else None for p in leaves]
 
 
 def adam_init(params: Sequence[torch.Tensor]):
@@ -95,10 +114,10 @@ def fit_scene(
     # them, so an identity test (`leaf is scene.spheres.kd`) holds on resume
     # too. (The JAX package filters the loaded leaves: a resumed run with
     # such a filter freezes every leaf there.)
-    frozen = [
+    frozen = tuple(
         param_filter is not None and not param_filter(i, p)
         for i, p in enumerate(float_params(scene))
-    ]
+    )
     start_step = 0
     resume_extra: Dict[str, np.ndarray] = {}
     if checkpoint_path:
@@ -111,20 +130,11 @@ def fit_scene(
     height, width = target.shape[0], target.shape[1]
     params = float_params(scene)
 
-    if mesh is None:
-        def loss_and_grad(ps):
-            """The loss and the gradients of the fitted leaves (None elsewhere)."""
-            with torch.enable_grad():
-                leaves = [p.detach().requires_grad_(not frz) for p, frz in zip(ps, frozen)]
-                img = render(merge_params(scene, leaves), camera, width, height, cfg)
-                loss = torch.mean((img - target) ** 2)
-                fitted = [p for p in leaves if p.requires_grad]
-                got = iter(torch.autograd.grad(loss, fitted, allow_unused=True)
-                           if fitted else ())
-            return loss.detach(), [next(got) if p.requires_grad else None for p in leaves]
-    else:
-        def loss_and_grad(ps):
-            return loss_and_grad_sharded(merge_params(scene, ps), target, camera, cfg, mesh)
+    def step_loss_and_grad(ps):
+        if mesh is None:
+            return loss_and_grad(merge_params(scene, ps), target, camera, width, height, cfg,
+                                 frozen)
+        return loss_and_grad_sharded(merge_params(scene, ps), target, camera, cfg, mesh)
 
     state = adam_init(params)
     if "adam_t" in resume_extra:  # restore the optimizer moments too —
@@ -150,7 +160,7 @@ def fit_scene(
 
     losses: List[float] = []
     for step in range(start_step, steps):
-        loss, grads = loss_and_grad(params)
+        loss, grads = step_loss_and_grad(params)
         grads = [torch.zeros_like(p) if frz or g is None else g
                  for p, g, frz in zip(params, grads, frozen)]
         params, state = adam_update(params, grads, state, lr=lr)

@@ -4,6 +4,8 @@ Each CUDA kernel's wrapper adds one to its `.launches` where it launches
 its kernel, and nowhere else (a CPU tensor runs the plain version and
 counts nothing). The scripts set every count to 0 just before a
 run and read them just after, to show which kernels the run went through.
+A CUDA graph replay adds the launches its capture counted
+(utils/graphs.py), so a count is the number of launches on the card.
 """
 
 from __future__ import annotations
@@ -33,8 +35,11 @@ def reset() -> None:
 
 
 def read() -> Dict[str, int]:
-    """Every wrapper's count (the card synchronised first, once CUDA is in use)."""
+    """Every wrapper's count (the card synchronised first, once CUDA is in use;
+    never inside a CUDA graph capture, which cannot synchronise)."""
     if torch.cuda.is_initialized():
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("launches.read() cannot synchronise inside a CUDA graph capture")
         torch.cuda.synchronize()
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 

@@ -50,7 +50,7 @@ import dataclasses
 import torch
 
 from esctp1raytracer_tpu_torch.accel.clusters import build_clusters
-from esctp1raytracer_tpu_torch.core.intersect import BIG, NO_HIT
+from esctp1raytracer_tpu_torch.core.intersect import BIG, NO_HIT, vec3
 from esctp1raytracer_tpu_torch.kernels import _build
 from esctp1raytracer_tpu_torch.kernels.cull import block_cull_mask
 from esctp1raytracer_tpu_torch.kernels.lane_pallas import plane_pair
@@ -246,7 +246,7 @@ def _pad_rays(o, d, t_limit=None):
     pad = (-o.shape[0]) % RAY_GROUP
     if pad:
         o = torch.cat([o, o.new_zeros((pad, 3))])
-        d = torch.cat([d, d.new_tensor([[0.0, 0.0, 1.0]]).expand(pad, 3)])
+        d = torch.cat([d, vec3(d, 0.0, 0.0, 1.0).expand(pad, 3)])
         if t_limit is not None:
             t_limit = torch.cat([t_limit, t_limit.new_full((pad,), -1.0)])
     tl = o.new_full((o.shape[0], 1), float("inf")) if t_limit is None else t_limit[:, None]
@@ -474,8 +474,9 @@ tile_occl_kernel.launches = 0
 # --------------------------------------------------------------------------
 
 
-def _eps_tensor(eps, device):
-    return torch.as_tensor(eps, dtype=torch.float32, device=device).reshape(1)
+def _eps_tensor(eps: float, device):
+    """eps as the kernels' f32 [1], by a fill (a CUDA graph can capture it)."""
+    return torch.full((1,), eps, dtype=torch.float32, device=device)
 
 
 def _orig(idx, perm):

@@ -18,7 +18,10 @@ Each config traces the whole frame as one wavefront through `trace_rays`:
 the forward loss is sum(color^2), the backward the gradient of sum(color)
 with respect to every float scene leaf. (The JAX script splits giant
 frames into host-level slices, a workaround for a TPU watchdog; the card
-runs config 5's 8.3M rays whole.) Times come from CUDA events over warm
+runs config 5's 8.3M rays whole.) The forward and the fwd+bwd are one
+CUDA graph each on the card (`utils/graphs.py`), the ray ids their input,
+as the JAX script jits them: the first call runs eagerly (counted for
+"launches"), the second captures. Times come from CUDA events over warm
 calls, best of 2 batches of 2 calls, the ray ids moved on by a frame's
 rays per call so no two calls draw the same light samples.
 
@@ -46,6 +49,7 @@ from esctp1raytracer_tpu_torch.kernels import launches  # noqa: E402
 from esctp1raytracer_tpu_torch.parallel.sharding import float_params, merge_params  # noqa: E402
 from esctp1raytracer_tpu_torch.scene import builders  # noqa: E402
 from esctp1raytracer_tpu_torch.utils import device as dev  # noqa: E402
+from esctp1raytracer_tpu_torch.utils.graphs import graphed  # noqa: E402
 from esctp1raytracer_tpu_torch.utils.timing import elapsed_ms  # noqa: E402
 
 CONFIGS = [
@@ -81,17 +85,25 @@ def run_config(name, make_scene, eye, width, height, depth, backward=True, devic
         calls[0] += 1
         return ids + calls[0] * rays
 
-    def fwd():
+    @graphed
+    def fwd_at(ids):
         with torch.no_grad():
-            return torch.sum(trace_rays(o, d, merge_params(scene, base), next_ids(), cfg) ** 2)
+            return torch.sum(trace_rays(o, d, merge_params(scene, base), ids, cfg) ** 2)
 
-    def bwd():
+    @graphed
+    def bwd_at(ids):
         params = [p.detach().requires_grad_(True) for p in base]
-        loss = torch.sum(trace_rays(o, d, merge_params(scene, params), next_ids(), cfg))
+        loss = torch.sum(trace_rays(o, d, merge_params(scene, params), ids, cfg))
         return torch.autograd.grad(loss, params, allow_unused=True)
 
+    def fwd():
+        return fwd_at(next_ids())
+
+    def bwd():
+        return bwd_at(next_ids())
+
     def timeit(fn):
-        fn()  # warm
+        fn()  # warm: on the card, the capture
         best = float("inf")
         for _ in range(BATCHES):
             best = min(best, elapsed_ms(fn, device, ITERS))

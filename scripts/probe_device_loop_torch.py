@@ -8,14 +8,15 @@ respect to every float scene leaf and folds the gradients' squared norm
 into the running scalar), and `--json=`.
 
 Two numbers per config:
-* `frame_ms`, the loop difference. Eager PyTorch has no `lax.fori_loop`,
-  so K frames run back to back between two CUDA events, frame i with its
-  ray ids moved on by i * rays (new light draws each frame), and the
-  per-frame time is (T(K2) - T(K1)) / (K2 - K1), best of 3 per K, with
+* `frame_ms`, the loop difference. The counterpart of the JAX probe's
+  jitted `lax.fori_loop` is a loop of K frames captured as one CUDA graph
+  (`utils/graphs.py`; the first call of each K runs eagerly, the second
+  captures), frame i with its ray ids moved on by i * rays (new light
+  draws each frame), the loop's start ids its input. The per-frame time is
+  (T(K2) - T(K1)) / (K2 - K1) between CUDA events, best of 3 per K, with
   the JAX probe's (k1, k2) rule. The difference cancels the fixed cost of
-  a call, but every frame's host work (Python, launches) stays in it:
-  where the host is slower than the card, this is the host's time.
-* `device_frame_ms`, one frame under torch.profiler
+  a call; a replay has no per-operation host dispatch left in it.
+* `device_frame_ms`, a loop of one frame under torch.profiler
   (`utils.profiling.device_time`): the summed time of the device
   operations the frame ran, and the busy share of the profiled frame's
   wall time. This is the number with the host taken out.
@@ -43,6 +44,7 @@ from esctp1raytracer_tpu_torch.kernels import launches  # noqa: E402
 from esctp1raytracer_tpu_torch.parallel.sharding import float_params, merge_params  # noqa: E402
 from esctp1raytracer_tpu_torch.scene import builders  # noqa: E402
 from esctp1raytracer_tpu_torch.utils import device as dev  # noqa: E402
+from esctp1raytracer_tpu_torch.utils.graphs import graphed  # noqa: E402
 from esctp1raytracer_tpu_torch.utils.profiling import device_time  # noqa: E402
 from esctp1raytracer_tpu_torch.utils.timing import elapsed_ms  # noqa: E402
 
@@ -61,40 +63,53 @@ def loop_k(rays):
 
 
 def make_frame(scene, o, d, cfg, grad):
-    """frame(i) -> a scalar of frame i: sum(color^2), or with `grad` the
-    squared norm of its gradient with respect to every float leaf."""
+    """frame(ids) -> a scalar of the frame at ray ids `ids`: sum(color^2), or
+    with `grad` the squared norm of its gradient with respect to every
+    float leaf."""
     base = float_params(scene)
-    ids = torch.arange(o.shape[0], dtype=torch.int64, device=o.device)
-    rays = o.shape[0]
 
-    def frame(i):
+    def frame(ids):
         if not grad:
             with torch.no_grad():
-                c = trace_rays(o, d, merge_params(scene, base), ids + i * rays, cfg)
+                c = trace_rays(o, d, merge_params(scene, base), ids, cfg)
                 return torch.sum(c * c)
         params = [p.detach().requires_grad_(True) for p in base]
-        c = trace_rays(o, d, merge_params(scene, params), ids + i * rays, cfg)
+        c = trace_rays(o, d, merge_params(scene, params), ids, cfg)
         gs = torch.autograd.grad(torch.sum(c * c), params, allow_unused=True)
         return sum(torch.sum(g * g) for g in gs if g is not None)
 
     return frame
 
 
-def loop_ms(frame, k1, k2, device, reps=3):
-    """Per-frame ms from the K2-vs-K1 loop difference, and the raw loop ms."""
-    ts = {}
+def make_loop(frame, ids):
+    """run(k) -> the sum of k frames' scalars, frame i at ids + (start + i) *
+    rays, the start moving on by k per call; on the card one CUDA graph per
+    k with the start ids its input (the JAX probe's fori_loop)."""
+    rays = ids.shape[0]
     start = [0]
 
-    def loop(k):
-        acc = torch.zeros((), device=device)
+    @graphed(static_argnames=("k",))
+    def loop(first, k):
+        acc = torch.zeros((), device=first.device)
         for i in range(k):
-            acc = acc + frame(start[0] + i)
-        start[0] += k
+            acc = acc + frame(first + i * rays)
         return acc
 
+    def run(k):
+        out = loop(ids + start[0] * rays, k)
+        start[0] += k
+        return out
+
+    return run
+
+
+def loop_ms(run, k1, k2, device, reps=3):
+    """Per-frame ms from the K2-vs-K1 loop difference, and the raw loop ms."""
+    ts = {}
     for k in (k1, k2):
-        loop(k)  # warm
-        ts[k] = min(elapsed_ms(lambda: loop(k), device) for _ in range(reps))
+        run(k)  # warm: eager
+        run(k)  # on the card, the capture
+        ts[k] = min(elapsed_ms(lambda: run(k), device) for _ in range(reps))
     return (ts[k2] - ts[k1]) / (k2 - k1), ts
 
 
@@ -107,22 +122,26 @@ def probe(name, make_scene, eye, w, h, depth, grad=False, device="cuda"):
     o, d = o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
     rays = o.shape[0]
     cfg = RenderConfig(backend="auto", depth=depth, ray_chunk=0)
-    frame = make_frame(scene, o, d, cfg, grad)
+    run = make_loop(make_frame(scene, o, d, cfg, grad),
+                    torch.arange(rays, dtype=torch.int64, device=device))
     k1, k2 = loop_k(rays)
-    ms, raw = loop_ms(frame, k1, k2, device)
+    ms, raw = loop_ms(run, k1, k2, device)
     rec = {"config": name, "rays": rays, "backend": resolve_backend(cfg, scene),
            "leg": "fwd+bwd" if grad else "fwd",
            "frame_ms": ms, "rays_per_s": rays / (ms / 1e3) if ms > 0 else None,
            "loop_k": [k1, k2], "raw_ms": {str(kk): v for kk, v in raw.items()},
            "device": dev.kind(device), "card": dev.card(device)}
+    if device == "cuda" and k1 != 1:
+        run(1)  # warm a loop of one frame: eager, then the capture
+        run(1)
     launches.reset()
     if device == "cuda":
-        prof = device_time(lambda: frame(1))
+        prof = device_time(lambda: run(1))
         rec.update(device_frame_ms=prof["device_ms"], device_ops=prof["device_ops"],
                    profiled_wall_ms=prof["wall_ms"], busy_share=prof["busy_share"],
                    device_rays_per_s=rays / (prof["device_ms"] / 1e3))
     else:
-        frame(1)
+        run(1)
         rec.update(device_frame_ms=None, device_ops=None, profiled_wall_ms=None,
                    busy_share=None, device_rays_per_s=None)
     rec["launches_per_frame"] = launches.read()

@@ -18,6 +18,8 @@ kernels with nvcc at first use). Bars:
 * rendered images within the test_rt_mxu.py image bars of the CPU port.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -673,3 +675,158 @@ def test_fit_scene_on_card_matches_cpu(dev, tmp_path):
     for (name, a), (_, want) in zip(loaded.leaves(), card.scene.leaves()):
         assert a.device == want.device and a.dtype == want.dtype, name
         assert torch.equal(a, want), name
+
+
+# --------------------------------------------------------------------------
+# CUDA graphs (utils/graphs.py): chip_smoke.py path M's checks at small sizes
+# --------------------------------------------------------------------------
+
+
+def _grads_within(got, ref):
+    """chip_smoke.py grads_agreement's bars, leaf by leaf (the backward's
+    index_add_ atomics sum in another order per run): |g - ref| <= 3e-4 *
+    max|ref| + 3e-3 * |ref|."""
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert (g is None) == (r is None)
+        if r is not None:
+            scale = max(r.abs().max().item(), 1e-6)
+            assert bool(((g - r).abs() <= 3e-4 * scale + 3e-3 * r.abs()).all())
+
+
+def _graph_step(scene, o, d, cfg):
+    """step(ids) -> (image, gradients of sum(color^2) w.r.t. every float leaf)."""
+    params = [p.detach().requires_grad_(True) for p in float_params(scene)]
+
+    def step(ids):
+        from esctp1raytracer_tpu_torch.core.render import trace_rays
+
+        color = trace_rays(o, d, merge_params(scene, params), ids, cfg)
+        grads = torch.autograd.grad(torch.sum(color * color), params, allow_unused=True)
+        return color.detach(), grads
+
+    return step
+
+
+# route: (scene, camera, cfg); "chunked": the fused backward's mxtile
+# re-derivation in ray chunks (config 4's rule, at this size).
+GRAPH_ROUTES = {
+    "mxtile": ("icospheres", CAM, RenderConfig(backend="mxtile")),
+    "tile": ("icospheres", CAM, RenderConfig(backend="tile")),
+    "lane": ("icospheres", CAM, RenderConfig(backend="lane")),
+    "fused": ("cornell", CORNELL_CAM, RenderConfig(backend="auto")),
+    "chunked": ("cornell", CORNELL_CAM, RenderConfig(backend="auto", depth=3)),
+}
+
+
+@pytest.mark.parametrize("route", list(GRAPH_ROUTES))
+def test_graphed_step_equals_eager(dev, scene, route, monkeypatch):
+    """A step captured and replayed: the image bit-equal to the eager step's,
+    the gradients within grads_agreement's bars, each kernel's launches per
+    replay equal to the eager step's; other ray ids give another image,
+    equal to the eager one at those ids."""
+    from esctp1raytracer_tpu_torch.kernels import launches
+    from esctp1raytracer_tpu_torch.utils import graphs
+
+    if route == "chunked":
+        monkeypatch.setattr(fused_pallas, "BWD_MIN_RAYS", 1)
+        monkeypatch.setattr(fused_pallas, "BWD_RAY_CHUNK", 4096)
+    name, cam, cfg = GRAPH_ROUTES[route]
+    sc = scene.to(dev) if name == "icospheres" else b.cornell_box(device=dev)
+    o, d = (x.reshape(-1, 3).contiguous() for x in cam.to(dev).ray_grid(96, 72))
+    ids = torch.arange(o.shape[0], dtype=torch.int64, device=dev)
+    step = _graph_step(sc, o, d, cfg)
+    g = graphs.graphed(step)
+    try:
+        want, eager = launches.counted(lambda: step(ids))
+        g(ids + 1)  # eager
+        g(ids + 2)  # the capture
+        assert len(g.cache) == 1
+        (img, grads), replay = launches.counted(lambda: g(ids))
+        assert replay == eager and sum(eager.values()) > 0, (replay, eager)
+        assert torch.equal(img, want[0])
+        _grads_within(grads, want[1])
+        img2, _ = g(ids + 7 * o.shape[0])
+        assert not torch.equal(img2, img)
+        assert torch.equal(img2, step(ids + 7 * o.shape[0])[0])
+    finally:
+        graphs.clear()
+
+
+def test_graphed_render_and_fit_step_equal_eager(dev, scene):
+    """`render` and the fit step (`optimize.loss_and_grad`) replayed: the
+    image bit-equal, the loss within 1e-5 relative and the gradients within
+    grads_agreement's bars of the eager call, the launches per replay equal;
+    new scene values reach the graph."""
+    from esctp1raytracer_tpu_torch.grad import optimize
+    from esctp1raytracer_tpu_torch.kernels import launches
+    from esctp1raytracer_tpu_torch.utils import graphs
+
+    sc, cam, cfg = scene.to(dev), CAM.to(dev), RenderConfig(backend="auto")
+    try:
+        with torch.no_grad():
+            want = render.__wrapped__(sc, cam, 64, 48, cfg)
+            for _ in range(3):
+                assert torch.equal(render(sc, cam, 64, 48, cfg), want)
+        frozen = (False,) * len(float_params(sc))
+        args = (sc, want * 0.8, cam, 64, 48, cfg, frozen)
+        (loss0, grads0), eager = launches.counted(lambda: optimize.loss_and_grad.__wrapped__(*args))
+        optimize.loss_and_grad(*args)
+        optimize.loss_and_grad(*args)
+        (loss, grads), replay = launches.counted(lambda: optimize.loss_and_grad(*args))
+        assert replay == eager and sum(eager.values()) > 0, (replay, eager)
+        assert abs(loss.item() - loss0.item()) <= 1e-5 * abs(loss0.item())
+        _grads_within(grads, grads0)
+        brighter = dataclasses.replace(sc, triangles=dataclasses.replace(
+            sc.triangles, kd=sc.triangles.kd * 1.5))
+        args = (brighter,) + args[1:]
+        loss2, _ = optimize.loss_and_grad(*args)
+        loss3, _ = optimize.loss_and_grad.__wrapped__(*args)
+        assert loss2.item() != loss.item()
+        assert abs(loss2.item() - loss3.item()) <= 1e-5 * abs(loss3.item())
+        assert len(render.cache) == 1 and len(optimize.loss_and_grad.cache) == 1
+    finally:
+        graphs.clear()
+
+
+def test_capture_at_trace_level_raises(dev, scene, capsys):
+    """At TRACE the first, eager call prints the per-bounce summary; the
+    capture that would follow raises."""
+    from esctp1raytracer_tpu_torch.utils import debug, graphs
+
+    sc, cam, cfg = scene.to(dev), CAM.to(dev), RenderConfig(backend="lane")
+    level = debug.current_level()
+    debug.set_level(debug.TRACE)
+    try:
+        with torch.no_grad():
+            render(sc, cam, 40, 30, cfg)
+            assert "trace[bounce 0]" in capsys.readouterr().out
+            with pytest.raises(RuntimeError, match="TRACE"):
+                render(sc, cam, 40, 30, cfg)
+    finally:
+        debug.set_level(level)
+        graphs.clear()
+
+
+def test_failed_capture_raises_without_eager_retry(dev):
+    """A host read inside the captured function fails the capture: the call
+    raises, and nothing runs the function again eagerly."""
+    from esctp1raytracer_tpu_torch.utils import graphs
+
+    calls = []
+
+    def f(x):
+        calls.append(1)
+        return x * float(x.sum())
+
+    g = graphs.graphed(f)
+    x = torch.ones(4, device=dev)
+    try:
+        assert torch.equal(g(x), x * 4)
+        with pytest.raises(RuntimeError):
+            g(x)
+        assert len(calls) == 2
+        torch.cuda.synchronize()
+        assert torch.equal(x * 2, torch.full((4,), 2.0, device=dev))  # the card still works
+    finally:
+        graphs.clear()

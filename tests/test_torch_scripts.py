@@ -172,7 +172,8 @@ def test_bench_configs_run_config_small():
 
 def test_probe_loop_arithmetic(monkeypatch):
     """frame_ms is (T(k2) - T(k1)) / (k2 - k1), and every frame of every loop
-    (warm and timed) draws from ray ids of its own."""
+    (the two warm ones, eager and capture, and the timed) draws from ray ids
+    of its own."""
     assert probe_device_loop_torch.loop_k(1920 * 1080) == (1, 3)
     assert probe_device_loop_torch.loop_k(512 * 512) == (2, 50)
     seen = []
@@ -181,9 +182,9 @@ def test_probe_loop_arithmetic(monkeypatch):
     def spy(scene, o, d, cfg, grad):
         frame = real(scene, o, d, cfg, grad)
 
-        def counted(i):
-            seen.append(i)
-            return frame(i)
+        def counted(ids):
+            seen.append(int(ids[0]))
+            return frame(ids)
         return counted
 
     monkeypatch.setattr(probe_device_loop_torch, "make_frame", spy)
@@ -195,7 +196,7 @@ def test_probe_loop_arithmetic(monkeypatch):
     assert rec["frame_ms"] == pytest.approx((raw["3"] - raw["1"]) / 2, rel=1e-12)
     assert rec["leg"] == "fwd+bwd" and rec["backend"] == "fused" and rec["rays"] == 192
     loops = seen[:-1]  # the last is the one launch-counted frame
-    assert len(loops) == 4 * 1 + 4 * 3 and len(set(loops)) == len(loops)
+    assert len(loops) == 5 * 1 + 5 * 3 and len(set(loops)) == len(loops)
 
 
 def test_make_golden_pixels_reproduces_committed_grid(tmp_path):
