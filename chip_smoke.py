@@ -120,7 +120,23 @@ M. the JAX package's compiled steps as CUDA graphs (utils/graphs.py), each
    equal to the eager step's there; then a capture at TRACE level, which
    must raise. Printed per step: the eager and graphed ms (CUDA events,
    median of 5, ids moved on per call), the host ms per call, the capture
-   ms, the peak memory and the busy share of one step each way.
+   ms, the peak memory and the busy share of one step each way;
+N. the JAX package's selectable search paths (rt_tile.CULL_MODE, _CULL_COLS,
+   PRIMARY_PREHIT, OCCL_EARLY_EXIT; rt_mxu.CULL_MODE, SEARCH_BF16X3), each
+   run by an instantiation of K1, K2, K5 or K6 (MODE_CASES): in each mode
+   the kernel on MODE_SLICE rays of the heaviest rows of the flagship's
+   camera and shadow wavefronts (K1, K2) and config 5's (K5, K6) against
+   its plain version in the same mode (K5, K6 bit-identical; K1, K2 the
+   bars of tests/test_rt_mxu.py), its cnt_out equal to the plain lists';
+   on the whole wavefront bit-identical to the default (argsort) kernel
+   (bf16x3: the JAX test's bars against float32) and timed beside it in
+   turns; the default instantiation timed again against its PERF.md range
+   (DEFAULT_MS); the oversized pre-hit bit-identical on and off on both
+   camera wavefronts; then `render` on the flagship, graphed, with a switch
+   flipped between calls (mxtile interval and bf16x3, tile hier and the
+   early exit): a new key, the replay equal to the eager render under the
+   switch, its launches the eager call's, and the cnt_out it captured equal
+   to the plain lists' cnt in the new mode on the replay's rays.
 
 Phases, any failure exits non-zero (no phase catches its own failure):
 1. device: needs a CUDA device (there is no CPU path); prints the card's
@@ -198,7 +214,8 @@ Phases, any failure exits non-zero (no phase catches its own failure):
    to the route's exact counts; the resolved backend, the times, the peak
    memory and each kernel's time beside its bound printed per leg. Path M:
    each step's eager call and one replay with the counts set to 0 just
-   before and read just after, held equal;
+   before and read just after, held equal. Path N: each graphed render
+   with the counts set to 0 just before and read just after;
 5. prints the wall time, {"kernels": [...]} and, as the last line, the
    result line.
 
@@ -3108,6 +3125,290 @@ def graph_phase(card, results, flag, flag_cam, corn, corn_cam, mixed, mixed_cam)
     return out
 
 
+# --------------------------------------------------------------------------
+# Path N: the JAX package's selectable search paths (rt_tile.CULL_MODE,
+# _CULL_COLS, PRIMARY_PREHIT, OCCL_EARLY_EXIT; rt_mxu.CULL_MODE, SEARCH_BF16X3)
+# --------------------------------------------------------------------------
+
+MODE_SLICE = 65_536  # rays per wavefront held against the plain versions in each mode
+# kernel: {label: keyword arguments of the wrapper}; "coarse": the lists over
+# columns of 8 sub-blocks (_CULL_COLS = 128 on config 5's 784: JAX's measured
+# 98-column case). K5 takes no "entry" lists (they are K6's, nearest-first).
+MODE_CASES = {
+    "mxu_kernel": {"exact": dict(mode="exact"), "interval": dict(mode="interval"),
+                   "bf16x3": dict(bf16x3=True)},
+    "mxu_occl_kernel": {"exact": dict(mode="exact"), "interval": dict(mode="interval")},
+    "tile_kernel": {"exact": dict(mode="exact"), "interval": dict(mode="interval"),
+                    "hier": dict(mode="hier"), "coarse": dict()},
+    "tile_occl_kernel": {"exact": dict(mode="exact"), "interval": dict(mode="interval"),
+                         "hier": dict(mode="hier"), "entry": dict(mode="entry"),
+                         "coarse": dict(), "entry E=1": dict(mode="entry", early_exit=1),
+                         "entry E=8": dict(mode="entry", early_exit=8)},
+}
+COARSE_COLS = 128
+# The default instantiation's whole-wavefront ms in PERF.md §6 (NVIDIA H100 80GB HBM3,
+# 700.00 W; this script's earlier runs): K1 and K2 on the flagship, K5 and K6 on config 5. Path N
+# reads them again, within DEFAULT_SLACK of the range's top.
+DEFAULT_MS = {"mxu_kernel": (1.602, 1.619), "mxu_occl_kernel": (1.699, 1.709),
+              "tile_kernel": (21.41, 21.512), "tile_occl_kernel": (33.12, 33.207)}
+DEFAULT_SLACK = 1.05
+
+
+@contextlib.contextmanager
+def switch(module, name, value):
+    """A module switch set for the block, then restored."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def mode_ms(fn, rays_, iters):
+    """ms per call of fn(rays) (CUDA events, warm), alternating the wavefront
+    and a copy of it rolled by half its bundles, so that no two calls in a
+    row see the same ray order."""
+    half = rays_.shape[0] // 2 // rt_mxu.RAY_TILE * rt_mxu.RAY_TILE
+    variants = (rays_, torch.roll(rays_, half, 0))
+    fn(rays_)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for i in range(iters):
+        fn(variants[i % 2])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def mode_slice(cnt, per, r, w):
+    """MODE_SLICE rays (whole groups of `per` rays) centred on the image row
+    whose groups have the longest lists (cnt per group) of an r-ray, w-wide
+    wavefront."""
+    rows = cnt[:r // per].float().reshape(-1, w // per).mean(1) if w % per == 0 else None
+    heavy = int(rows.argmax()) if rows is not None else r // w // 2
+    start = min(max(heavy * w - MODE_SLICE // 2, 0), r - MODE_SLICE)
+    return slice(start - start % per, start - start % per + MODE_SLICE)
+
+
+def mode_kernels(card, results, wavefront, tile, w, what, iters):
+    """Path N, one kernel on one wavefront: each mode of MODE_CASES (1) on
+    MODE_SLICE rays of the heaviest rows against its plain version in the
+    same mode, its cnt_out equal to the plain lists' cnt (K5, K6:
+    bit-identical; K1, K2: the bars of tests/test_rt_mxu.py); (2) on the
+    whole wavefront against the default (argsort) kernel: bit-identical
+    (bf16x3: the JAX test's bars, >= 97% same winners, relative t error
+    < 5e-4 on the rest); (3) timed beside the default on the whole
+    wavefront, in turns (default, mode, mode, default)."""
+    name, args, _ = tile_args(wavefront) if tile else mxtile_args(wavefront)
+    per = rt_tile.COHERENT if tile else rt_mxu.RAY_TILE
+    r = wavefront[1].shape[0]
+    base_cnt = torch.full((args[1].shape[0] // per,), -1, dtype=torch.int32, device="cuda")
+    base = wrapper(name)(*args, cnt_out=base_cnt)
+    rs = mode_slice(base_cnt, per, r, w)
+    sargs = (args[0], args[1][rs], *args[2:])
+
+    def call(kw, cols):
+        def run(rr):
+            with switch(rt_tile, "_CULL_COLS", cols):
+                return wrapper(name)(args[0], rr, *args[2:], **kw)
+        return run
+
+    out = {}
+    for label, kw in MODE_CASES[name].items():
+        default_cols = rt_tile._CULL_COLS
+        cols = COARSE_COLS if label == "coarse" else default_cols
+        with switch(rt_tile, "_CULL_COLS", cols):
+            cnt_k = torch.full((sargs[1].shape[0] // per,), -1, dtype=torch.int32, device="cuda")
+            cnt_p = torch.full_like(cnt_k, -1)
+            got = wrapper(name)(*sargs, cnt_out=cnt_k, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain = KERNELS[name][0](*sargs, cnt_out=cnt_p, **kw)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            tag = f"N {name} [{what}, {label}]"
+            check(torch.equal(cnt_k, cnt_p), f"{tag}: cnt_out differs from the plain lists' cnt "
+                  f"on {int((cnt_k != cnt_p).sum())} of {cnt_k.numel()} groups")
+            if tile:
+                identical(f"{tag} vs its plain version on the slice", got, plain)
+            elif name == "mxu_kernel":
+                search_agreement(f"{tag} vs its plain version", got, plain)
+            else:
+                agree = (got == plain).float().mean().item()
+                check(agree >= 0.999, f"{tag}: occlusion agreement {agree} < 0.999")
+            whole = wrapper(name)(*args, **kw)
+            if kw.get("bf16x3"):
+                same = whole[1][:r] == base[1][:r]
+                share = same.float().mean().item()
+                rel = ((whole[0][:r] - base[0][:r]).abs()[same]
+                       / base[0][:r].abs()[same].clamp(min=1.0)).max().item()
+                check(share > 0.97 and rel < 5e-4, f"{tag}: {share} same winners as float32 "
+                      f"(want > 0.97), relative t error {rel} (want < 5e-4)")
+                vs = f"{share:.6f} same winners as float32, max rel t err {rel:.3e}"
+            else:
+                identical(f"{tag} vs the default (argsort) kernel on the whole wavefront", whole,
+                          base)
+                vs = "bit-identical to the default on the whole wavefront"
+        a1 = mode_ms(call({}, default_cols), args[1], iters)
+        m1 = mode_ms(call(kw, cols), args[1], iters)
+        m2 = mode_ms(call(kw, cols), args[1], iters)
+        a2 = mode_ms(call({}, default_cols), args[1], iters)
+        ms, argsort_ms = (m1 + m2) / 2, (a1 + a2) / 2
+        say(f"{tag}: mean list {cnt_k.float().mean().item():.2f} on the slice (argsort "
+            f"{base_cnt[rs.start // per:rs.stop // per].float().mean().item():.2f}), cnt_out "
+            f"equal, {vs}; whole wavefront {ms:.3f} ms ({m1:.3f}, {m2:.3f}) vs argsort "
+            f"{argsort_ms:.3f} ({a1:.3f}, {a2:.3f}), x{ms / argsort_ms:.3f}; plain on the slice "
+            f"{plain_ms:.1f} ms  [{card}]")
+        out[label] = dict(ms=ms, argsort_ms=argsort_ms, ratio=ms / argsort_ms, plain_ms=plain_ms,
+                          mean_list_slice=cnt_k.float().mean().item(), at=what)
+        del got, plain, whole
+    # The default read as PERF.md's numbers were (time_pair: the same rays, median of 3).
+    lo, hi = DEFAULT_MS[name]
+    default_ms = statistics.median(elapsed_ms(lambda: wrapper(name)(*args), "cuda", iters)
+                                   for _ in range(3))
+    say(f"N {name} [{what}]: the default instantiation {default_ms:.3f} ms, PERF.md range "
+        f"{lo}-{hi} ms  [{card}]")
+    check(default_ms <= hi * DEFAULT_SLACK, f"N {name}: the default instantiation reads "
+          f"{default_ms:.3f} ms, above PERF.md's {hi} ms by more than {DEFAULT_SLACK}x")
+    results[name].setdefault("modes", {}).update(out)
+    results[name]["default_ms_path_n"] = default_ms
+
+
+def prehit_check(card, wavefront, search, what):
+    """The oversized pre-hit: the search's results bit-identical with
+    PRIMARY_PREHIT on and off; both timed (the entry point, CUDA events)."""
+    _, oo, dd, tris, eps, t_limit = wavefront
+    run = lambda: search(oo, dd, tris, eps, t_limit)  # noqa: E731
+    off = run()
+    with switch(rt_tile, "PRIMARY_PREHIT", True):
+        on = run()
+        on_ms = elapsed_ms(run, "cuda", 3)
+    off_ms = elapsed_ms(run, "cuda", 3)
+    identical(f"N pre-hit [{what}]: the search with PRIMARY_PREHIT vs without", on, off)
+    say(f"N pre-hit [{what}]: bit-identical on and off; the entry point {on_ms:.3f} ms with it, "
+        f"{off_ms:.3f} without  [{card}]")
+    return dict(ms_on=on_ms, ms_off=off_ms)
+
+
+# Path N's graphed renders: (label, backend, module, switch, value, the spied kernels).
+GRAPH_FLIPS = (
+    ("mxtile interval", "mxtile", rt_mxu, "CULL_MODE", "interval", ("mxu_kernel", "mxu_occl_kernel")),
+    ("mxtile bf16x3", "mxtile", rt_mxu, "SEARCH_BF16X3", True, ("mxu_kernel",)),
+    ("tile hier", "tile", rt_tile, "CULL_MODE", "hier", ("tile_kernel", "tile_occl_kernel")),
+    ("tile early exit 8", "tile", rt_tile, "OCCL_EARLY_EXIT", 8, ("tile_occl_kernel",)),
+)
+
+
+def plain_cnt(name, args, kw):
+    """The plain lists' cnt of a wrapper call's arguments in its mode."""
+    rays_, aabbs = args[1], args[2]
+    if name.startswith("mxu"):
+        return rt_mxu._prep_mxu(rays_[:, 0:3], rays_[:, 3:6], aabbs, rays_[:, 6],
+                                cull_mode=kw.get("mode", "argsort"))[2]
+    return rt_tile._lists(rays_, aabbs, kw.get("mode", "argsort"))[1]
+
+
+def graph_flip_leg(card, results, flag, flag_cam):
+    """Path N: `render` (a CUDA graph per key) on the flagship at 1920x1080,
+    a switch flipped between calls. Three calls before the flip (eager,
+    capture, replay), three after: the flip makes a new key, whose eager
+    call and capture pass the new mode to the kernel (a spy on the wrapper
+    records its keywords and adds a cnt_out), and whose replay equals the
+    eager render under the switch, launches the eager call's kernels, and
+    leaves in the captured cnt_out the plain lists' cnt in the new mode, on
+    the replay's own rays. Counts set to 0 just before each call and read
+    just after."""
+    o, d, ids = rays(flag_cam, 1920, 1080)
+    out = {}
+    for label, backend, module, name, value, spied in GRAPH_FLIPS:
+        graphs.clear()
+        cfg = RenderConfig(backend=backend)
+        records = []
+        originals = {k: wrapper(k) for k in spied}
+        mods = {k: rt_mxu if k.startswith("mxu") else rt_tile for k in spied}
+
+        def make_spy(k):
+            def spy(*args, **kw):
+                per = rt_mxu.RAY_TILE if k.startswith("mxu") else rt_tile.COHERENT
+                kw.setdefault("cnt_out", torch.full((args[1].shape[0] // per,), -1,
+                                                    dtype=torch.int32, device=args[1].device))
+                records.append((k, args, kw))
+                out = originals[k](*args, **kw)
+                # The wrapper counts on its module's name, which is this spy: pass it on.
+                originals[k].launches += spy.launches
+                spy.launches = 0
+                return out
+            spy.launches = 0
+            return spy
+
+        for k in spied:
+            setattr(mods[k], k, make_spy(k))
+        try:
+            with torch.no_grad():
+                for _ in range(3):
+                    before, counts = launches.counted(lambda: render(flag, flag_cam, 1920, 1080, cfg))
+                    add_launches(results, counts)
+                with switch(module, name, value):
+                    records.clear()
+                    calls = []
+                    for _ in range(3):
+                        img, counts = launches.counted(lambda: render(flag, flag_cam, 1920, 1080, cfg))
+                        add_launches(results, counts)
+                        calls.append((img, counts))
+                    n_keys = len(render.cache)
+                    with graphs.disabled():
+                        want = render(flag, flag_cam, 1920, 1080, cfg)
+                    tag = f"N graphed render [{label}]"
+                    check(n_keys == 2, f"{tag}: {n_keys} graph keys after the flip, want 2")
+                    check(torch.equal(calls[2][0], want), f"{tag}: the replay differs from the "
+                          "eager render under the switch")
+                    check(calls[2][1] == calls[0][1] and sum(calls[2][1].values()) > 0,
+                          f"{tag}: launches per replay {calls[2][1]} vs eager {calls[0][1]}")
+                    key = {"CULL_MODE": "mode", "SEARCH_BF16X3": "bf16x3",
+                           "OCCL_EARLY_EXIT": "early_exit"}[name]
+                    check(len(records) >= 2 * len(spied)
+                          and all(kw.get(key) == value for _, _, kw in records),
+                          f"{tag}: the new key's calls passed "
+                          f"{[kw.get(key) for _, _, kw in records]}")
+                    capture = records[len(records) // 2:]  # the capture's calls
+                    for k, args, kw in capture:
+                        cnt = plain_cnt(k, args, kw)
+                        check(torch.equal(kw["cnt_out"], cnt), f"{tag}: {k}'s cnt_out after the "
+                              "replay differs from the plain lists' cnt in the new mode")
+                    changed = not torch.equal(want, before)
+                    say(f"{tag}: a new key; the replay equals the eager render under the switch "
+                        f"({'another image' if changed else 'the same image'} as before the "
+                        f"flip), launches {calls[2][1]}, the captured cnt_out equal to the plain "
+                        f"lists' in the new mode  [{card}]")
+                    out[label] = dict(launches=calls[2][1], image_changed=changed)
+        finally:
+            for k in spied:
+                setattr(mods[k], k, originals[k])
+            graphs.clear()
+    return out
+
+
+def modes_phase(card, results, seen, seen5):
+    """Path N's kernel legs: K1 and K2 in each mode on the flagship's camera
+    and shadow wavefronts, K5 and K6 on config 5's (`mode_kernels`), and the
+    oversized pre-hit on both camera wavefronts (`prehit_check`)."""
+    t0 = time.perf_counter()
+    out = {}
+    with torch.no_grad():
+        for wavefront in seen[:2]:
+            mode_kernels(card, results, wavefront, False, 1920, "flagship 1920x1080", 20)
+        for wavefront in seen5[:2]:
+            mode_kernels(card, results, wavefront, True, 3840, "config 5 3840x2160", 3)
+        out["prehit_flagship"] = prehit_check(card, seen[0], rt_mxu.mxu_tile_search,
+                                              "flagship camera, mxtile")
+        out["prehit_config5"] = prehit_check(card, seen5[0], rt_tile.tile_tri_search,
+                                             "config 5 camera, tile")
+    out["seconds"] = time.perf_counter() - t0
+    say(f"N kernel legs: {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3183,6 +3484,7 @@ def main():
     del o, d, ids
     tile_kernels(card, seen5, 3840, results)
     tile_layer_phase(card, seen5)
+    modes = modes_phase(card, results, seen, seen5)  # path N's kernel legs
     del seen5  # ~0.5 GiB that would count in every later path's peak memory
     soup500 = random_scene(500_000)
     nseg = -(-soup500.triangles.capacity // rt_tile.TILE_TRI_LIMIT)
@@ -3228,6 +3530,10 @@ def main():
     paths["lights"] = lights_phase(card, results, auto)
     paths["graphs"] = graph_phase(card, results, flag, flag_cam, corn, corn_cam, mixed,
                                   mixed_cam)
+    t_n = time.perf_counter()
+    paths["modes"] = dict(modes, graph_flips=graph_flip_leg(card, results, flag, flag_cam))
+    paths["modes"]["seconds"] += time.perf_counter() - t_n
+    say(f"N: {paths['modes']['seconds']:.1f} s in all")
     feeder_check(flag, flag_cam, 1920, 1080, auto)
     fused_feeder_check(card, corn, corn_cam, 1024, 768, auto)
     layer_phase(card, seen)

@@ -8,6 +8,8 @@ import torch
 
 from esctp1raytracer_tpu_torch.scene.types import TriangleBuffer
 
+BIG = 1e30  # the JAX package's empty-box and miss value
+
 
 def triangle_bounds(tris: TriangleBuffer) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-triangle AABB (bmin, bmax) [N, 3]."""

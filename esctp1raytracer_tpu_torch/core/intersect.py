@@ -27,6 +27,7 @@ from esctp1raytracer_tpu_torch.scene.types import Scene, SphereBuffer, TriangleB
 
 # float32 machine epsilon (the reference's std::numeric_limits<float>::epsilon()).
 EPS = float(np.finfo(np.float32).eps)
+T_MAX = float(torch.finfo(torch.float32).max)  # the largest float32, as in the JAX package
 BIG = 1e30  # miss sentinel
 NO_HIT = -1
 
@@ -222,11 +223,14 @@ def _sphere_best(o, d, spheres: SphereBuffer, eps):
 
 
 def argmin_hit(o, d, scene: Scene, eps=EPS, block_size: int = 512,
-               use_mxu: bool = True, tri_search=None, t_limit=None):
+               use_mxu: bool = True, tri_search=None, t_limit=None, coherent: bool = False):
     """Winning primitive per ray: (best_t, prim_idx, is_sphere). Pure search.
 
     `tri_search(o, d, tris, eps, t_limit=...)` lets a backend replace the
     triangle scan; `t_limit` is a per-ray ceiling it may use to cull work.
+    `coherent` (a shared-origin wavefront, e.g. camera rays) is a pre-pass
+    hint passed to a search that declares `supports_coherent`; it never
+    changes which hits count.
     """
     sph_t, sph_idx = _sphere_best(o, d, scene.spheres, eps)
     if tri_search is None:
@@ -235,10 +239,11 @@ def argmin_hit(o, d, scene: Scene, eps=EPS, block_size: int = 512,
         hint = t_limit
         if hint is None and SPHERE_PREHIT:
             hint = sph_t
+        kw = {"coherent": coherent} if getattr(tri_search, "supports_coherent", False) else {}
         if hint is not None:
-            tri_t, tri_idx = tri_search(o, d, scene.triangles, eps, t_limit=hint)
+            tri_t, tri_idx = tri_search(o, d, scene.triangles, eps, t_limit=hint, **kw)
         else:
-            tri_t, tri_idx = tri_search(o, d, scene.triangles, eps)
+            tri_t, tri_idx = tri_search(o, d, scene.triangles, eps, **kw)
     is_sphere = sph_t < tri_t
     best_t = torch.where(is_sphere, sph_t, tri_t)
     prim = torch.where(is_sphere, sph_idx, tri_idx)
@@ -286,17 +291,19 @@ def packed_tri_table(tris: TriangleBuffer) -> torch.Tensor:
 
 
 def closest_hit(o, d, scene: Scene, eps=EPS, block_size: int = 512,
-                use_mxu: bool = True, tri_search=None, with_row: bool = False):
+                use_mxu: bool = True, tri_search=None, with_row: bool = False,
+                coherent: bool = False):
     """Differentiable closest hit.
 
     The search runs under no_grad on detached inputs; t/u/v are then
     recomputed differentiably on the winning primitive. with_row=True also
     returns the winner's packed_tri_table row [R, 32] for shading.
+    `coherent` goes to `argmin_hit`.
     """
     with torch.no_grad():
         best_t, prim, is_sphere = argmin_hit(
             o.detach(), d.detach(), scene.detach(), eps, block_size, use_mxu,
-            tri_search,
+            tri_search, coherent=coherent,
         )
     safe_prim = torch.clamp(prim, min=0).long()
 

@@ -59,6 +59,10 @@
 // block, capped registers and other block sizes were tried and gave no
 // gain: the kernels are bound by issuing that arithmetic, not by memory.
 //
+// The JAX package's other pre-pass modes, coarse columns and K6's exit period
+// are further instantiations (below tile_occl_kernel: tile_search_mode_kernel,
+// tile_occl_mode_kernel), whose warps build their lists in shared memory.
+//
 // The per-pair test is plane_hit of lane_plane.cuh, which K3 and K4 share:
 // IEEE division (no fast math) and -fmad=false, so every product and sum
 // rounds on its own, in the plain PyTorch version's order.
@@ -317,6 +321,377 @@ tile_occl_kernel(const float* __restrict__ eps_p, const float* __restrict__ rays
   occl_bundle(eps_p, rays, aabbs, gboxes, tc, ov, occ_out, cnt_out, b, nsub, threadIdx.x & 31);
 }
 
+// ---------------------------------------------------------------------------
+// The JAX package's selectable pre-pass modes (rt_tile.py: CULL_MODE,
+// _CULL_COLS, OCCL_EARLY_EXIT), one instantiation each. The kernels above
+// are the default: argsort lists over the sub-blocks, exit after each block.
+//
+// A warp builds its bundle's list explicitly, in shared memory, over the
+// cull columns `cb` [8, NC] (the sub-blocks, or above _CULL_COLS the unions
+// of runs of `group` of them), exactly as rt_tile.py:_lists builds it:
+// the same columns in the same order and the same count, including each
+// mode's dense fallback. Then it walks the list, sweeping each column's
+// `group` sub-blocks in ascending order (a padding-only sub-block, inverted
+// box, is counted but not swept). The modes:
+// * argsort (0): the per-ray test, kept columns ascending;
+// * exact (1): the same, but more than kExtractK kept: every column;
+// * interval (2): cull.py:group_cull_mask, one interval test per column for
+//   the bundle in place of eight, with exact's fallback;
+// * hier (3): superblocks of hier_g columns (union boxes; all-padding ones
+//   masked), per-ray tested; more than hier_k kept: every column; else the
+//   sub-boxes of the first min(hier_k, superblocks) superblocks in the
+//   stable order kept-first (_hier_cull_lists), per-ray tested, padding
+//   never listed;
+// * entry (4, K6 only): the kept columns sorted by the bundle's smallest
+//   entry key (entry_key), ties to the lower column: a rank sort in shared
+//   memory, O(n^2 / 32) per lane for n kept columns.
+// K6 tests "every ray occluded or unable to be" every `period` listed
+// sub-blocks (the JAX kernel's early exit E; E = 0 there, and the default
+// here, test after each).
+// ---------------------------------------------------------------------------
+
+constexpr int kGenWarps = 4;    // bundles per block (8 KB of lists each)
+constexpr int kExtractK = 32;   // cull.py:CULL_EXTRACT_K
+enum Mode { kArgsort = 0, kExact = 1, kInterval = 2, kHier = 3, kEntry = 4 };
+
+struct WarpLists {
+  unsigned short list[kMaxSub];  // the columns to visit, in order
+  unsigned short aux[kMaxSub];   // hier: the superblock order; entry: the sorted list
+  float key[kMaxSub];            // entry: the keys, by position in `list`
+};
+
+__device__ __forceinline__ Vec box_lo(const float* __restrict__ b, int n, int j) {
+  return Vec{__ldg(b + j), __ldg(b + n + j), __ldg(b + 2 * n + j)};
+}
+
+__device__ __forceinline__ Vec box_hi(const float* __restrict__ b, int n, int j) {
+  return Vec{__ldg(b + 3 * n + j), __ldg(b + 4 * n + j), __ldg(b + 5 * n + j)};
+}
+
+__device__ __forceinline__ bool inverted(Vec lo, Vec hi) {
+  return lo.x > hi.x || lo.y > hi.y || lo.z > hi.z;
+}
+
+// Append the lanes with `keep` to list[n..] in lane order; returns the new n.
+__device__ __forceinline__ int append(unsigned short* list, int n, bool keep, int value, int lane) {
+  const unsigned w = __ballot_sync(kFull, keep);
+  if (keep) list[n + __popc(w & ((1u << lane) - 1u))] = static_cast<unsigned short>(value);
+  return n + __popc(w);
+}
+
+__device__ __forceinline__ int dense(unsigned short* list, int nc, int lane) {
+  for (int c = lane; c < nc; c += 32) list[c] = static_cast<unsigned short>(c);
+  __syncwarp();
+  return nc;
+}
+
+// Bundle b's list over nc columns; returns its length (the plain version's
+// cnt / group) and points `out` at it.
+template <int kMode>
+__device__ int build_list(const float* __restrict__ rays, const float* __restrict__ cb, int nc,
+                          long long b, int lane, int hier_g, int hier_k, WarpLists& wl,
+                          const unsigned short*& out) {
+  Vec o[kBundle], inv[kBundle];
+  float tl[kBundle];
+#pragma unroll
+  for (int s = 0; s < kBundle; ++s) {
+    const float* ray = rays + (b * kBundle + s) * kRayW;
+    o[s] = Vec{ray[0], ray[1], ray[2]};
+    inv[s] = Vec{1.0f / ray[3], 1.0f / ray[4], 1.0f / ray[5]};  // IEEE; inf on a zero
+    tl[s] = ray[6];
+  }
+  out = wl.list;
+  int n = 0;
+  if constexpr (kMode == kHier) {
+    // Superblocks: lane l tests superblock s0 + l; lane w keeps word w of the kept ones.
+    const int ns = (nc + hier_g - 1) / hier_g, k = min(hier_k, ns);
+    unsigned sword = 0;
+    int kept = 0;
+    for (int s0 = 0; s0 < ns; s0 += 32) {
+      const int sb = s0 + lane;
+      bool keep = false;
+      if (sb < ns) {
+        Vec lo = box_lo(cb, nc, sb * hier_g), hi = box_hi(cb, nc, sb * hier_g);
+        for (int j = 1; j < hier_g; ++j) {  // the union; columns past nc are inverted filler
+          const int c = sb * hier_g + j;
+          const Vec l2 = c < nc ? box_lo(cb, nc, c) : Vec{1e30f, 1e30f, 1e30f};
+          const Vec h2 = c < nc ? box_hi(cb, nc, c) : Vec{-1e30f, -1e30f, -1e30f};
+          lo = Vec{nan_min(lo.x, l2.x), nan_min(lo.y, l2.y), nan_min(lo.z, l2.z)};
+          hi = Vec{nan_max(hi.x, h2.x), nan_max(hi.y, h2.y), nan_max(hi.z, h2.z)};
+        }
+        if (!inverted(lo, hi)) {
+#pragma unroll
+          for (int s = 0; s < kBundle; ++s) keep |= slab_keep(o[s], inv[s], tl[s], lo, hi);
+        }
+      }
+      const unsigned w = __ballot_sync(kFull, keep);
+      if (lane == s0 / 32) sword = w;
+      kept += __popc(w);
+    }
+    if (kept > k) return dense(wl.list, nc, lane);
+    // The first k superblocks of the stable order kept-first, into aux.
+    int kept_before = 0, other_before = 0;
+    for (int s0 = 0; s0 < ns; s0 += 32) {
+      const unsigned kw = __shfl_sync(kFull, sword, s0 / 32);
+      const unsigned valid = ns - s0 >= 32 ? kFull : (1u << (ns - s0)) - 1u;
+      const unsigned lt = (1u << lane) - 1u;
+      if ((valid >> lane) & 1u) {
+        const int pos = (kw >> lane) & 1u ? kept_before + __popc(kw & lt)
+                                          : kept + other_before + __popc(~kw & valid & lt);
+        if (pos < k) wl.aux[pos] = static_cast<unsigned short>(s0 + lane);
+      }
+      kept_before += __popc(kw);
+      other_before += __popc(~kw & valid);
+    }
+    __syncwarp();
+    // Their sub-boxes, in that order: column q = slot q / hier_g, member q % hier_g.
+    for (int q0 = 0; q0 < k * hier_g; q0 += 32) {
+      const int q = q0 + lane;
+      bool keep = false;
+      int c = 0;
+      if (q < k * hier_g) {
+        c = wl.aux[q / hier_g] * hier_g + q % hier_g;
+        if (c < nc) {
+          const Vec lo = box_lo(cb, nc, c), hi = box_hi(cb, nc, c);
+          if (!inverted(lo, hi)) {
+#pragma unroll
+            for (int s = 0; s < kBundle; ++s) keep |= slab_keep(o[s], inv[s], tl[s], lo, hi);
+          }
+        }
+      }
+      n = append(wl.list, n, keep, c, lane);
+    }
+    __syncwarp();
+    return n;
+  }
+  Interval iv;
+  if constexpr (kMode == kInterval) {
+    float o_lo[3], o_hi[3], d_lo[3], d_hi[3], tl_hi = tl[0];
+    const float* r0 = rays + b * kBundle * kRayW;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      o_lo[a] = o_hi[a] = r0[a];
+      d_lo[a] = d_hi[a] = r0[3 + a];
+    }
+#pragma unroll
+    for (int s = 1; s < kBundle; ++s) {
+      const float* ray = rays + (b * kBundle + s) * kRayW;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        o_lo[a] = nan_min(o_lo[a], ray[a]);
+        o_hi[a] = nan_max(o_hi[a], ray[a]);
+        d_lo[a] = nan_min(d_lo[a], ray[3 + a]);
+        d_hi[a] = nan_max(d_hi[a], ray[3 + a]);
+      }
+      tl_hi = nan_max(tl_hi, tl[s]);
+    }
+    iv = make_interval(o_lo, o_hi, d_lo, d_hi, tl_hi);
+  }
+  for (int c0 = 0; c0 < nc; c0 += 32) {
+    const int c = c0 + lane;
+    bool keep = false;
+    float key = __int_as_float(0x7f800000);  // +inf: culled
+    if (c < nc) {
+      const Vec lo = box_lo(cb, nc, c), hi = box_hi(cb, nc, c);
+      if constexpr (kMode == kInterval) {
+        keep = interval_keep(iv, lo, hi);
+      } else {
+#pragma unroll
+        for (int s = 0; s < kBundle; ++s) {
+          float tn;
+          const bool k = slab_keep(o[s], inv[s], tl[s], lo, hi, tn);
+          keep |= k;
+          if (kMode == kEntry && k) key = fminf(key, entry_key(tn));
+        }
+      }
+    }
+    if constexpr (kMode == kEntry) {
+      const unsigned w = __ballot_sync(kFull, keep);
+      if (keep) wl.key[n + __popc(w & ((1u << lane) - 1u))] = key;
+    }
+    n = append(wl.list, n, keep, c, lane);
+  }
+  __syncwarp();
+  if ((kMode == kExact || kMode == kInterval) && n > kExtractK) return dense(wl.list, nc, lane);
+  if constexpr (kMode == kEntry) {
+    // Stable sort by key: each kept column's rank, the list ascending in column.
+    for (int i = lane; i < n; i += 32) {
+      const float ki = wl.key[i];
+      int rank = 0;
+      for (int j = 0; j < n; ++j) {
+        const float kj = wl.key[j];
+        rank += kj < ki || (kj == ki && j < i);
+      }
+      wl.aux[rank] = wl.list[i];
+    }
+    __syncwarp();
+    out = wl.aux;
+  }
+  return n;
+}
+
+// fn(sub-block) for each sub-block of the list's columns in order, skipping
+// padding-only ones; stops when fn returns true (warp-uniform). Every listed
+// position, skipped or not, counts toward `period`: fn is passed whether
+// the position ends a period.
+template <typename Fn>
+__device__ __forceinline__ void walk_list(const unsigned short* list, int n, int group,
+                                          const float* __restrict__ aabbs, int nsub, int period,
+                                          Fn fn) {
+  int pos = 0;
+  for (int i = 0; i < n; ++i) {
+    for (int j = 0; j < group; ++j) {
+      const int jb = list[i] * group + j;
+      const bool ends = ++pos % period == 0;
+      if (!inverted(box_lo(aabbs, nsub, jb), box_hi(aabbs, nsub, jb))) {
+        if (fn(jb, ends)) return;
+      } else if (ends && fn(-1, true)) {
+        return;
+      }
+    }
+  }
+}
+
+// search_bundle for the mode kernels (the default's code above stays as it
+// was): build() makes the bundle's lists and returns their count; walk(fn)
+// calls fn(sub-block, ends a period) for each listed sub-block in order (-1
+// for a padding-only one that ends a period), until fn returns true.
+template <typename Build, typename Walk>
+__device__ __forceinline__ void listed_search(const float* __restrict__ eps_p,
+                                              const float* __restrict__ rays,
+                                              const float* __restrict__ tc,
+                                              float* __restrict__ t_out, int* __restrict__ idx_out,
+                                              int* __restrict__ cnt_out, long long b, int lane,
+                                              Build build, Walk walk_lists) {
+  const int kept = build();
+  if (cnt_out != nullptr && lane == 0) cnt_out[b] = kept;
+  const float eps = eps_p[0];
+  const BundleRays r = load_rays(rays, b);
+  float bt[kBundle];
+  int bi[kBundle];
+#pragma unroll
+  for (int s = 0; s < kBundle; ++s) {
+    bt[s] = kBig;
+    bi[s] = -1;
+  }
+  walk_lists([&](int jb, bool) {
+    if (jb < 0) return false;  // padding only
+    sweep_block(tc, jb, lane, [&](const float* c, int idx) {
+#pragma unroll
+      for (int s = 0; s < kBundle; ++s) {
+        const float t = plane_t(c, r.o[s], r.d[s], eps);
+        if (t < bt[s]) {  // strict: the lists ascend, so this lane's visits do
+          bt[s] = t;
+          bi[s] = idx;
+        }
+      }
+    });
+    return false;
+  });
+#pragma unroll
+  for (int s = 0; s < kBundle; ++s) {
+    float t = bt[s];
+    int i = bi[s];
+#pragma unroll
+    for (int off = 16; off; off >>= 1) {
+      const float t2 = __shfl_xor_sync(kFull, t, off);
+      const int i2 = __shfl_xor_sync(kFull, i, off);
+      if (t2 < t || (t2 == t && i2 < i)) {
+        t = t2;
+        i = i2;
+      }
+    }
+    if (lane == s) {
+      t_out[b * kBundle + s] = t;
+      idx_out[b * kBundle + s] = t < kBig ? i : -1;
+    }
+  }
+}
+
+// occl_bundle for the mode kernels; build and walk as listed_search's. The
+// bundle stops where a period ends with every ray occluded or unable to be.
+template <typename Build, typename Walk>
+__device__ __forceinline__ void listed_occl(const float* __restrict__ eps_p,
+                                            const float* __restrict__ rays,
+                                            const float* __restrict__ tc,
+                                            const float* __restrict__ ov,
+                                            int* __restrict__ occ_out, int* __restrict__ cnt_out,
+                                            long long b, int lane, Build build,
+                                            Walk walk_lists) {
+  const float eps = eps_p[0];
+  const BundleRays r = load_rays(rays, b);
+  unsigned occ = 0;      // bit s: ray s of the bundle is occluded (this lane's pairs)
+  unsigned settled = 0;  // bit s: ray s cannot be occluded (no t with eps <= t < t_limit)
+#pragma unroll
+  for (int s = 0; s < kBundle; ++s) settled |= (r.tl[s] > eps ? 0u : 1u) << s;
+  // A bundle that nothing can occlude needs no lists (walk then visits nothing), unless counted.
+  if (cnt_out != nullptr || settled != kAllRays) {
+    const int kept = build();
+    if (cnt_out != nullptr && lane == 0) cnt_out[b] = kept;
+  }
+  const auto test = [&](const float* c, int) {
+#pragma unroll
+    for (int s = 0; s < kBundle; ++s) {
+      float t;
+      if (plane_hit(c, r.o[s], r.d[s], eps, t) && t < r.tl[s]) occ |= 1u << s;
+    }
+  };
+  const auto done = [&]() { return (__reduce_or_sync(kFull, occ) | settled) == kAllRays; };
+  if (ov != nullptr && settled != kAllRays) sweep_block<true>(ov, 0, lane, test);
+  if (!done()) {
+    walk_lists([&](int jb, bool ends) {
+      if (jb >= 0) sweep_block(tc, jb, lane, test);
+      return ends && done();
+    });
+  }
+  occ = __reduce_or_sync(kFull, occ);
+  if (lane < kBundle) occ_out[b * kBundle + lane] = (occ >> lane) & 1u;
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kGenWarps * 32)
+tile_search_mode_kernel(const float* __restrict__ eps_p, const float* __restrict__ rays,
+                        const float* __restrict__ aabbs, const float* __restrict__ cb,
+                        const float* __restrict__ tc, float* __restrict__ t_out,
+                        int* __restrict__ idx_out, int* __restrict__ cnt_out, int bundles,
+                        int nsub, int group, int hier_g, int hier_k) {
+  __shared__ WarpLists lists[kGenWarps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long b = static_cast<long long>(blockIdx.x) * kGenWarps + warp;
+  if (b >= bundles) return;
+  const unsigned short* list = lists[warp].list;
+  int n = 0;
+  listed_search(
+      eps_p, rays, tc, t_out, idx_out, cnt_out, b, lane,
+      [&] {
+        n = build_list<kMode>(rays, cb, nsub / group, b, lane, hier_g, hier_k, lists[warp], list);
+        return n * group;
+      },
+      [&](auto fn) { walk_list(list, n, group, aabbs, nsub, 1, fn); });
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kGenWarps * 32)
+tile_occl_mode_kernel(const float* __restrict__ eps_p, const float* __restrict__ rays,
+                      const float* __restrict__ aabbs, const float* __restrict__ cb,
+                      const float* __restrict__ tc, const float* __restrict__ ov,
+                      int* __restrict__ occ_out, int* __restrict__ cnt_out, int bundles, int nsub,
+                      int group, int hier_g, int hier_k, int period) {
+  __shared__ WarpLists lists[kGenWarps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long b = static_cast<long long>(blockIdx.x) * kGenWarps + warp;
+  if (b >= bundles) return;
+  const unsigned short* list = lists[warp].list;
+  int n = 0;
+  listed_occl(
+      eps_p, rays, tc, ov, occ_out, cnt_out, b, lane,
+      [&] {
+        n = build_list<kMode>(rays, cb, nsub / group, b, lane, hier_g, hier_k, lists[warp], list);
+        return n * group;
+      },
+      [&](auto fn) { walk_list(list, n, group, aabbs, nsub, period, fn); });
+}
+
 int blocks_for(int bundles) { return (bundles + kWarps - 1) / kWarps; }
 
 }  // namespace
@@ -342,6 +717,50 @@ int rt_tile_occl(const float* eps, const float* rays, const float* aabbs, const 
   if (bundles > 0) {
     tile_occl_kernel<<<blocks_for(bundles), kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
         eps, rays, aabbs, gboxes, tc, ov, occ_out, cnt_out, bundles, nsub);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The mode instantiations: cb [8, nsub / group] are the cull columns' boxes
+// (rt_tile.py:_coarse_boxes), `mode` a Mode, period >= 1 (K6).
+int rt_tile_search_mode(const float* eps, const float* rays, const float* aabbs, const float* cb,
+                        const float* tc, float* t_out, int* idx_out, int* cnt_out, int bundles,
+                        int nsub, int mode, int group, int hier_g, int hier_k, void* stream) {
+  if (nsub > kMaxSub || group < 1 || nsub % group || hier_g < 1 || mode < kArgsort ||
+      mode > kHier) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (bundles > 0) {
+    const int blocks = (bundles + kGenWarps - 1) / kGenWarps;
+    const auto st = static_cast<cudaStream_t>(stream);
+    auto kernel = mode == kExact      ? tile_search_mode_kernel<kExact>
+                  : mode == kInterval ? tile_search_mode_kernel<kInterval>
+                  : mode == kHier     ? tile_search_mode_kernel<kHier>
+                                      : tile_search_mode_kernel<kArgsort>;
+    kernel<<<blocks, kGenWarps * 32, 0, st>>>(eps, rays, aabbs, cb, tc, t_out, idx_out, cnt_out,
+                                              bundles, nsub, group, hier_g, hier_k);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rt_tile_occl_mode(const float* eps, const float* rays, const float* aabbs, const float* cb,
+                      const float* tc, const float* ov, int* occ_out, int* cnt_out, int bundles,
+                      int nsub, int mode, int group, int hier_g, int hier_k, int period,
+                      void* stream) {
+  if (nsub > kMaxSub || group < 1 || nsub % group || hier_g < 1 || period < 1 ||
+      mode < kArgsort || mode > kEntry) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (bundles > 0) {
+    const int blocks = (bundles + kGenWarps - 1) / kGenWarps;
+    const auto st = static_cast<cudaStream_t>(stream);
+    auto kernel = mode == kExact      ? tile_occl_mode_kernel<kExact>
+                  : mode == kInterval ? tile_occl_mode_kernel<kInterval>
+                  : mode == kHier     ? tile_occl_mode_kernel<kHier>
+                  : mode == kEntry    ? tile_occl_mode_kernel<kEntry>
+                                      : tile_occl_mode_kernel<kArgsort>;
+    kernel<<<blocks, kGenWarps * 32, 0, st>>>(eps, rays, aabbs, cb, tc, ov, occ_out, cnt_out,
+                                              bundles, nsub, group, hier_g, hier_k, period);
   }
   return static_cast<int>(cudaGetLastError());
 }

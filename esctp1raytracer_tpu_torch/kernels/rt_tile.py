@@ -40,6 +40,28 @@ never be culled by a shadow ray's t-limit, while out here the floor
 fails the direction test and the light's tight box fails the t-window.
 Tables over TILE_TRI_LIMIT triangles go through in segments, combined
 first-wins.
+
+The JAX package's search switches, with its names, defaults and
+resolution rules (`tile_tri_search`, `tile_occlusion`):
+
+* `CULL_MODE` (None = "argsort"): how a bundle's list is built --
+  "argsort" (the per-ray mask, ascending), "exact" (the same, but more
+  than `cull.CULL_EXTRACT_K` kept sub-blocks sweep every sub-block),
+  "interval" (one interval test per bundle, `cull.group_cull_mask`, with
+  the same fallback), "hier" (superblocks of HIER_GROUP first, at most
+  HIER_K kept, else every sub-block; padding-only sub-blocks are never
+  listed) and "entry" (nearest-first by the bundle's slab entry t; for
+  the any-hit search only: K5's tie rule needs ascending lists);
+* `_CULL_COLS`: above that many sub-blocks, the lists are built over the
+  union boxes of runs of adjacent sub-blocks and expanded;
+* `PRIMARY_PREHIT`: the closest oversized hit caps the search's t_limit;
+* `OCCL_EARLY_EXIT` (E, 0 = off): "entry" lists for the any-hit search,
+  tested for "every ray occluded" every E sub-blocks.
+
+K5 and K6 run each mode on the card in the same kernels (one
+instantiation per mode; the default, argsort over fine boxes with E = 0,
+is the kernels' own two-level cull), visiting the same sub-blocks as the
+plain version's lists in the same order, and count the same kept total.
 """
 
 from __future__ import annotations
@@ -52,7 +74,7 @@ import torch
 from esctp1raytracer_tpu_torch.accel.clusters import build_clusters
 from esctp1raytracer_tpu_torch.core.intersect import BIG, NO_HIT, vec3
 from esctp1raytracer_tpu_torch.kernels import _build
-from esctp1raytracer_tpu_torch.kernels.cull import block_cull_mask
+from esctp1raytracer_tpu_torch.kernels.cull import block_cull_mask, extract_lists, group_cull_mask
 from esctp1raytracer_tpu_torch.kernels.lane_pallas import plane_pair
 from esctp1raytracer_tpu_torch.scene.types import TriangleBuffer
 
@@ -74,6 +96,42 @@ _PREPASS_ELEMS = 64 * 1024 * 1024
 _SWEEP_RAYS = 1 << 19
 
 _INT_BIG = 2**31 - 1
+
+# The search switches (module docstring), as in the JAX package.
+CULL_MODE = None  # None = auto = "argsort"
+_CULL_COLS = 1024  # coarse cull above this many sub-blocks; a segment has at most 1024
+PRIMARY_PREHIT = False
+OCCL_EARLY_EXIT = 0
+HIER_GROUP = 8  # sub-blocks per superblock of the "hier" lists
+HIER_K = 32  # kept superblocks above which "hier" sweeps every sub-block
+HIER_MIN_NSUB = 256
+# The kernels' mode numbers; any other name is "argsort", as in the JAX package.
+_MODES = {"exact": 1, "interval": 2, "hier": 3, "entry": 4}
+
+
+def _resolve_cull_mode(coherent: bool, nsub: int = 0) -> str:
+    if CULL_MODE is not None:
+        return CULL_MODE
+    return "argsort"
+
+
+def _coarse_group(nsub: int) -> int:
+    """Sub-blocks per cull column: doubled while more than _CULL_COLS
+    columns remain and the count still divides."""
+    group = 1
+    while nsub // group > _CULL_COLS and nsub % (group * 2) == 0:
+        group *= 2
+    return group
+
+
+def _coarse_boxes(aabbs, group: int):
+    """The cull columns' boxes [8, NSUB / group]: the union of each run of
+    `group` sub-block boxes (a run of padding only stays inverted)."""
+    if group == 1:
+        return aabbs
+    nc = aabbs.shape[1] // group
+    return torch.cat([aabbs[0:3].reshape(3, nc, group).amin(2),
+                      aabbs[3:6].reshape(3, nc, group).amax(2), aabbs.new_zeros((2, nc))])
 
 
 def _clustered_tables(tris: TriangleBuffer):
@@ -130,6 +188,16 @@ def _oversized_hits(o, d, ov_buf: TriangleBuffer, eps):
     v = wvx * px + wvy * py + wvz * pz + bv
     ok = ok_det & (torch.minimum(u, v) >= eps) & (u + v <= 1.0) & (t >= eps)
     return t, ok
+
+
+def _oversized_min_t(o, d, ov_buf: TriangleBuffer, eps):
+    """Closest accepted t over the oversized buffer: [R] (BIG = none), in
+    chunks of _SWEEP_RAYS rays. A true upper bound on the search's winner:
+    these triangles stay in the search table, with the same constants."""
+    out = [torch.amin(torch.where(ok, t, BIG), dim=1) for t, ok in (
+        _oversized_hits(o[i:i + _SWEEP_RAYS], d[i:i + _SWEEP_RAYS], ov_buf, eps)
+        for i in range(0, max(o.shape[0], 1), _SWEEP_RAYS))]
+    return torch.cat(out)
 
 
 def _oversized_occl(o, d, t_limit, ov_buf: TriangleBuffer, eps):
@@ -253,34 +321,109 @@ def _pad_rays(o, d, t_limit=None):
     return torch.cat([o, d, tl, o.new_zeros((o.shape[0], RAY_W - 7))], dim=1)
 
 
-def _cull_lists(o, d, t_limit, aabbs):
-    """Per-bundle ascending sub-block lists for one ray chunk: a per-ray
-    slab mask, OR-folded over each bundle, compacted by a stable argsort.
-    Returns (ids [chunk / 8, NSUB] int32, cnt [chunk / 8] int32)."""
+def _hier_cull_lists(o, d, t_limit, aabbs):
+    """The JAX package's two-level lists for one ray chunk: a per-ray slab
+    test of the superblock boxes (unions of HIER_GROUP adjacent sub-block
+    boxes; all-padding ones masked) OR-folded per bundle, then of the
+    sub-boxes of the first min(HIER_K, superblocks) superblocks of its
+    stable argsort (the kept ones first). More kept superblocks: every
+    sub-block, ascending, cnt = NSUB. Padding-only sub-blocks never enter
+    a list. Returns (ids [chunk / 8, NSUB] int32, cnt [chunk / 8] int32)."""
     nsub = aabbs.shape[1]
-    mask = block_cull_mask(o, d, aabbs, t_limit)
-    gmask = torch.any(mask.reshape(-1, COHERENT, nsub), dim=1)
+    g = HIER_GROUP
+    pad = (-nsub) % g
+    aabbs_p = aabbs
+    if pad:
+        aabbs_p = torch.cat([aabbs, torch.cat([aabbs.new_full((3, pad), 1e30),
+                                               aabbs.new_full((3, pad), -1e30),
+                                               aabbs.new_zeros((2, pad))])], dim=1)
+    ns = (nsub + pad) // g
+    k = min(HIER_K, ns)
+    smin = aabbs_p[0:3].reshape(3, ns, g).amin(2)
+    smax = aabbs_p[3:6].reshape(3, ns, g).amax(2)
+    sempty = (smin > smax).any(0)
+    cm = block_cull_mask(o, d, torch.cat([smin, smax, aabbs.new_zeros((2, ns))]), t_limit)
+    gs = cm.reshape(-1, COHERENT, ns).any(1) & ~sempty[None]
+    over = torch.sum(gs, dim=1) > k
+    sids = torch.argsort((~gs).to(torch.uint8), dim=1, stable=True)[:, :k]
+    sub_ids = (sids[:, :, None] * g + torch.arange(g, device=o.device)).reshape(-1, k * g)
+    nb = sub_ids.shape[0]
+    ob = o.reshape(nb, COHERENT, 3)
+    invd = 1.0 / d.reshape(nb, COHERENT, 3)
+    tn = o.new_full((nb, COHERENT, k * g), float("-inf"))
+    tf = o.new_full((nb, COHERENT, k * g), float("inf"))
+    femp = torch.zeros((nb, k * g), dtype=torch.bool, device=o.device)
+    for a in range(3):
+        fmin_a, fmax_a = aabbs_p[a][sub_ids], aabbs_p[3 + a][sub_ids]  # [B, k*g]
+        femp |= fmin_a > fmax_a
+        oa, ia = ob[:, :, a, None], invd[:, :, a, None]
+        t0a = (fmin_a[:, None, :] - oa) * ia  # [B, 8, k*g]
+        t1a = (fmax_a[:, None, :] - oa) * ia
+        tn = torch.maximum(tn, torch.minimum(t0a, t1a))
+        tf = torch.minimum(tf, torch.maximum(t0a, t1a))
+    reject = (tn > tf) | (tf < 0.0)
+    if t_limit is not None:
+        reject |= tn > t_limit.reshape(nb, COHERENT)[:, :, None]
+    fm = (~reject).any(1) & (sub_ids < nsub) & ~femp
+    cnt = torch.sum(fm, dim=1, dtype=torch.int32)
+    order = torch.argsort((~fm).to(torch.uint8), dim=1, stable=True)
+    ids = torch.take_along_dim(sub_ids, order, dim=1).to(torch.int32)
+    iota = torch.arange(nsub, dtype=torch.int32, device=o.device)
+    ids = (torch.cat([ids, iota[None, k * g:].expand(nb, -1)], dim=1) if nsub > k * g
+           else ids[:, :nsub])
+    return (torch.where(over[:, None], iota[None], ids),
+            torch.where(over, nsub, cnt).to(torch.int32))
+
+
+def _cull_lists(o, d, t_limit, aabbs, cull_mode="argsort"):
+    """Per-bundle sub-block lists for one ray chunk, as the JAX package's
+    `_cull_lists` builds them in `cull_mode`: (ids [chunk / 8, NSUB]
+    int32, cnt [chunk / 8] int32). "argsort": a per-ray slab mask,
+    OR-folded over each bundle, compacted by a stable argsort."""
+    nsub = aabbs.shape[1]
+    if cull_mode == "hier":
+        return _hier_cull_lists(o, d, t_limit, aabbs)
+    if cull_mode == "interval":
+        return extract_lists(group_cull_mask(o, d, aabbs, t_limit, group=COHERENT))
+    if cull_mode == "entry":
+        # Nearest-first: keys are the bundle-min slab entry t (+inf where
+        # culled). A NaN entry (kept) becomes -inf and an entry that
+        # overflowed is clamped, so every kept block stays in the prefix.
+        mask, tn = block_cull_mask(o, d, aabbs, t_limit, return_entry=True)
+        tn = torch.minimum(torch.where(torch.isnan(tn), float("-inf"), tn), tn.new_tensor(3.0e38))
+        gkey = torch.where(mask, tn, float("inf")).reshape(-1, COHERENT, nsub).amin(1)
+        ids = torch.argsort(gkey, dim=1, stable=True).to(torch.int32)
+        return ids, torch.sum(mask.reshape(-1, COHERENT, nsub).any(1), dim=1, dtype=torch.int32)
+    gmask = torch.any(block_cull_mask(o, d, aabbs, t_limit).reshape(-1, COHERENT, nsub), dim=1)
+    if cull_mode == "exact":
+        return extract_lists(gmask)
     ids = torch.argsort((~gmask).to(torch.uint8), dim=1, stable=True).to(torch.int32)
     return ids, torch.sum(gmask, dim=1, dtype=torch.int32)
 
 
-def _lists(rays, aabbs):
-    """The JAX package's cull pre-pass (`_prep`, argsort mode) on padded
-    rays [Rp, 8]: (ids [Rp / 8, NSUB] int32, cnt [Rp / 8] int32). Row b of
-    `ids` lists, ascending in its first cnt[b] entries, the sub-blocks some
-    ray of bundle b keeps, culling by the rays' t_limit (+inf: no cull).
-    Streams in ray chunks of about _PREPASS_ELEMS (ray, sub-block) pairs
-    (one chunk for a small wavefront)."""
+def _lists(rays, aabbs, cull_mode="argsort"):
+    """The JAX package's cull pre-pass (`_prep`) on padded rays [Rp, 8]:
+    (ids [Rp / 8, NSUB] int32, cnt [Rp / 8] int32). Row b of `ids` lists,
+    in its first cnt[b] entries, the sub-blocks bundle b sweeps, in the
+    order `cull_mode` gives them, culling by the rays' t_limit (+inf: no
+    cull). Above _CULL_COLS sub-blocks the lists are built over the
+    coarse columns (`_coarse_boxes`) and each column expanded into its
+    sub-blocks, ascending. Streams in ray chunks of about _PREPASS_ELEMS
+    (ray, column) pairs (one chunk for a small wavefront)."""
     rp, nsub = rays.shape[0], aabbs.shape[1]
-    # The JAX package coarsens the cull above 1024 sub-blocks; a segment
-    # never has more (TILE_TRI_LIMIT / SUB), so that path is not carried over.
-    assert nsub <= TILE_TRI_LIMIT // SUB, nsub
-    chunk = max(RAY_GROUP, _PREPASS_ELEMS // nsub // RAY_GROUP * RAY_GROUP)
-    ids = torch.empty((rp // COHERENT, nsub), dtype=torch.int32, device=rays.device)
+    group = _coarse_group(nsub)
+    cb = _coarse_boxes(aabbs, group)
+    nc = cb.shape[1]
+    chunk = max(RAY_GROUP, _PREPASS_ELEMS // nc // RAY_GROUP * RAY_GROUP)
+    ids = torch.empty((rp // COHERENT, nc), dtype=torch.int32, device=rays.device)
     cnt = torch.empty((rp // COHERENT,), dtype=torch.int32, device=rays.device)
     for i in range(0, rp, chunk):
         r, bl = rays[i:i + chunk], slice(i // COHERENT, (i + chunk) // COHERENT)
-        ids[bl], cnt[bl] = _cull_lists(r[:, 0:3], r[:, 3:6], r[:, 6], aabbs)
+        ids[bl], cnt[bl] = _cull_lists(r[:, 0:3], r[:, 3:6], r[:, 6], cb, cull_mode)
+    if group > 1:
+        ids = (ids[:, :, None] * group
+               + torch.arange(group, dtype=torch.int32, device=ids.device)).reshape(-1, nsub)
+        cnt = cnt * group
     return ids, cnt
 
 
@@ -296,8 +439,10 @@ def _bundle_rays(rays):
 
 
 def _block_pairs(tc, jb, o, d, eps):
-    """Every bundle's 8 rays against its sub-block jb [B]: (t, ok) [B, 8, 128]."""
-    c = tc[jb.long()][:, :12, None, :]  # [B, 12, 1, 128]
+    """Every bundle's 8 rays against its sub-block jb [B]: (t, ok) [B, 8, 128].
+    An id past the table (an "exact" or "interval" list's entries past its
+    count hold NSUB) reads the last sub-block; the sweeps mask it out."""
+    c = tc[jb.long().clamp(max=tc.shape[0] - 1)][:, :12, None, :]  # [B, 12, 1, 128]
     return plane_pair(o, d, [c[:, i] for i in range(12)], eps)
 
 
@@ -328,36 +473,54 @@ def _sweep_search(eps, rays, ids, cnt, tc):
     return tmin.reshape(-1), torch.where(tmin < BIG, imin, NO_HIT).reshape(-1)
 
 
-def _sweep_occl(eps, rays, ids, cnt, tc):
+def _sweep_occl(eps, rays, ids, cnt, tc, early_exit=0):
     """K6's sweep of given lists: occluded [Rp] int32 (1 = some hit with
-    eps <= t < t_limit in the bundle's list)."""
+    eps <= t < t_limit in the bundle's list). With early_exit E > 0 a
+    bundle stops at the first multiple of E listed sub-blocks after which
+    every one of its rays is occluded (the JAX kernel's exit; the same
+    answer)."""
     eps = float(eps.reshape(-1)[0])
     b = cnt.shape[0]
     o, d, tl = _bundle_rays(rays)
     occ = torch.zeros((b, COHERENT), dtype=torch.bool, device=rays.device)
+    active = torch.ones((b,), dtype=torch.bool, device=rays.device)
     for k in range(int(cnt.max()) if b else 0):
+        if early_exit and k and k % early_exit == 0:
+            active &= ~occ.all(1)
         t, ok = _block_pairs(tc, ids[:, k], o, d, eps)
-        occ |= torch.any(ok & (t < tl), dim=-1) & (k < cnt)[:, None]
+        occ |= torch.any(ok & (t < tl), dim=-1) & ((k < cnt) & active)[:, None]
     return occ.to(torch.int32).reshape(-1)
 
 
-def _tile_search_plain(eps, rays, aabbs, tc, cnt_out=None):
-    """Plain version of K5: the JAX package's lists (`_lists`), swept by
-    `_sweep_search`. Writes the lists' lengths to cnt_out when given."""
-    ids, cnt = _lists(rays, aabbs)
+def _search_mode(mode):
+    """K5's modes: an "entry" list is not ascending, and K5's tie rule (the
+    lowest sorted index at the minimum t) needs ascending visits."""
+    if mode == "entry":
+        raise ValueError('the tile search (K5) takes no "entry" lists: they are the any-hit '
+                         "search's (K6), nearest-first; use argsort, exact, interval or hier")
+    return mode
+
+
+def _tile_search_plain(eps, rays, aabbs, tc, cnt_out=None, mode="argsort"):
+    """Plain version of K5: the JAX package's lists in `mode` (`_lists`),
+    swept by `_sweep_search`. Writes the lists' lengths to cnt_out when
+    given."""
+    ids, cnt = _lists(rays, aabbs, _search_mode(mode))
     if cnt_out is not None:
         cnt_out.copy_(cnt)
     return _sweep_search(eps, rays, ids, cnt, tc)
 
 
-def _tile_occl_plain(eps, rays, aabbs, tc, ov=None, cnt_out=None):
-    """Plain version of K6: the JAX package's lists (`_lists`), swept by
-    `_sweep_occl`, ORed with every ray against the sub-block `ov`
-    [1, 16, 128] when given. Writes the lists' lengths to cnt_out."""
-    ids, cnt = _lists(rays, aabbs)
+def _tile_occl_plain(eps, rays, aabbs, tc, ov=None, cnt_out=None, mode="argsort",
+                     early_exit=0):
+    """Plain version of K6: the JAX package's lists in `mode` (`_lists`),
+    swept by `_sweep_occl` (with its exit period `early_exit`), ORed with
+    every ray against the sub-block `ov` [1, 16, 128] when given. Writes
+    the lists' lengths to cnt_out."""
+    ids, cnt = _lists(rays, aabbs, mode)
     if cnt_out is not None:
         cnt_out.copy_(cnt)
-    occ = _sweep_occl(eps, rays, ids, cnt, tc)
+    occ = _sweep_occl(eps, rays, ids, cnt, tc, early_exit)
     if ov is not None:
         occ |= _sweep_occl(eps, rays, ids.new_zeros((cnt.shape[0], 1)), torch.ones_like(cnt), ov)
     return occ
@@ -377,7 +540,10 @@ def _lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.rt_tile_search.argtypes = [vp] * 8 + [ci, ci, vp]
         lib.rt_tile_occl.argtypes = [vp] * 8 + [ci, ci, vp]
-        lib.rt_tile_search.restype = lib.rt_tile_occl.restype = ci
+        lib.rt_tile_search_mode.argtypes = [vp] * 8 + [ci] * 6 + [vp]
+        lib.rt_tile_occl_mode.argtypes = [vp] * 8 + [ci] * 7 + [vp]
+        for fn in ("rt_tile_search", "rt_tile_occl", "rt_tile_search_mode", "rt_tile_occl_mode"):
+            getattr(lib, fn).restype = ci
         _LIB = lib
     return _LIB
 
@@ -422,44 +588,72 @@ def _group_boxes(aabbs):
                       aabbs.new_zeros((1, flag.shape[1]))]).contiguous()
 
 
-def tile_kernel(eps, rays, aabbs, tc, cnt_out=None):
+def _general(aabbs, mode):
+    """(mode number, coarse group, the cull columns' boxes) of a call, or
+    None for the default instantiation (argsort over the sub-blocks)."""
+    m, group = _MODES.get(mode, 0), _coarse_group(aabbs.shape[1])
+    if m == 0 and group == 1:
+        return None
+    return m, group, _coarse_boxes(aabbs, group).contiguous()
+
+
+def tile_kernel(eps, rays, aabbs, tc, cnt_out=None, mode="argsort"):
     """K5, closest hit per ray over the sub-blocks each bundle keeps.
 
     eps f32 [1]; rays f32 [8B, 8] (o, d, t_limit, pad; from `_pad_rays`;
     t_limit only culls, t is never clamped to it); aabbs f32 [8, NSUB]; tc
     f32 [NSUB, 16, 128]; cnt_out int32 [B] or None: receives each bundle's
-    kept count (padding-only sub-blocks included; counting them costs the
-    kernel a box-by-box test of their groups). Returns (t [8B] f32 -- BIG
-    on a miss, sorted index [8B] int32 -- -1 on a miss).
+    list length (padding-only sub-blocks included; counting them costs the
+    kernel a box-by-box test of their groups); mode: the pre-pass mode
+    whose lists the kernel walks (module docstring; coarse columns above
+    _CULL_COLS sub-blocks). Returns (t [8B] f32 -- BIG on a miss, sorted
+    index [8B] int32 -- -1 on a miss).
     """
     if rays.device.type == "cpu":
-        return _tile_search_plain(eps, rays, aabbs, tc, cnt_out)
+        return _tile_search_plain(eps, rays, aabbs, tc, cnt_out, mode)
+    general = _general(aabbs, _search_mode(mode))
     b, nsub = _check(eps, rays, aabbs, tc, cnt_out=cnt_out)
     t = torch.empty((COHERENT * b,), dtype=torch.float32, device=rays.device)
     idx = torch.empty((COHERENT * b,), dtype=torch.int32, device=rays.device)
     if b:
         stream = torch.cuda.current_stream(rays.device).cuda_stream
-        ptrs = (_ptr(x) for x in (eps, rays, aabbs, _group_boxes(aabbs), tc, t, idx, cnt_out))
-        err = _lib().rt_tile_search(*ptrs, b, nsub, stream)
+        if general is None:
+            ptrs = (_ptr(x) for x in (eps, rays, aabbs, _group_boxes(aabbs), tc, t, idx, cnt_out))
+            err = _lib().rt_tile_search(*ptrs, b, nsub, stream)
+        else:
+            m, group, cb = general
+            ptrs = (_ptr(x) for x in (eps, rays, aabbs, cb, tc, t, idx, cnt_out))
+            err = _lib().rt_tile_search_mode(*ptrs, b, nsub, m, group, HIER_GROUP, HIER_K, stream)
         _build.check_launch(_lib(), "rt_tile", err)
         tile_kernel.launches += 1
     return t, idx
 
 
-def tile_occl_kernel(eps, rays, aabbs, tc, ov=None, cnt_out=None):
+def tile_occl_kernel(eps, rays, aabbs, tc, ov=None, cnt_out=None, mode="argsort",
+                     early_exit=0):
     """K6, any hit per ray with eps <= t < t_limit over the sub-blocks each
-    bundle keeps, and over the sub-block ov f32
-    [1, 16, 128] for every ray when given. Other inputs as `tile_kernel`.
-    Returns int32 [8B] (1 = occluded).
+    bundle keeps, and over the sub-block ov f32 [1, 16, 128] for every ray
+    when given. early_exit E > 0: the bundle tests "every ray occluded or
+    unable to be" every E listed sub-blocks (else after each). Other inputs
+    as `tile_kernel` ("entry" lists too). Returns int32 [8B] (1 = occluded).
     """
     if rays.device.type == "cpu":
-        return _tile_occl_plain(eps, rays, aabbs, tc, ov, cnt_out)
+        return _tile_occl_plain(eps, rays, aabbs, tc, ov, cnt_out, mode, early_exit)
+    general = _general(aabbs, mode)
+    if general is None and early_exit:
+        general = 0, 1, aabbs
     b, nsub = _check(eps, rays, aabbs, tc, ov, cnt_out)
     occ = torch.empty((COHERENT * b,), dtype=torch.int32, device=rays.device)
     if b:
         stream = torch.cuda.current_stream(rays.device).cuda_stream
-        ptrs = (_ptr(x) for x in (eps, rays, aabbs, _group_boxes(aabbs), tc, ov, occ, cnt_out))
-        err = _lib().rt_tile_occl(*ptrs, b, nsub, stream)
+        if general is None:
+            ptrs = (_ptr(x) for x in (eps, rays, aabbs, _group_boxes(aabbs), tc, ov, occ, cnt_out))
+            err = _lib().rt_tile_occl(*ptrs, b, nsub, stream)
+        else:
+            m, group, cb = general
+            ptrs = (_ptr(x) for x in (eps, rays, aabbs, cb, tc, ov, occ, cnt_out))
+            err = _lib().rt_tile_occl_mode(*ptrs, b, nsub, m, group, HIER_GROUP, HIER_K,
+                                           max(int(early_exit), 1), stream)
         _build.check_launch(_lib(), "rt_tile", err)
         tile_occl_kernel.launches += 1
     return occ
@@ -484,20 +678,26 @@ def _orig(idx, perm):
     return torch.where(idx >= 0, perm[torch.clamp(idx, min=0).long()], NO_HIT)
 
 
-def tile_tri_search(o, d, tris: TriangleBuffer, eps, t_limit=None):
+def tile_tri_search(o, d, tris: TriangleBuffer, eps, t_limit=None, coherent: bool = False):
     """tri_search hook (core/intersect.py contract): (best_t [R], orig idx [R]).
 
-    `t_limit` only culls (see the module docstring). Segments combine
-    first-wins: an earlier segment keeps a tie.
+    `t_limit` only culls (see the module docstring); with PRIMARY_PREHIT
+    the closest oversized hit caps it. `coherent` marks a shared-origin
+    wavefront (camera rays), which `_resolve_cull_mode` may use. Segments
+    combine first-wins: an earlier segment keeps a tie.
     """
     eps_arr = _eps_tensor(eps, o.device)
     r = o.shape[0]
-    rays = _pad_rays(o, d, t_limit)
     best_t = torch.full((r,), BIG, dtype=torch.float32, device=o.device)
     best_i = torch.full((r,), NO_HIT, dtype=torch.int32, device=o.device)
-    segments, _, _ = _sliced(tris)
+    segments, ov_buf, _ = _sliced(tris)
+    if PRIMARY_PREHIT:
+        hint = _oversized_min_t(o, d, ov_buf, eps)
+        t_limit = hint if t_limit is None else torch.minimum(t_limit, hint)
+    rays = _pad_rays(o, d, t_limit)
     for tc, aabbs, perm_k in segments:
-        t_k, idx_k = tile_kernel(eps_arr, rays, aabbs, tc)
+        t_k, idx_k = tile_kernel(eps_arr, rays, aabbs, tc,
+                                 mode=_resolve_cull_mode(coherent, aabbs.shape[1]))
         t_k, idx_k = t_k[:r], idx_k[:r]
         better = t_k < best_t
         best_t = torch.where(better, t_k, best_t)
@@ -505,9 +705,18 @@ def tile_tri_search(o, d, tris: TriangleBuffer, eps, t_limit=None):
     return best_t, best_i
 
 
+def _occl_mode(nsub: int) -> str:
+    """The any-hit search's mode: CULL_MODE when set, else "entry" under
+    OCCL_EARLY_EXIT (nearest-first lists), else the resolved default."""
+    if CULL_MODE is not None:
+        return CULL_MODE
+    return "entry" if OCCL_EARLY_EXIT else _resolve_cull_mode(False, nsub)
+
+
 def tile_occlusion(o, d, t_limit, tris: TriangleBuffer, eps) -> torch.Tensor:
     """Occlusion [R] bool: any accepted hit in (eps, t_limit). The oversized
-    triangles go to the first segment's K6 launch as one extra sub-block."""
+    triangles go to the first segment's K6 launch as one extra sub-block.
+    Shadow origins are per-pixel hit points, never coherent."""
     eps_arr = _eps_tensor(eps, o.device)
     r = o.shape[0]
     rays = _pad_rays(o, d, t_limit)
@@ -515,8 +724,11 @@ def tile_occlusion(o, d, t_limit, tris: TriangleBuffer, eps) -> torch.Tensor:
     segments, ov_buf, _ = _sliced(tris, exclude_oversized=True)
     ov, _ = _pack_sub(ov_buf)
     for k, (tc, aabbs, _) in enumerate(segments):
-        occluded |= tile_occl_kernel(eps_arr, rays, aabbs, tc, ov if k == 0 else None)[:r] > 0
+        occluded |= tile_occl_kernel(eps_arr, rays, aabbs, tc, ov if k == 0 else None,
+                                     mode=_occl_mode(aabbs.shape[1]),
+                                     early_exit=OCCL_EARLY_EXIT)[:r] > 0
     return occluded
 
 
 tile_tri_search.occlusion = tile_occlusion
+tile_tri_search.supports_coherent = True

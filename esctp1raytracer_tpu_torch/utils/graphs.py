@@ -10,7 +10,10 @@ dispatch.
 Calls on one key (the static arguments' values; the shape, dtype,
 device and `requires_grad` of every tensor reached through the other
 arguments, dataclasses such as `Scene` and `Camera` walked field by
-field, and the Python values beside them; the debug level):
+field, and the Python values beside them; the debug level; the search
+layer's switches, `SEARCH_SWITCHES`, which a graph bakes in as it does
+any Python value, so that one flipped between two calls takes effect at
+the next):
 
 1. runs fn eagerly: the warm-up, which also builds the kernels;
 2. captures fn on static copies of the inputs (on a side stream, in a
@@ -47,12 +50,21 @@ from typing import Callable, Iterator
 
 import torch
 
-from esctp1raytracer_tpu_torch.kernels import launches
+from esctp1raytracer_tpu_torch.kernels import launches, rt_mxu, rt_tile
 from esctp1raytracer_tpu_torch.utils.debug import TRACE, current_level
 
 _state = {"disabled": 0}
 _caches: "weakref.WeakSet[Graphed]" = weakref.WeakSet()
 _WARM = object()  # a key seen once: its next call captures
+# The module switches that choose what the search kernels do (kernels/rt_tile.py,
+# kernels/rt_mxu.py), read when a step runs: (module, name) each.
+SEARCH_SWITCHES = ((rt_tile, "CULL_MODE"), (rt_tile, "_CULL_COLS"), (rt_tile, "PRIMARY_PREHIT"),
+                   (rt_tile, "OCCL_EARLY_EXIT"), (rt_tile, "HIER_GROUP"), (rt_tile, "HIER_K"),
+                   (rt_mxu, "CULL_MODE"), (rt_mxu, "SEARCH_BF16X3"))
+
+
+def _switches() -> tuple:
+    return tuple(getattr(mod, name) for mod, name in SEARCH_SWITCHES)
 
 
 @contextlib.contextmanager
@@ -154,7 +166,7 @@ class Graphed:
         static = {k: v for k, v in bound.arguments.items() if k in self.static_argnames}
         dynamic = {k: v for k, v in bound.arguments.items() if k not in self.static_argnames}
         tensors = []
-        key = (tuple(static.items()), _flatten(dynamic, tensors), current_level())
+        key = (tuple(static.items()), _flatten(dynamic, tensors), current_level(), _switches())
         return key, static, dynamic, tensors
 
     def key(self, *args, **kwargs):

@@ -830,3 +830,178 @@ def test_failed_capture_raises_without_eager_retry(dev):
         assert torch.equal(x * 2, torch.full((4,), 2.0, device=dev))  # the card still works
     finally:
         graphs.clear()
+
+
+# --------------------------------------------------------------------------
+# The JAX package's selectable search paths on the card (rt_tile.CULL_MODE,
+# _CULL_COLS, HIER_K, OCCL_EARLY_EXIT; rt_mxu.CULL_MODE, SEARCH_BF16X3)
+# --------------------------------------------------------------------------
+
+# case: (mode, _CULL_COLS, HIER_K, early exit E); "coarse": columns of 4
+# sub-blocks (16 on "padded"); "hier-overflow": every bundle with two kept
+# superblocks sweeps every sub-block.
+TILE_MODES = {
+    "exact": ("exact", 1024, 32, 0),
+    "interval": ("interval", 1024, 32, 0),
+    "hier": ("hier", 1024, 32, 0),
+    "hier-overflow": ("hier", 1024, 1, 0),
+    "entry": ("entry", 1024, 32, 0),
+    "coarse": ("argsort", 4, 32, 0),
+    "coarse-hier": ("hier", 4, 32, 0),
+    "entry-E1": ("entry", 1024, 32, 1),
+    "argsort-E8": ("argsort", 1024, 32, 8),
+}
+
+
+@pytest.mark.parametrize("case", list(TILE_MODES))
+@pytest.mark.parametrize("name", ["mesh", "padded"])
+def test_tile_mode_kernels_match_plain(dev, monkeypatch, case, name):
+    """K5 (not for "entry": K5 takes ascending lists only) and K6 in each
+    mode against their plain versions in the same mode, bit for bit, with
+    and without cnt_out, cnt_out equal to the plain lists' cnt. "padded":
+    64 padding-only sub-blocks, which every bundle keeps: more than 32 kept
+    sub-blocks, so "exact" and "interval" take their dense fallback."""
+    mode, cols, hier_k, period = TILE_MODES[case]
+    monkeypatch.setattr(rt_tile, "_CULL_COLS", cols)
+    monkeypatch.setattr(rt_tile, "HIER_K", hier_k)
+    sc = b.mesh_scene(3)
+    tris = sc.triangles
+    if name == "padded":
+        filler = TriangleBuffer.empty(64 * 128, device=dev)
+        tris = tris.map(lambda leaf, a: torch.cat([a, getattr(filler, leaf)]))
+    o, d = (x.reshape(-1, 3).contiguous() for x in CAM.to(dev).ray_grid(160, 117))
+    r = o.shape[0]
+
+    def counted(fn, *args, **kw):
+        cnt = torch.full((args[1].shape[0] // 8,), -1, dtype=torch.int32, device=dev)
+        return fn(*args, cnt_out=cnt, **kw), cnt
+
+    if mode != "entry":
+        for limit in (None, torch.full((r,), 9.0, device=dev)):
+            eps, rays, aabbs, tc, _ = _tile_args(tris, o, d, limit, False)
+            (t, idx), cnt = counted(rt_tile.tile_kernel, eps, rays, aabbs, tc, mode=mode)
+            t1, idx1 = rt_tile.tile_kernel(eps, rays, aabbs, tc, mode=mode)
+            (t2, idx2), cnt2 = counted(rt_tile._tile_search_plain, eps, rays, aabbs, tc, mode=mode)
+            torch.cuda.synchronize()
+            assert torch.equal(cnt, cnt2)
+            assert torch.equal(t, t2) and torch.equal(idx, idx2)
+            assert torch.equal(t1, t2) and torch.equal(idx1, idx2)
+            assert (idx[:r] >= 0).float().mean().item() > 0.3
+    else:
+        with pytest.raises(ValueError, match="entry"):
+            rt_tile.tile_kernel(*_tile_args(tris, o, d, None, False)[:4], mode=mode)
+    hp, sd, stl = _shadow_rays(sc.to(dev), o, d, [0.3, 5.9, 2.2])
+    eps, rays, aabbs, tc, ov_buf = _tile_args(tris, hp, sd, stl, True)
+    ov, _ = rt_tile._pack_sub(ov_buf)
+    kw = dict(mode=mode, early_exit=period)
+    occ, cnt = counted(rt_tile.tile_occl_kernel, eps, rays, aabbs, tc, ov, **kw)
+    occ1 = rt_tile.tile_occl_kernel(eps, rays, aabbs, tc, ov, **kw)
+    occ2, cnt2 = counted(rt_tile._tile_occl_plain, eps, rays, aabbs, tc, ov, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(cnt, cnt2)
+    assert torch.equal(occ, occ2) and torch.equal(occ1, occ2)
+    assert torch.equal(occ, rt_tile.tile_occl_kernel(eps, rays, aabbs, tc, ov))  # the default's
+    assert 0.01 < occ[:r].float().mean().item() < 0.99
+    if name == "padded" and mode in ("exact", "interval"):
+        assert int(cnt.max()) == aabbs.shape[1]
+
+
+@pytest.mark.parametrize("mode,bf16x3", [("exact", False), ("interval", False),
+                                         ("argsort", True), ("exact", True)])
+@pytest.mark.parametrize("name", ["icospheres", "padded"])
+def test_mxu_mode_kernels_match_plain(dev, scene, name, mode, bf16x3):
+    """K1 (and, in float32, K2) in each mode against the plain version in
+    the same mode: tests/test_rt_mxu.py's bars, cnt_out equal to
+    `_prep_mxu`'s cnt in that mode. bf16x3 K1 also against the float32
+    search, with the JAX test's bf16x3 bars (>= 97% same winners, relative
+    t error < 5e-4 on the rest)."""
+    tris = _mxu_tris(scene, dev, name)
+    o, d = (x.reshape(-1, 3) for x in CAM.to(dev).ray_grid(160, 117))
+    r = o.shape[0]
+    eps, rays, aabbs, tfq = _mxu_args(tris, o, d, None, False)
+    cnt = torch.full((rays.shape[0] // 128,), -1, dtype=torch.int32, device=dev)
+    t, idx = rt_mxu.mxu_kernel(eps, rays, aabbs, tfq, cnt, mode=mode, bf16x3=bf16x3)
+    t1, idx1 = rt_mxu.mxu_kernel(eps, rays, aabbs, tfq, mode=mode, bf16x3=bf16x3)
+    torch.cuda.synchronize()
+    want_cnt = rt_mxu._prep_mxu(rays[:, 0:3], rays[:, 3:6], aabbs, rays[:, 6], cull_mode=mode)[2]
+    assert torch.equal(cnt, want_cnt)
+    assert torch.equal(t, t1) and torch.equal(idx, idx1)
+    t2, idx2 = rt_mxu._mxu_search_plain(eps, rays, aabbs, tfq, mode=mode, bf16x3=bf16x3)
+    same = idx == idx2
+    assert same.float().mean().item() >= 0.999
+    assert ((t - t2).abs()[same] / t2.abs()[same].clamp(min=1.0)).max().item() < 1e-5
+    if bf16x3:
+        t0, idx0 = rt_mxu.mxu_kernel(eps, rays, aabbs, tfq)
+        same = idx[:r] == idx0[:r]
+        assert same.float().mean().item() > 0.97
+        assert ((t[:r] - t0[:r]).abs()[same] / t0[:r].abs()[same].clamp(min=1.0)).max().item() < 5e-4
+        return
+    sc = scene.to(dev)
+    hit = closest_hit(o, d, sc, EPS, tri_search=rt_mxu.mxu_tile_search)
+    hp = o + d * (torch.where(hit.hit, hit.t, 1.0)[:, None] - 1e-4)
+    lv = torch.tensor([0.3, 8.0, 2.2], device=dev) - hp
+    dist = lv.norm(dim=-1)
+    eps, rays, aabbs, tfq = _mxu_args(tris, hp, lv / dist[:, None],
+                                      torch.where(hit.hit, dist - 1e-4, -1.0), True)
+    ov, _ = rt_tile._pack_sub(rt_mxu._segments(tris, True)[1])
+    cnt = torch.full_like(cnt, -1)
+    occ = rt_mxu.mxu_occl_kernel(eps, rays, aabbs, tfq, ov, cnt, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(cnt, rt_mxu._prep_mxu(rays[:, 0:3], rays[:, 3:6], aabbs, rays[:, 6],
+                                             cull_mode=mode)[2])
+    occ2 = rt_mxu._mxu_occl_plain(eps, rays, aabbs, tfq, ov, mode=mode)
+    assert (occ == occ2).float().mean().item() >= 0.999
+    assert torch.equal(occ, rt_mxu.mxu_occl_kernel(eps, rays, aabbs, tfq, ov))  # the default's
+
+
+# switch: (module, name, value, backend); each run by `render` on the card.
+SWITCH_FLIPS = {
+    "tile-interval": (rt_tile, "CULL_MODE", "interval", "tile"),
+    "tile-coarse": (rt_tile, "_CULL_COLS", 4, "tile"),
+    "tile-prehit": (rt_tile, "PRIMARY_PREHIT", True, "tile"),
+    "tile-early-exit": (rt_tile, "OCCL_EARLY_EXIT", 8, "tile"),
+    "mxtile-exact": (rt_mxu, "CULL_MODE", "exact", "mxtile"),
+    "mxtile-bf16x3": (rt_mxu, "SEARCH_BF16X3", True, "mxtile"),
+}
+
+
+@pytest.mark.parametrize("flip", list(SWITCH_FLIPS))
+def test_graphed_render_follows_a_flipped_switch(dev, scene, monkeypatch, flip):
+    """A switch flipped between two graphed `render` calls takes effect at
+    the next call: a new key, whose eager warm-up passes the new mode to
+    the kernel wrapper, and whose replay equals the eager render under the
+    switch (not the graph captured before the flip)."""
+    from esctp1raytracer_tpu_torch.utils import graphs
+
+    mod, name, value, backend = SWITCH_FLIPS[flip]
+    sc, cam, cfg = scene.to(dev), CAM.to(dev), RenderConfig(backend=backend)
+    seen = []
+    spy = rt_tile.tile_kernel if backend == "tile" else rt_mxu.mxu_kernel
+
+    def spied(*args, **kw):
+        seen.append(kw)
+        return spy(*args, **kw)
+
+    spied.launches = 0
+    monkeypatch.setattr(rt_tile if backend == "tile" else rt_mxu, spy.__name__, spied)
+    graphs.clear()
+    try:
+        with torch.no_grad():
+            for _ in range(3):  # eager, capture, replay
+                before = render(sc, cam, 64, 48, cfg)
+            assert len(render.cache) == 1
+            seen.clear()
+            monkeypatch.setattr(mod, name, value)
+            after = [render(sc, cam, 64, 48, cfg) for _ in range(3)]
+            with graphs.disabled():
+                want = render(sc, cam, 64, 48, cfg)
+        assert len(render.cache) == 2
+        assert seen, "the flipped key ran no search eagerly"
+        if name in ("CULL_MODE", "SEARCH_BF16X3"):
+            key = "mode" if name == "CULL_MODE" else "bf16x3"
+            assert all(kw[key] == value for kw in seen), seen
+        for img in after:
+            assert torch.equal(img, want)
+        assert torch.isfinite(before).all()
+    finally:
+        graphs.clear()

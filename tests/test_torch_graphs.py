@@ -122,6 +122,25 @@ def test_key(soup, change, new_entry):
         debug.set_level(level)
 
 
+@pytest.mark.parametrize("module,name,value", [
+    (rt_tile, "CULL_MODE", "interval"), (rt_tile, "_CULL_COLS", 4),
+    (rt_tile, "PRIMARY_PREHIT", True), (rt_tile, "OCCL_EARLY_EXIT", 8),
+    (rt_tile, "HIER_GROUP", 4), (rt_tile, "HIER_K", 1),
+    (rt_mxu, "CULL_MODE", "exact"), (rt_mxu, "SEARCH_BF16X3", True),
+], ids=lambda v: v if isinstance(v, str) else None)
+def test_key_follows_the_search_switches(soup, monkeypatch, module, name, value):
+    """A graph bakes in the search switches it ran under: flipping one gives
+    a new key, so the next call never replays a graph captured under another
+    mode; flipping it back finds the old key again."""
+    _, scene = soup
+    args = (scene, cam(), W, H, RenderConfig())
+    want = render.key(*args)
+    monkeypatch.setattr(module, name, value)
+    assert render.key(*args) != want
+    monkeypatch.undo()
+    assert render.key(*args) == want
+
+
 def test_static_argument_keys_by_value_and_others_by_structure():
     g = graphs.graphed(lambda x, n, cfg=None: x * n, static_argnames=("n",))
     x = torch.ones(3)

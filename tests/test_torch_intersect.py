@@ -130,3 +130,13 @@ def test_select_rows_and_packed_table(scenes):
     idx = torch.tensor([0, 5, 3, 3, 1])
     np.testing.assert_array_equal(pi.select_rows(table, idx).numpy(), table[idx].numpy())
     np.testing.assert_array_equal(pi.select_rows(table, idx, limit=2).numpy(), table[idx].numpy())
+
+
+@pytest.mark.parametrize("name", ["EPS", "T_MAX", "BIG", "NO_HIT", "aabb.BIG"])
+def test_constants_match_jax(name):
+    """The module constants, by name, equal the JAX package's as float32."""
+    from esctp1raytracer_tpu.accel import aabb as ja
+    from esctp1raytracer_tpu_torch.accel import aabb as pa
+
+    j, p = (ja.BIG, pa.BIG) if name == "aabb.BIG" else (getattr(ji, name), getattr(pi, name))
+    assert np.float32(p) == np.float32(np.asarray(j))
