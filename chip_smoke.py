@@ -121,22 +121,22 @@ M. the JAX package's compiled steps as CUDA graphs (utils/graphs.py), each
    must raise. Printed per step: the eager and graphed ms (CUDA events,
    median of 5, ids moved on per call), the host ms per call, the capture
    ms, the peak memory and the busy share of one step each way;
-N. the JAX package's selectable search paths (rt_tile.CULL_MODE, _CULL_COLS,
-   PRIMARY_PREHIT, OCCL_EARLY_EXIT; rt_mxu.CULL_MODE, SEARCH_BF16X3), each
-   run by an instantiation of K1, K2, K5 or K6 (MODE_CASES): in each mode
-   the kernel on MODE_SLICE rays of the heaviest rows of the flagship's
-   camera and shadow wavefronts (K1, K2) and config 5's (K5, K6) against
-   its plain version in the same mode (K5, K6 bit-identical; K1, K2 the
-   bars of tests/test_rt_mxu.py), its cnt_out equal to the plain lists';
-   on the whole wavefront bit-identical to the default (argsort) kernel
-   (bf16x3: the JAX test's bars against float32) and timed beside it in
-   turns; the default instantiation timed again against its PERF.md range
-   (DEFAULT_MS); the oversized pre-hit bit-identical on and off on both
-   camera wavefronts; then `render` on the flagship, graphed, with a switch
-   flipped between calls (mxtile interval and bf16x3, tile hier and the
-   early exit): a new key, the replay equal to the eager render under the
-   switch, its launches the eager call's, and the cnt_out it captured equal
-   to the plain lists' cnt in the new mode on the replay's rays.
+N. the JAX package's selectable pre-pass modes (rt_tile.CULL_MODE,
+   OCCL_EARLY_EXIT; rt_mxu.CULL_MODE), each run by an instantiation of K1,
+   K2, K5 or K6 (MODE_CASES): first the default instantiations' ptxas lines
+   (registers, spills, shared memory) equal to those the kernels had before
+   the modes (DEFAULT_PTXAS); then in each mode the kernel on MODE_SLICE
+   rays of the heaviest rows of the flagship's camera and shadow wavefronts
+   (K1, K2) and config 5's (K5, K6) against its plain version in the same
+   mode (K5, K6 bit-identical; K1, K2 the bars of tests/test_rt_mxu.py), its
+   cnt_out equal to the plain lists'; on the whole wavefront bit-identical
+   to the default (argsort) kernel and timed beside it in turns; the
+   default instantiation timed again, within 1% of the top of its earlier
+   runs (DEFAULT_MS); then `render` on the flagship, graphed, with a switch
+   flipped between calls (mxtile interval, tile hier and the early exit):
+   a new key, the replay equal to the eager render under the switch, its
+   launches the eager call's, and the cnt_out it captured equal to the
+   plain lists' cnt in the new mode on the replay's rays.
 
 Phases, any failure exits non-zero (no phase catches its own failure):
 1. device: needs a CUDA device (there is no CPU path); prints the card's
@@ -233,6 +233,7 @@ import gc
 import io
 import json
 import os
+import re
 import shutil
 import socket
 import statistics
@@ -3126,32 +3127,40 @@ def graph_phase(card, results, flag, flag_cam, corn, corn_cam, mixed, mixed_cam)
 
 
 # --------------------------------------------------------------------------
-# Path N: the JAX package's selectable search paths (rt_tile.CULL_MODE,
-# _CULL_COLS, PRIMARY_PREHIT, OCCL_EARLY_EXIT; rt_mxu.CULL_MODE, SEARCH_BF16X3)
+# Path N: the JAX package's selectable pre-pass modes (rt_tile.CULL_MODE,
+# OCCL_EARLY_EXIT; rt_mxu.CULL_MODE)
 # --------------------------------------------------------------------------
 
 MODE_SLICE = 65_536  # rays per wavefront held against the plain versions in each mode
-# kernel: {label: keyword arguments of the wrapper}; "coarse": the lists over
-# columns of 8 sub-blocks (_CULL_COLS = 128 on config 5's 784: JAX's measured
-# 98-column case). K5 takes no "entry" lists (they are K6's, nearest-first).
+# kernel: {label: keyword arguments of the wrapper}. K5 takes no "entry" lists
+# (they are K6's, nearest-first).
 MODE_CASES = {
-    "mxu_kernel": {"exact": dict(mode="exact"), "interval": dict(mode="interval"),
-                   "bf16x3": dict(bf16x3=True)},
+    "mxu_kernel": {"exact": dict(mode="exact"), "interval": dict(mode="interval")},
     "mxu_occl_kernel": {"exact": dict(mode="exact"), "interval": dict(mode="interval")},
     "tile_kernel": {"exact": dict(mode="exact"), "interval": dict(mode="interval"),
-                    "hier": dict(mode="hier"), "coarse": dict()},
+                    "hier": dict(mode="hier")},
     "tile_occl_kernel": {"exact": dict(mode="exact"), "interval": dict(mode="interval"),
                          "hier": dict(mode="hier"), "entry": dict(mode="entry"),
-                         "coarse": dict(), "entry E=1": dict(mode="entry", early_exit=1),
+                         "entry E=1": dict(mode="entry", early_exit=1),
                          "entry E=8": dict(mode="entry", early_exit=8)},
 }
-COARSE_COLS = 128
-# The default instantiation's whole-wavefront ms in PERF.md §6 (NVIDIA H100 80GB HBM3,
-# 700.00 W; this script's earlier runs): K1 and K2 on the flagship, K5 and K6 on config 5. Path N
-# reads them again, within DEFAULT_SLACK of the range's top.
-DEFAULT_MS = {"mxu_kernel": (1.602, 1.619), "mxu_occl_kernel": (1.699, 1.709),
-              "tile_kernel": (21.41, 21.512), "tile_occl_kernel": (33.12, 33.207)}
-DEFAULT_SLACK = 1.05
+# The default instantiations as the tree before the modes built them (ptxas
+# with this script's flags, sm_90a): (source, a piece of the kernel's mangled
+# name, registers, spill stores, spill loads, bytes of shared memory). Path N
+# requires the same: the modes leave the default code as it was.
+DEFAULT_PTXAS = {
+    "mxu_kernel": ("rt_mxu", "17mxu_search_kernelILi0EE", 79, 0, 0, 32832),
+    "mxu_occl_kernel": ("rt_mxu", "15mxu_occl_kernelILi0EE", 80, 0, 0, 32832),
+    "tile_kernel": ("rt_tile", "18tile_search_kernelE", 128, 0, 0, 0),
+    "tile_occl_kernel": ("rt_tile", "16tile_occl_kernelE", 128, 0, 0, 0),
+}
+# The default instantiation's whole-wavefront ms over this script's sound runs
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6): K1 and K2 on the flagship, K5
+# and K6 on config 5. Path N reads them again, within DEFAULT_SLACK of the
+# range's top: the spread between those runs, about 1%.
+DEFAULT_MS = {"mxu_kernel": (1.599, 1.619), "mxu_occl_kernel": (1.685, 1.709),
+              "tile_kernel": (21.281, 21.512), "tile_occl_kernel": (32.945, 33.275)}
+DEFAULT_SLACK = 1.01
 
 
 @contextlib.contextmanager
@@ -3163,6 +3172,36 @@ def switch(module, name, value):
         yield
     finally:
         setattr(module, name, old)
+
+
+def ptxas_entries(source):
+    """{mangled kernel name: (registers, spill stores, spill loads, shared
+    bytes)} from the ptxas log of csrc/<source>.cu's build."""
+    out, name = {}, None
+    spills = (0, 0)
+    for line in _build.lib_path(source).with_suffix(".log").read_text().splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name, spills = m.group(1), (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name] = (int(m.group(1)), *spills, int(smem.group(1)) if smem else 0)
+            name = None
+    return out
+
+
+def default_build_check():
+    """The default instantiations of K1, K2, K5 and K6 built as before the
+    modes: the same registers, spills and shared memory (DEFAULT_PTXAS)."""
+    for kernel, (source, piece, *want) in DEFAULT_PTXAS.items():
+        found = {n: v for n, v in ptxas_entries(source).items() if piece in n}
+        check(len(found) == 1, f"N {kernel}: {len(found)} ptxas entries match {piece!r}")
+        (name, got), = found.items()
+        check(list(got) == want, f"N {kernel}: the default instantiation builds with (registers, "
+              f"spill stores, spill loads, smem) {got}, not {tuple(want)}")
+        say(f"N {kernel}: the default instantiation {name} builds as before: {got[0]} "
+            f"registers, {got[1]}/{got[2]} bytes spilled, {got[3]} bytes of shared memory")
 
 
 def mode_ms(fn, rays_, iters):
@@ -3196,10 +3235,9 @@ def mode_kernels(card, results, wavefront, tile, w, what, iters):
     MODE_SLICE rays of the heaviest rows against its plain version in the
     same mode, its cnt_out equal to the plain lists' cnt (K5, K6:
     bit-identical; K1, K2: the bars of tests/test_rt_mxu.py); (2) on the
-    whole wavefront against the default (argsort) kernel: bit-identical
-    (bf16x3: the JAX test's bars, >= 97% same winners, relative t error
-    < 5e-4 on the rest); (3) timed beside the default on the whole
-    wavefront, in turns (default, mode, mode, default)."""
+    whole wavefront bit-identical to the default (argsort) kernel; (3)
+    timed beside the default on the whole wavefront, in turns (default,
+    mode, mode, default). Then the default alone, against DEFAULT_MS."""
     name, args, _ = tile_args(wavefront) if tile else mxtile_args(wavefront)
     per = rt_tile.COHERENT if tile else rt_mxu.RAY_TILE
     r = wavefront[1].shape[0]
@@ -3208,58 +3246,41 @@ def mode_kernels(card, results, wavefront, tile, w, what, iters):
     rs = mode_slice(base_cnt, per, r, w)
     sargs = (args[0], args[1][rs], *args[2:])
 
-    def call(kw, cols):
-        def run(rr):
-            with switch(rt_tile, "_CULL_COLS", cols):
-                return wrapper(name)(args[0], rr, *args[2:], **kw)
-        return run
+    def call(kw):
+        return lambda rr: wrapper(name)(args[0], rr, *args[2:], **kw)
 
     out = {}
     for label, kw in MODE_CASES[name].items():
-        default_cols = rt_tile._CULL_COLS
-        cols = COARSE_COLS if label == "coarse" else default_cols
-        with switch(rt_tile, "_CULL_COLS", cols):
-            cnt_k = torch.full((sargs[1].shape[0] // per,), -1, dtype=torch.int32, device="cuda")
-            cnt_p = torch.full_like(cnt_k, -1)
-            got = wrapper(name)(*sargs, cnt_out=cnt_k, **kw)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            plain = KERNELS[name][0](*sargs, cnt_out=cnt_p, **kw)
-            torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t0) * 1e3
-            tag = f"N {name} [{what}, {label}]"
-            check(torch.equal(cnt_k, cnt_p), f"{tag}: cnt_out differs from the plain lists' cnt "
-                  f"on {int((cnt_k != cnt_p).sum())} of {cnt_k.numel()} groups")
-            if tile:
-                identical(f"{tag} vs its plain version on the slice", got, plain)
-            elif name == "mxu_kernel":
-                search_agreement(f"{tag} vs its plain version", got, plain)
-            else:
-                agree = (got == plain).float().mean().item()
-                check(agree >= 0.999, f"{tag}: occlusion agreement {agree} < 0.999")
-            whole = wrapper(name)(*args, **kw)
-            if kw.get("bf16x3"):
-                same = whole[1][:r] == base[1][:r]
-                share = same.float().mean().item()
-                rel = ((whole[0][:r] - base[0][:r]).abs()[same]
-                       / base[0][:r].abs()[same].clamp(min=1.0)).max().item()
-                check(share > 0.97 and rel < 5e-4, f"{tag}: {share} same winners as float32 "
-                      f"(want > 0.97), relative t error {rel} (want < 5e-4)")
-                vs = f"{share:.6f} same winners as float32, max rel t err {rel:.3e}"
-            else:
-                identical(f"{tag} vs the default (argsort) kernel on the whole wavefront", whole,
-                          base)
-                vs = "bit-identical to the default on the whole wavefront"
-        a1 = mode_ms(call({}, default_cols), args[1], iters)
-        m1 = mode_ms(call(kw, cols), args[1], iters)
-        m2 = mode_ms(call(kw, cols), args[1], iters)
-        a2 = mode_ms(call({}, default_cols), args[1], iters)
+        cnt_k = torch.full((sargs[1].shape[0] // per,), -1, dtype=torch.int32, device="cuda")
+        cnt_p = torch.full_like(cnt_k, -1)
+        got = wrapper(name)(*sargs, cnt_out=cnt_k, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = KERNELS[name][0](*sargs, cnt_out=cnt_p, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        tag = f"N {name} [{what}, {label}]"
+        check(torch.equal(cnt_k, cnt_p), f"{tag}: cnt_out differs from the plain lists' cnt "
+              f"on {int((cnt_k != cnt_p).sum())} of {cnt_k.numel()} groups")
+        if tile:
+            identical(f"{tag} vs its plain version on the slice", got, plain)
+        elif name == "mxu_kernel":
+            search_agreement(f"{tag} vs its plain version", got, plain)
+        else:
+            agree = (got == plain).float().mean().item()
+            check(agree >= 0.999, f"{tag}: occlusion agreement {agree} < 0.999")
+        whole = wrapper(name)(*args, **kw)
+        identical(f"{tag} vs the default (argsort) kernel on the whole wavefront", whole, base)
+        a1 = mode_ms(call({}), args[1], iters)
+        m1 = mode_ms(call(kw), args[1], iters)
+        m2 = mode_ms(call(kw), args[1], iters)
+        a2 = mode_ms(call({}), args[1], iters)
         ms, argsort_ms = (m1 + m2) / 2, (a1 + a2) / 2
         say(f"{tag}: mean list {cnt_k.float().mean().item():.2f} on the slice (argsort "
             f"{base_cnt[rs.start // per:rs.stop // per].float().mean().item():.2f}), cnt_out "
-            f"equal, {vs}; whole wavefront {ms:.3f} ms ({m1:.3f}, {m2:.3f}) vs argsort "
-            f"{argsort_ms:.3f} ({a1:.3f}, {a2:.3f}), x{ms / argsort_ms:.3f}; plain on the slice "
-            f"{plain_ms:.1f} ms  [{card}]")
+            f"equal, bit-identical to the default on the whole wavefront; whole wavefront "
+            f"{ms:.3f} ms ({m1:.3f}, {m2:.3f}) vs argsort {argsort_ms:.3f} ({a1:.3f}, {a2:.3f}), "
+            f"x{ms / argsort_ms:.3f}; plain on the slice {plain_ms:.1f} ms  [{card}]")
         out[label] = dict(ms=ms, argsort_ms=argsort_ms, ratio=ms / argsort_ms, plain_ms=plain_ms,
                           mean_list_slice=cnt_k.float().mean().item(), at=what)
         del got, plain, whole
@@ -3267,34 +3288,17 @@ def mode_kernels(card, results, wavefront, tile, w, what, iters):
     lo, hi = DEFAULT_MS[name]
     default_ms = statistics.median(elapsed_ms(lambda: wrapper(name)(*args), "cuda", iters)
                                    for _ in range(3))
-    say(f"N {name} [{what}]: the default instantiation {default_ms:.3f} ms, PERF.md range "
-        f"{lo}-{hi} ms  [{card}]")
+    say(f"N {name} [{what}]: the default instantiation {default_ms:.3f} ms, the range of "
+        f"earlier runs {lo}-{hi} ms  [{card}]")
     check(default_ms <= hi * DEFAULT_SLACK, f"N {name}: the default instantiation reads "
-          f"{default_ms:.3f} ms, above PERF.md's {hi} ms by more than {DEFAULT_SLACK}x")
+          f"{default_ms:.3f} ms, above the earlier runs' {hi} ms by more than {DEFAULT_SLACK}x")
     results[name].setdefault("modes", {}).update(out)
     results[name]["default_ms_path_n"] = default_ms
-
-
-def prehit_check(card, wavefront, search, what):
-    """The oversized pre-hit: the search's results bit-identical with
-    PRIMARY_PREHIT on and off; both timed (the entry point, CUDA events)."""
-    _, oo, dd, tris, eps, t_limit = wavefront
-    run = lambda: search(oo, dd, tris, eps, t_limit)  # noqa: E731
-    off = run()
-    with switch(rt_tile, "PRIMARY_PREHIT", True):
-        on = run()
-        on_ms = elapsed_ms(run, "cuda", 3)
-    off_ms = elapsed_ms(run, "cuda", 3)
-    identical(f"N pre-hit [{what}]: the search with PRIMARY_PREHIT vs without", on, off)
-    say(f"N pre-hit [{what}]: bit-identical on and off; the entry point {on_ms:.3f} ms with it, "
-        f"{off_ms:.3f} without  [{card}]")
-    return dict(ms_on=on_ms, ms_off=off_ms)
 
 
 # Path N's graphed renders: (label, backend, module, switch, value, the spied kernels).
 GRAPH_FLIPS = (
     ("mxtile interval", "mxtile", rt_mxu, "CULL_MODE", "interval", ("mxu_kernel", "mxu_occl_kernel")),
-    ("mxtile bf16x3", "mxtile", rt_mxu, "SEARCH_BF16X3", True, ("mxu_kernel",)),
     ("tile hier", "tile", rt_tile, "CULL_MODE", "hier", ("tile_kernel", "tile_occl_kernel")),
     ("tile early exit 8", "tile", rt_tile, "OCCL_EARLY_EXIT", 8, ("tile_occl_kernel",)),
 )
@@ -3365,8 +3369,7 @@ def graph_flip_leg(card, results, flag, flag_cam):
                           "eager render under the switch")
                     check(calls[2][1] == calls[0][1] and sum(calls[2][1].values()) > 0,
                           f"{tag}: launches per replay {calls[2][1]} vs eager {calls[0][1]}")
-                    key = {"CULL_MODE": "mode", "SEARCH_BF16X3": "bf16x3",
-                           "OCCL_EARLY_EXIT": "early_exit"}[name]
+                    key = {"CULL_MODE": "mode", "OCCL_EARLY_EXIT": "early_exit"}[name]
                     check(len(records) >= 2 * len(spied)
                           and all(kw.get(key) == value for _, _, kw in records),
                           f"{tag}: the new key's calls passed "
@@ -3390,20 +3393,17 @@ def graph_flip_leg(card, results, flag, flag_cam):
 
 
 def modes_phase(card, results, seen, seen5):
-    """Path N's kernel legs: K1 and K2 in each mode on the flagship's camera
-    and shadow wavefronts, K5 and K6 on config 5's (`mode_kernels`), and the
-    oversized pre-hit on both camera wavefronts (`prehit_check`)."""
+    """Path N's kernel legs: the default instantiations' build
+    (`default_build_check`), then K1 and K2 in each mode on the flagship's
+    camera and shadow wavefronts, K5 and K6 on config 5's (`mode_kernels`)."""
     t0 = time.perf_counter()
+    default_build_check()
     out = {}
     with torch.no_grad():
         for wavefront in seen[:2]:
             mode_kernels(card, results, wavefront, False, 1920, "flagship 1920x1080", 20)
         for wavefront in seen5[:2]:
             mode_kernels(card, results, wavefront, True, 3840, "config 5 3840x2160", 3)
-        out["prehit_flagship"] = prehit_check(card, seen[0], rt_mxu.mxu_tile_search,
-                                              "flagship camera, mxtile")
-        out["prehit_config5"] = prehit_check(card, seen5[0], rt_tile.tile_tri_search,
-                                             "config 5 camera, tile")
     out["seconds"] = time.perf_counter() - t0
     say(f"N kernel legs: {out['seconds']:.1f} s")
     return out

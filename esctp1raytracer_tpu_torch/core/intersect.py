@@ -223,14 +223,11 @@ def _sphere_best(o, d, spheres: SphereBuffer, eps):
 
 
 def argmin_hit(o, d, scene: Scene, eps=EPS, block_size: int = 512,
-               use_mxu: bool = True, tri_search=None, t_limit=None, coherent: bool = False):
+               use_mxu: bool = True, tri_search=None, t_limit=None):
     """Winning primitive per ray: (best_t, prim_idx, is_sphere). Pure search.
 
     `tri_search(o, d, tris, eps, t_limit=...)` lets a backend replace the
     triangle scan; `t_limit` is a per-ray ceiling it may use to cull work.
-    `coherent` (a shared-origin wavefront, e.g. camera rays) is a pre-pass
-    hint passed to a search that declares `supports_coherent`; it never
-    changes which hits count.
     """
     sph_t, sph_idx = _sphere_best(o, d, scene.spheres, eps)
     if tri_search is None:
@@ -239,11 +236,10 @@ def argmin_hit(o, d, scene: Scene, eps=EPS, block_size: int = 512,
         hint = t_limit
         if hint is None and SPHERE_PREHIT:
             hint = sph_t
-        kw = {"coherent": coherent} if getattr(tri_search, "supports_coherent", False) else {}
         if hint is not None:
-            tri_t, tri_idx = tri_search(o, d, scene.triangles, eps, t_limit=hint, **kw)
+            tri_t, tri_idx = tri_search(o, d, scene.triangles, eps, t_limit=hint)
         else:
-            tri_t, tri_idx = tri_search(o, d, scene.triangles, eps, **kw)
+            tri_t, tri_idx = tri_search(o, d, scene.triangles, eps)
     is_sphere = sph_t < tri_t
     best_t = torch.where(is_sphere, sph_t, tri_t)
     prim = torch.where(is_sphere, sph_idx, tri_idx)
@@ -291,19 +287,17 @@ def packed_tri_table(tris: TriangleBuffer) -> torch.Tensor:
 
 
 def closest_hit(o, d, scene: Scene, eps=EPS, block_size: int = 512,
-                use_mxu: bool = True, tri_search=None, with_row: bool = False,
-                coherent: bool = False):
+                use_mxu: bool = True, tri_search=None, with_row: bool = False):
     """Differentiable closest hit.
 
     The search runs under no_grad on detached inputs; t/u/v are then
     recomputed differentiably on the winning primitive. with_row=True also
     returns the winner's packed_tri_table row [R, 32] for shading.
-    `coherent` goes to `argmin_hit`.
     """
     with torch.no_grad():
         best_t, prim, is_sphere = argmin_hit(
             o.detach(), d.detach(), scene.detach(), eps, block_size, use_mxu,
-            tri_search, coherent=coherent,
+            tri_search,
         )
     safe_prim = torch.clamp(prim, min=0).long()
 

@@ -138,9 +138,7 @@ def trace_rays(o, d, scene: Scene, ray_ids: torch.Tensor, cfg: RenderConfig,
         # The winner's packed row is gathered once and shared with shading:
         # one scatter-add per bounce in the backward.
         hit, trow = closest_hit(o, d, scene, eps, block_size=cfg.block_size,
-                                use_mxu=use_mxu, tri_search=tri_search, with_row=True,
-                                # Reflection bounces originate at scattered hit points.
-                                coherent=(bounce == 0))
+                                use_mxu=use_mxu, tri_search=tri_search, with_row=True)
         if current_level() >= TRACE:
             _trace_summary(bounce, hit)
         local, hit_p, normal, ks = shade(

@@ -48,16 +48,14 @@
 // rays have: an OR cannot change after that. A group that no ray of can be
 // occluded skips the cull too, unless it is counted.
 //
-// The JAX package's selectable search paths (rt_mxu.py: CULL_MODE,
-// SEARCH_BF16X3) are other instantiations of the same kernels: the cull in
-// "exact" mode (argsort's blocks, but every block above cull.py's
-// CULL_EXTRACT_K = 32 kept ones) or "interval" mode (one group_cull_mask
-// test per box for the whole 128-ray group, slab_cull.cuh:interval_keep,
-// with exact's fallback), and K1's bf16x3 contraction: the features split
-// in registers and the coefficients staged as the hi and lo bfloat16
-// tables (the wrapper's _split_bf16 of tfq), summed as hi*hi + hi*lo +
-// lo*hi in float32 (rt_mxu.py:_dot3). Each visits the blocks of the plain
-// version's lists in their order and writes its count.
+// The JAX package's other pre-pass modes (rt_mxu.py: CULL_MODE) are other
+// instantiations of the same kernels, whose cull (cull_mode) lists the
+// blocks of the plain version's lists in their order and writes its count:
+// "exact" (argsort's blocks, but every block above cull.py's
+// CULL_EXTRACT_K = 32 kept ones) and "interval" (one group_cull_mask test
+// per box for the whole 128-ray group, slab_cull.cuh:interval_keep, with
+// exact's fallback). The default (argsort) instantiation runs cull, the
+// code the kernels had before the modes existed.
 //
 // Tie rule (K1): each thread visits its blocks in ascending order and the
 // columns of a block in ascending order, and keeps a hit only on a strict
@@ -85,7 +83,6 @@
 // interface, loaded with ctypes; every entry point launches on the caller's
 // stream and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "lane_plane.cuh"
@@ -158,7 +155,7 @@ __device__ __forceinline__ Features features(const Ray& r) {
                    r.o.z * r.d.y}};
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
@@ -180,18 +177,48 @@ __device__ __forceinline__ void stage_block(float* dst, const float* __restrict_
   cp_async_commit();
 }
 
-// bf16x3: block jb's 25 segments of the hi and the lo bfloat16 tables into
-// dst, hi then lo (the same 12.8 KB as one float32 block; one group).
-__device__ __forceinline__ void stage_split(float* dst, const __nv_bfloat16* __restrict__ tfh,
-                                            const __nv_bfloat16* __restrict__ tfl, int jb) {
-  __nv_bfloat16* hi = reinterpret_cast<__nv_bfloat16*>(dst);
-  const size_t at = static_cast<size_t>(jb) * kSlab;
-  for (int i = threadIdx.x; i < 2 * kSegs * (kSub / 8); i += kRays) {
-    const int half = i / (kSegs * (kSub / 8)), k = i % (kSegs * (kSub / 8));
-    const int s = k / (kSub / 8), e = (k % (kSub / 8)) * 8;
-    cp_async16(hi + half * kStage + s * kSub + e, (half ? tfl : tfh) + at + kSegSrc[s] + e);
+// Steps 1-2. Fills sh.keep, sh.pad and sh.list; returns (the kept count,
+// inverted boxes included; the number of blocks to sweep), the same for
+// every thread of the group.
+__device__ __forceinline__ int2 cull(Shared& sh, const float* __restrict__ aabbs, int nsub,
+                                     const Ray& r) {
+  for (int i = threadIdx.x; i < 6 * nsub; i += kRays) sh.box[i] = __ldg(aabbs + i);
+  if (threadIdx.x < kWords) sh.keep[threadIdx.x] = sh.pad[threadIdx.x] = 0u;
+  __syncthreads();
+  const Vec inv{1.0f / r.d.x, 1.0f / r.d.y, 1.0f / r.d.z};  // IEEE; inf on a zero
+  for (int g = 0; g * 32 < nsub; ++g) {
+    const int n = min(32, nsub - g * 32);
+    unsigned word = 0;
+    for (int k = 0; k < n; ++k) {
+      const int j = g * 32 + k;
+      const Vec lo{sh.box[j], sh.box[nsub + j], sh.box[2 * nsub + j]};
+      const Vec hi{sh.box[3 * nsub + j], sh.box[4 * nsub + j], sh.box[5 * nsub + j]};
+      word |= (__any_sync(kFull, slab_keep(r.o, inv, r.tl, lo, hi)) ? 1u : 0u) << k;
+    }
+    if ((threadIdx.x & 31) == 0 && word) atomicOr(&sh.keep[g], word);
   }
-  cp_async_commit();
+  for (int j = threadIdx.x; j < nsub; j += kRays) {
+    if (sh.box[j] > sh.box[3 * nsub + j] || sh.box[nsub + j] > sh.box[4 * nsub + j] ||
+        sh.box[2 * nsub + j] > sh.box[5 * nsub + j]) {
+      atomicOr(&sh.pad[j / 32], 1u << (j % 32));
+    }
+  }
+  __syncthreads();
+  int kept = 0, swept = 0, before = 0;
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) {
+    const int n = __popc(sh.keep[w] & ~sh.pad[w]);
+    kept += __popc(sh.keep[w]);
+    before += w < static_cast<int>(threadIdx.x) ? n : 0;
+    swept += n;
+  }
+  if (threadIdx.x < kWords) {  // thread w lists word w's blocks after those of words < w
+    for (unsigned w = sh.keep[threadIdx.x] & ~sh.pad[threadIdx.x]; w; w &= w - 1) {
+      sh.list[before++] = threadIdx.x * 32 + __ffs(w) - 1;
+    }
+  }
+  __syncthreads();
+  return make_int2(kept, swept);
 }
 
 // group_cull_mask's bounds of this block's 128 rays (every thread gets them):
@@ -229,13 +256,12 @@ __device__ __forceinline__ Interval group_interval(Shared& sh, const Ray& r) {
   return make_interval(o_lo, o_hi, d_lo, d_hi, v[12]);
 }
 
-// Steps 1-2. Fills sh.keep, sh.pad and sh.list; returns (the kept count,
-// inverted boxes included; the number of blocks to sweep), the same for
-// every thread of the group. In exact and interval mode more than
-// kExtractK kept blocks keep every block (the count is then NSUB).
+// cull() in exact or interval mode (kMode): the same steps and results, but
+// interval mode tests each box once for the group, and more than kExtractK
+// kept blocks keep every block (the count is then NSUB).
 template <int kMode>
-__device__ __forceinline__ int2 cull(Shared& sh, const float* __restrict__ aabbs, int nsub,
-                                     const Ray& r) {
+__device__ __forceinline__ int2 cull_mode(Shared& sh, const float* __restrict__ aabbs, int nsub,
+                                          const Ray& r) {
   for (int i = threadIdx.x; i < 6 * nsub; i += kRays) sh.box[i] = __ldg(aabbs + i);
   if (threadIdx.x < kWords) sh.keep[threadIdx.x] = sh.pad[threadIdx.x] = 0u;
   __syncthreads();
@@ -267,18 +293,16 @@ __device__ __forceinline__ int2 cull(Shared& sh, const float* __restrict__ aabbs
     }
   }
   __syncthreads();
-  if constexpr (kMode == kExact || kMode == kInterval) {
-    int listed = 0;
+  int listed = 0;
 #pragma unroll
-    for (int w = 0; w < kWords; ++w) listed += __popc(sh.keep[w]);
-    if (listed > kExtractK) {  // the dense fallback: every block
-      __syncthreads();  // every thread has counted before the words change
-      if (threadIdx.x < kWords) {
-        const int left = nsub - 32 * static_cast<int>(threadIdx.x);
-        sh.keep[threadIdx.x] = left >= 32 ? kFull : left > 0 ? (1u << left) - 1u : 0u;
-      }
-      __syncthreads();
+  for (int w = 0; w < kWords; ++w) listed += __popc(sh.keep[w]);
+  if (listed > kExtractK) {  // the dense fallback: every block
+    __syncthreads();  // every thread has counted before the words change
+    if (threadIdx.x < kWords) {
+      const int left = nsub - 32 * static_cast<int>(threadIdx.x);
+      sh.keep[threadIdx.x] = left >= 32 ? kFull : left > 0 ? (1u << left) - 1u : 0u;
     }
+    __syncthreads();
   }
   int kept = 0, swept = 0, before = 0;
 #pragma unroll
@@ -373,101 +397,7 @@ __device__ __forceinline__ void walk(Shared& sh, const float* __restrict__ tfq, 
   cp_async_wait<0>();  // nothing in flight past an early exit
 }
 
-// walk() for the mode kernels: stage(dst, jb) starts block jb's copy (one
-// cp.async group) in place of stage_block.
-template <typename Stage, typename Fn>
-__device__ __forceinline__ void walk_staged(Shared& sh, int n, Stage stage, Fn sweep) {
-  if (n > 0) stage(sh.stage[0], sh.list[0]);
-  for (int k = 0; k < n; ++k) {
-    if (k + 1 < n) {
-      stage(sh.stage[(k + 1) & 1], sh.list[k + 1]);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bool done = sweep(sh.list[k], sh.stage[k & 1]);
-    if (__syncthreads_and(done)) break;
-  }
-  cp_async_wait<0>();
-}
-
-// bf16x3 (rt_mxu.py:_split_bf16, _dot3): a float32 value's hi and lo
-// bfloat16 parts, round to nearest even, as float32.
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ void split(const Features& f, Features& hi, Features& lo) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    hi.d[i] = bf16_round(f.d[i]);
-    lo.d[i] = bf16_round(f.d[i] - hi.d[i]);
-    hi.o[i] = bf16_round(f.o[i]);
-    lo.o[i] = bf16_round(f.o[i] - hi.o[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    hi.od[i] = bf16_round(f.od[i]);
-    lo.od[i] = bf16_round(f.od[i] - hi.od[i]);
-  }
-}
-
-// The three sums of one quantity for 4 columns: hi*hi, hi*lo, lo*hi. Every
-// product of two bfloat16 values is exact in float32, so fmaf rounds only
-// the sum, as the plain version's float32 products do.
-struct Sums3 {
-  float4 hh, hl, lh;
-};
-
-__device__ __forceinline__ float4 bf16x4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);  // 4 bfloat16, little-endian
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-}
-
-__device__ __forceinline__ void fma4_3(Sums3& acc, float rh, float rl, const __nv_bfloat16* sth,
-                                       const __nv_bfloat16* stl, int s, int c) {
-  const float4 xh = bf16x4(sth + s * kSub + c), xl = bf16x4(stl + s * kSub + c);
-  acc.hh = make_float4(fmaf(rh, xh.x, acc.hh.x), fmaf(rh, xh.y, acc.hh.y),
-                       fmaf(rh, xh.z, acc.hh.z), fmaf(rh, xh.w, acc.hh.w));
-  acc.hl = make_float4(fmaf(rh, xl.x, acc.hl.x), fmaf(rh, xl.y, acc.hl.y),
-                       fmaf(rh, xl.z, acc.hl.z), fmaf(rh, xl.w, acc.hl.w));
-  acc.lh = make_float4(fmaf(rl, xh.x, acc.lh.x), fmaf(rl, xh.y, acc.lh.y),
-                       fmaf(rl, xh.z, acc.lh.z), fmaf(rl, xh.w, acc.lh.w));
-}
-
-__device__ __forceinline__ float4 total(const Sums3& a) {  // (hh + hl) + lh, as _dot3 adds
-  return make_float4((a.hh.x + a.hl.x) + a.lh.x, (a.hh.y + a.hl.y) + a.lh.y,
-                     (a.hh.z + a.hl.z) + a.lh.z, (a.hh.w + a.hl.w) + a.lh.w);
-}
-
-// contract() for bf16x3, on a block staged by stage_split: the same 25
-// coefficients per column in the same order, three sums each.
-__device__ __forceinline__ Quad contract3(const Features& fh, const Features& fl,
-                                          const float* st, int c) {
-  const __nv_bfloat16* sth = reinterpret_cast<const __nv_bfloat16*>(st);
-  const __nv_bfloat16* stl = sth + kStage;
-  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-  Sums3 det{z, z, z}, tn{z, z, z}, un{z, z, z}, vn{z, z, z};
-#pragma unroll
-  for (int i = 0; i < 3; ++i) fma4_3(det, fh.d[i], fl.d[i], sth, stl, i, c);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) fma4_3(tn, fh.o[i], fl.o[i], sth, stl, 3 + i, c);
-  fma4_3(tn, 1.0f, 0.0f, sth, stl, 6, c);  // the feature 1: hi 1, lo 0
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    fma4_3(un, fh.d[i], fl.d[i], sth, stl, 7 + i, c);
-    fma4_3(vn, fh.d[i], fl.d[i], sth, stl, 16 + i, c);
-  }
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    fma4_3(un, fh.od[i], fl.od[i], sth, stl, 10 + i, c);
-    fma4_3(vn, fh.od[i], fl.od[i], sth, stl, 19 + i, c);
-  }
-  return Quad{total(det), total(tn), total(un), total(vn)};
-}
-
+template <int kMode>
 __global__ void __launch_bounds__(kRays)
 mxu_search_kernel(const float* __restrict__ eps_p, const float* __restrict__ rays,
                   const float* __restrict__ aabbs, const float* __restrict__ tfq,
@@ -476,7 +406,12 @@ mxu_search_kernel(const float* __restrict__ eps_p, const float* __restrict__ ray
   __shared__ Shared sh;
   const int ray = blockIdx.x * kRays + threadIdx.x;
   const Ray r = load_ray(rays, ray);
-  const int2 n = cull<kArgsort>(sh, aabbs, nsub, r);
+  int2 n;
+  if constexpr (kMode == kArgsort) {
+    n = cull(sh, aabbs, nsub, r);
+  } else {
+    n = cull_mode<kMode>(sh, aabbs, nsub, r);
+  }
   if (cnt_out != nullptr && threadIdx.x == 0) cnt_out[blockIdx.x] = n.x;
   const float eps = eps_p[0];
   const Features f = features(r);
@@ -491,60 +426,6 @@ mxu_search_kernel(const float* __restrict__ eps_p, const float* __restrict__ ray
           bi = jb * kSub + col;
         }
       });
-    }
-    return false;
-  });
-  t_out[ray] = bt;
-  idx_out[ray] = bt < kBig ? bi : -1;
-}
-
-// K1 in a pre-pass mode other than argsort, or with the bf16x3 contraction
-// (tfh, tfl: the hi and lo bfloat16 tables, rt_mxu.py:_split_bf16 of tfq).
-template <int kMode, bool kBf16x3>
-__global__ void __launch_bounds__(kRays)
-mxu_search_mode_kernel(const float* __restrict__ eps_p, const float* __restrict__ rays,
-                       const float* __restrict__ aabbs, const float* __restrict__ tfq,
-                       const __nv_bfloat16* __restrict__ tfh,
-                       const __nv_bfloat16* __restrict__ tfl, float* __restrict__ t_out,
-                       int* __restrict__ idx_out, int* __restrict__ cnt_out, int nsub) {
-  __shared__ Shared sh;
-  const int ray = blockIdx.x * kRays + threadIdx.x;
-  const Ray r = load_ray(rays, ray);
-  const int2 n = cull<kMode>(sh, aabbs, nsub, r);
-  if (cnt_out != nullptr && threadIdx.x == 0) cnt_out[blockIdx.x] = n.x;
-  const float eps = eps_p[0];
-  const Features f = features(r);
-  Features fh = f, fl = f;
-  if constexpr (kBf16x3) split(f, fh, fl);
-  float bt = kBig;
-  int bi = -1;
-  const auto stage = [&](float* dst, int jb) {
-    if constexpr (kBf16x3) {
-      stage_split(dst, tfh, tfl, jb);
-    } else {
-      stage_block(dst, tfq, jb);
-    }
-  };
-  walk_staged(sh, n.y, stage, [&](int jb, const float* st) {
-    for (int c = 0; c < kSub; c += 4) {
-      Quad q;
-      if constexpr (kBf16x3) {
-        q = contract3(fh, fl, st, c);
-      } else {
-        q = contract(f, st, c);
-      }
-      const float det[4] = {q.det.x, q.det.y, q.det.z, q.det.w};
-      const float tn[4] = {q.tn.x, q.tn.y, q.tn.z, q.tn.w};
-      const float un[4] = {q.un.x, q.un.y, q.un.z, q.un.w};
-      const float vn[4] = {q.vn.x, q.vn.y, q.vn.z, q.vn.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float t;
-        if (accept(det[i], tn[i], un[i], vn[i], eps, t) && t < bt) {  // strict: ascending visits
-          bt = t;
-          bi = jb * kSub + c + i;
-        }
-      }
     }
     return false;
   });
@@ -567,7 +448,11 @@ mxu_occl_kernel(const float* __restrict__ eps_p, const float* __restrict__ rays,
   int2 n = make_int2(0, 0);
   // cnt_out is the same for the whole group, so every thread takes the same branch.
   if (cnt_out != nullptr || !__syncthreads_and(done)) {
-    n = cull<kMode>(sh, aabbs, nsub, r);
+    if constexpr (kMode == kArgsort) {
+      n = cull(sh, aabbs, nsub, r);
+    } else {
+      n = cull_mode<kMode>(sh, aabbs, nsub, r);
+    }
     if (cnt_out != nullptr && threadIdx.x == 0) cnt_out[blockIdx.x] = n.x;
   }
   if (ov != nullptr && !__syncthreads_and(done)) {
@@ -611,7 +496,7 @@ int rt_mxu_search(const float* eps, const float* rays, const float* aabbs, const
                   float* t_out, int* idx_out, int* cnt_out, int groups, int nsub, void* stream) {
   if (nsub > kMaxSub) return static_cast<int>(cudaErrorInvalidValue);
   if (groups > 0) {
-    mxu_search_kernel<<<groups, kRays, 0, static_cast<cudaStream_t>(stream)>>>(
+    mxu_search_kernel<kArgsort><<<groups, kRays, 0, static_cast<cudaStream_t>(stream)>>>(
         eps, rays, aabbs, tfq, t_out, idx_out, cnt_out, nsub);
   }
   return static_cast<int>(cudaGetLastError());
@@ -628,26 +513,18 @@ int rt_mxu_occl(const float* eps, const float* rays, const float* aabbs, const f
   return static_cast<int>(cudaGetLastError());
 }
 
-// The mode instantiations: `mode` a Mode; K1's bf16x3 takes tfh and tfl
-// (bfloat16 [NSUB, 16, 512], 16-byte aligned), else they may be null.
+// The other pre-pass modes: `mode` a Mode other than kArgsort (whose
+// instantiations rt_mxu_search and rt_mxu_occl launch).
 int rt_mxu_search_mode(const float* eps, const float* rays, const float* aabbs, const float* tfq,
-                       const void* tfh, const void* tfl, float* t_out, int* idx_out,
-                       int* cnt_out, int groups, int nsub, int mode, int bf16x3,
+                       float* t_out, int* idx_out, int* cnt_out, int groups, int nsub, int mode,
                        void* stream) {
-  if (nsub > kMaxSub || mode < kArgsort || mode > kInterval || (bf16x3 && !(tfh && tfl)) ||
-      (mode == kArgsort && !bf16x3)) {  // the default: rt_mxu_search
+  if (nsub > kMaxSub || (mode != kExact && mode != kInterval)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (groups > 0) {
-    const auto h = static_cast<const __nv_bfloat16*>(tfh);
-    const auto l = static_cast<const __nv_bfloat16*>(tfl);
-    auto kernel = bf16x3 ? (mode == kExact      ? mxu_search_mode_kernel<kExact, true>
-                            : mode == kInterval ? mxu_search_mode_kernel<kInterval, true>
-                                                : mxu_search_mode_kernel<kArgsort, true>)
-                         : (mode == kExact ? mxu_search_mode_kernel<kExact, false>
-                                           : mxu_search_mode_kernel<kInterval, false>);
-    kernel<<<groups, kRays, 0, static_cast<cudaStream_t>(stream)>>>(
-        eps, rays, aabbs, tfq, h, l, t_out, idx_out, cnt_out, nsub);
+    auto kernel = mode == kExact ? mxu_search_kernel<kExact> : mxu_search_kernel<kInterval>;
+    kernel<<<groups, kRays, 0, static_cast<cudaStream_t>(stream)>>>(eps, rays, aabbs, tfq, t_out,
+                                                                    idx_out, cnt_out, nsub);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -655,13 +532,11 @@ int rt_mxu_search_mode(const float* eps, const float* rays, const float* aabbs, 
 int rt_mxu_occl_mode(const float* eps, const float* rays, const float* aabbs, const float* tfq,
                      const float* ov, int* occ_out, int* cnt_out, int groups, int nsub, int mode,
                      void* stream) {
-  if (nsub > kMaxSub || mode < kArgsort || mode > kInterval) {
+  if (nsub > kMaxSub || (mode != kExact && mode != kInterval)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (groups > 0) {
-    auto kernel = mode == kExact      ? mxu_occl_kernel<kExact>
-                  : mode == kInterval ? mxu_occl_kernel<kInterval>
-                                      : mxu_occl_kernel<kArgsort>;
+    auto kernel = mode == kExact ? mxu_occl_kernel<kExact> : mxu_occl_kernel<kInterval>;
     kernel<<<groups, kRays, 0, static_cast<cudaStream_t>(stream)>>>(eps, rays, aabbs, tfq, ov,
                                                                     occ_out, cnt_out, nsub);
   }

@@ -59,8 +59,8 @@
 // block, capped registers and other block sizes were tried and gave no
 // gain: the kernels are bound by issuing that arithmetic, not by memory.
 //
-// The JAX package's other pre-pass modes, coarse columns and K6's exit period
-// are further instantiations (below tile_occl_kernel: tile_search_mode_kernel,
+// The JAX package's other pre-pass modes and K6's exit period are further
+// instantiations (below tile_occl_kernel: tile_search_mode_kernel,
 // tile_occl_mode_kernel), whose warps build their lists in shared memory.
 //
 // The per-pair test is plane_hit of lane_plane.cuh, which K3 and K4 share:
@@ -323,28 +323,26 @@ tile_occl_kernel(const float* __restrict__ eps_p, const float* __restrict__ rays
 
 // ---------------------------------------------------------------------------
 // The JAX package's selectable pre-pass modes (rt_tile.py: CULL_MODE,
-// _CULL_COLS, OCCL_EARLY_EXIT), one instantiation each. The kernels above
-// are the default: argsort lists over the sub-blocks, exit after each block.
+// OCCL_EARLY_EXIT), one instantiation each. The kernels above are the
+// default: argsort lists, exit after each block.
 //
-// A warp builds its bundle's list explicitly, in shared memory, over the
-// cull columns `cb` [8, NC] (the sub-blocks, or above _CULL_COLS the unions
-// of runs of `group` of them), exactly as rt_tile.py:_lists builds it:
-// the same columns in the same order and the same count, including each
-// mode's dense fallback. Then it walks the list, sweeping each column's
-// `group` sub-blocks in ascending order (a padding-only sub-block, inverted
-// box, is counted but not swept). The modes:
-// * argsort (0): the per-ray test, kept columns ascending;
-// * exact (1): the same, but more than kExtractK kept: every column;
-// * interval (2): cull.py:group_cull_mask, one interval test per column for
+// A warp builds its bundle's list explicitly, in shared memory, exactly as
+// rt_tile.py:_lists builds it: the same sub-blocks in the same order and the
+// same count, including each mode's dense fallback. Then it walks the list
+// (a padding-only sub-block, inverted box, is counted but not swept). The
+// modes:
+// * argsort (0): the per-ray test, kept sub-blocks ascending;
+// * exact (1): the same, but more than kExtractK kept: every sub-block;
+// * interval (2): cull.py:group_cull_mask, one interval test per box for
 //   the bundle in place of eight, with exact's fallback;
-// * hier (3): superblocks of hier_g columns (union boxes; all-padding ones
-//   masked), per-ray tested; more than hier_k kept: every column; else the
-//   sub-boxes of the first min(hier_k, superblocks) superblocks in the
-//   stable order kept-first (_hier_cull_lists), per-ray tested, padding
+// * hier (3): superblocks of hier_g sub-blocks (union boxes; all-padding
+//   ones masked), per-ray tested; more than hier_k kept: every sub-block;
+//   else the sub-boxes of the first min(hier_k, superblocks) superblocks in
+//   the stable order kept-first (_hier_cull_lists), per-ray tested, padding
 //   never listed;
-// * entry (4, K6 only): the kept columns sorted by the bundle's smallest
-//   entry key (entry_key), ties to the lower column: a rank sort in shared
-//   memory, O(n^2 / 32) per lane for n kept columns.
+// * entry (4, K6 only): the kept sub-blocks sorted by the bundle's smallest
+//   entry key (entry_key), ties to the lower sub-block: a rank sort in
+//   shared memory, O(n^2 / 32) per lane for n kept sub-blocks.
 // K6 tests "every ray occluded or unable to be" every `period` listed
 // sub-blocks (the JAX kernel's early exit E; E = 0 there, and the default
 // here, test after each).
@@ -355,7 +353,7 @@ constexpr int kExtractK = 32;   // cull.py:CULL_EXTRACT_K
 enum Mode { kArgsort = 0, kExact = 1, kInterval = 2, kHier = 3, kEntry = 4 };
 
 struct WarpLists {
-  unsigned short list[kMaxSub];  // the columns to visit, in order
+  unsigned short list[kMaxSub];  // the sub-blocks to visit, in order
   unsigned short aux[kMaxSub];   // hier: the superblock order; entry: the sorted list
   float key[kMaxSub];            // entry: the keys, by position in `list`
 };
@@ -379,16 +377,16 @@ __device__ __forceinline__ int append(unsigned short* list, int n, bool keep, in
   return n + __popc(w);
 }
 
-__device__ __forceinline__ int dense(unsigned short* list, int nc, int lane) {
-  for (int c = lane; c < nc; c += 32) list[c] = static_cast<unsigned short>(c);
+__device__ __forceinline__ int dense(unsigned short* list, int nsub, int lane) {
+  for (int j = lane; j < nsub; j += 32) list[j] = static_cast<unsigned short>(j);
   __syncwarp();
-  return nc;
+  return nsub;
 }
 
-// Bundle b's list over nc columns; returns its length (the plain version's
-// cnt / group) and points `out` at it.
+// Bundle b's list; returns its length (the plain version's cnt) and points
+// `out` at it.
 template <int kMode>
-__device__ int build_list(const float* __restrict__ rays, const float* __restrict__ cb, int nc,
+__device__ int build_list(const float* __restrict__ rays, const float* __restrict__ aabbs, int nsub,
                           long long b, int lane, int hier_g, int hier_k, WarpLists& wl,
                           const unsigned short*& out) {
   Vec o[kBundle], inv[kBundle];
@@ -404,18 +402,18 @@ __device__ int build_list(const float* __restrict__ rays, const float* __restric
   int n = 0;
   if constexpr (kMode == kHier) {
     // Superblocks: lane l tests superblock s0 + l; lane w keeps word w of the kept ones.
-    const int ns = (nc + hier_g - 1) / hier_g, k = min(hier_k, ns);
+    const int ns = (nsub + hier_g - 1) / hier_g, k = min(hier_k, ns);
     unsigned sword = 0;
     int kept = 0;
     for (int s0 = 0; s0 < ns; s0 += 32) {
       const int sb = s0 + lane;
       bool keep = false;
       if (sb < ns) {
-        Vec lo = box_lo(cb, nc, sb * hier_g), hi = box_hi(cb, nc, sb * hier_g);
-        for (int j = 1; j < hier_g; ++j) {  // the union; columns past nc are inverted filler
+        Vec lo = box_lo(aabbs, nsub, sb * hier_g), hi = box_hi(aabbs, nsub, sb * hier_g);
+        for (int j = 1; j < hier_g; ++j) {  // the union; past nsub, inverted filler
           const int c = sb * hier_g + j;
-          const Vec l2 = c < nc ? box_lo(cb, nc, c) : Vec{1e30f, 1e30f, 1e30f};
-          const Vec h2 = c < nc ? box_hi(cb, nc, c) : Vec{-1e30f, -1e30f, -1e30f};
+          const Vec l2 = c < nsub ? box_lo(aabbs, nsub, c) : Vec{1e30f, 1e30f, 1e30f};
+          const Vec h2 = c < nsub ? box_hi(aabbs, nsub, c) : Vec{-1e30f, -1e30f, -1e30f};
           lo = Vec{nan_min(lo.x, l2.x), nan_min(lo.y, l2.y), nan_min(lo.z, l2.z)};
           hi = Vec{nan_max(hi.x, h2.x), nan_max(hi.y, h2.y), nan_max(hi.z, h2.z)};
         }
@@ -428,7 +426,7 @@ __device__ int build_list(const float* __restrict__ rays, const float* __restric
       if (lane == s0 / 32) sword = w;
       kept += __popc(w);
     }
-    if (kept > k) return dense(wl.list, nc, lane);
+    if (kept > k) return dense(wl.list, nsub, lane);
     // The first k superblocks of the stable order kept-first, into aux.
     int kept_before = 0, other_before = 0;
     for (int s0 = 0; s0 < ns; s0 += 32) {
@@ -444,15 +442,15 @@ __device__ int build_list(const float* __restrict__ rays, const float* __restric
       other_before += __popc(~kw & valid);
     }
     __syncwarp();
-    // Their sub-boxes, in that order: column q = slot q / hier_g, member q % hier_g.
+    // Their sub-boxes, in that order: entry q = slot q / hier_g, member q % hier_g.
     for (int q0 = 0; q0 < k * hier_g; q0 += 32) {
       const int q = q0 + lane;
       bool keep = false;
       int c = 0;
       if (q < k * hier_g) {
         c = wl.aux[q / hier_g] * hier_g + q % hier_g;
-        if (c < nc) {
-          const Vec lo = box_lo(cb, nc, c), hi = box_hi(cb, nc, c);
+        if (c < nsub) {
+          const Vec lo = box_lo(aabbs, nsub, c), hi = box_hi(aabbs, nsub, c);
           if (!inverted(lo, hi)) {
 #pragma unroll
             for (int s = 0; s < kBundle; ++s) keep |= slab_keep(o[s], inv[s], tl[s], lo, hi);
@@ -487,19 +485,19 @@ __device__ int build_list(const float* __restrict__ rays, const float* __restric
     }
     iv = make_interval(o_lo, o_hi, d_lo, d_hi, tl_hi);
   }
-  for (int c0 = 0; c0 < nc; c0 += 32) {
+  for (int c0 = 0; c0 < nsub; c0 += 32) {
     const int c = c0 + lane;
     bool keep = false;
     float key = __int_as_float(0x7f800000);  // +inf: culled
-    if (c < nc) {
-      const Vec lo = box_lo(cb, nc, c), hi = box_hi(cb, nc, c);
+    if (c < nsub) {
+      const Vec lo = box_lo(aabbs, nsub, c), hi = box_hi(aabbs, nsub, c);
       if constexpr (kMode == kInterval) {
         keep = interval_keep(iv, lo, hi);
       } else {
 #pragma unroll
         for (int s = 0; s < kBundle; ++s) {
           float tn;
-          const bool k = slab_keep(o[s], inv[s], tl[s], lo, hi, tn);
+          const bool k = slab_entry(o[s], inv[s], tl[s], lo, hi, tn);
           keep |= k;
           if (kMode == kEntry && k) key = fminf(key, entry_key(tn));
         }
@@ -512,9 +510,9 @@ __device__ int build_list(const float* __restrict__ rays, const float* __restric
     n = append(wl.list, n, keep, c, lane);
   }
   __syncwarp();
-  if ((kMode == kExact || kMode == kInterval) && n > kExtractK) return dense(wl.list, nc, lane);
+  if ((kMode == kExact || kMode == kInterval) && n > kExtractK) return dense(wl.list, nsub, lane);
   if constexpr (kMode == kEntry) {
-    // Stable sort by key: each kept column's rank, the list ascending in column.
+    // Stable sort by key: each kept sub-block's rank, the list ascending in id.
     for (int i = lane; i < n; i += 32) {
       const float ki = wl.key[i];
       int rank = 0;
@@ -530,24 +528,20 @@ __device__ int build_list(const float* __restrict__ rays, const float* __restric
   return n;
 }
 
-// fn(sub-block) for each sub-block of the list's columns in order, skipping
-// padding-only ones; stops when fn returns true (warp-uniform). Every listed
-// position, skipped or not, counts toward `period`: fn is passed whether
-// the position ends a period.
+// fn(sub-block, ends a period) for each listed sub-block in order, -1 in
+// place of a padding-only one (which is not swept but counts toward
+// `period`); stops when fn returns true (warp-uniform).
 template <typename Fn>
-__device__ __forceinline__ void walk_list(const unsigned short* list, int n, int group,
+__device__ __forceinline__ void walk_list(const unsigned short* list, int n,
                                           const float* __restrict__ aabbs, int nsub, int period,
                                           Fn fn) {
-  int pos = 0;
   for (int i = 0; i < n; ++i) {
-    for (int j = 0; j < group; ++j) {
-      const int jb = list[i] * group + j;
-      const bool ends = ++pos % period == 0;
-      if (!inverted(box_lo(aabbs, nsub, jb), box_hi(aabbs, nsub, jb))) {
-        if (fn(jb, ends)) return;
-      } else if (ends && fn(-1, true)) {
-        return;
-      }
+    const int jb = list[i];
+    const bool ends = (i + 1) % period == 0;
+    if (!inverted(box_lo(aabbs, nsub, jb), box_hi(aabbs, nsub, jb))) {
+      if (fn(jb, ends)) return;
+    } else if (ends && fn(-1, true)) {
+      return;
     }
   }
 }
@@ -651,10 +645,10 @@ __device__ __forceinline__ void listed_occl(const float* __restrict__ eps_p,
 template <int kMode>
 __global__ void __launch_bounds__(kGenWarps * 32)
 tile_search_mode_kernel(const float* __restrict__ eps_p, const float* __restrict__ rays,
-                        const float* __restrict__ aabbs, const float* __restrict__ cb,
-                        const float* __restrict__ tc, float* __restrict__ t_out,
-                        int* __restrict__ idx_out, int* __restrict__ cnt_out, int bundles,
-                        int nsub, int group, int hier_g, int hier_k) {
+                        const float* __restrict__ aabbs, const float* __restrict__ tc,
+                        float* __restrict__ t_out, int* __restrict__ idx_out,
+                        int* __restrict__ cnt_out, int bundles, int nsub, int hier_g,
+                        int hier_k) {
   __shared__ WarpLists lists[kGenWarps];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long b = static_cast<long long>(blockIdx.x) * kGenWarps + warp;
@@ -663,20 +657,18 @@ tile_search_mode_kernel(const float* __restrict__ eps_p, const float* __restrict
   int n = 0;
   listed_search(
       eps_p, rays, tc, t_out, idx_out, cnt_out, b, lane,
-      [&] {
-        n = build_list<kMode>(rays, cb, nsub / group, b, lane, hier_g, hier_k, lists[warp], list);
-        return n * group;
-      },
-      [&](auto fn) { walk_list(list, n, group, aabbs, nsub, 1, fn); });
+      [&] { return n = build_list<kMode>(rays, aabbs, nsub, b, lane, hier_g, hier_k, lists[warp],
+                                         list); },
+      [&](auto fn) { walk_list(list, n, aabbs, nsub, 1, fn); });
 }
 
 template <int kMode>
 __global__ void __launch_bounds__(kGenWarps * 32)
 tile_occl_mode_kernel(const float* __restrict__ eps_p, const float* __restrict__ rays,
-                      const float* __restrict__ aabbs, const float* __restrict__ cb,
-                      const float* __restrict__ tc, const float* __restrict__ ov,
-                      int* __restrict__ occ_out, int* __restrict__ cnt_out, int bundles, int nsub,
-                      int group, int hier_g, int hier_k, int period) {
+                      const float* __restrict__ aabbs, const float* __restrict__ tc,
+                      const float* __restrict__ ov, int* __restrict__ occ_out,
+                      int* __restrict__ cnt_out, int bundles, int nsub, int hier_g, int hier_k,
+                      int period) {
   __shared__ WarpLists lists[kGenWarps];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long b = static_cast<long long>(blockIdx.x) * kGenWarps + warp;
@@ -685,11 +677,9 @@ tile_occl_mode_kernel(const float* __restrict__ eps_p, const float* __restrict__
   int n = 0;
   listed_occl(
       eps_p, rays, tc, ov, occ_out, cnt_out, b, lane,
-      [&] {
-        n = build_list<kMode>(rays, cb, nsub / group, b, lane, hier_g, hier_k, lists[warp], list);
-        return n * group;
-      },
-      [&](auto fn) { walk_list(list, n, group, aabbs, nsub, period, fn); });
+      [&] { return n = build_list<kMode>(rays, aabbs, nsub, b, lane, hier_g, hier_k, lists[warp],
+                                         list); },
+      [&](auto fn) { walk_list(list, n, aabbs, nsub, period, fn); });
 }
 
 int blocks_for(int bundles) { return (bundles + kWarps - 1) / kWarps; }
@@ -721,13 +711,12 @@ int rt_tile_occl(const float* eps, const float* rays, const float* aabbs, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The mode instantiations: cb [8, nsub / group] are the cull columns' boxes
-// (rt_tile.py:_coarse_boxes), `mode` a Mode, period >= 1 (K6).
-int rt_tile_search_mode(const float* eps, const float* rays, const float* aabbs, const float* cb,
-                        const float* tc, float* t_out, int* idx_out, int* cnt_out, int bundles,
-                        int nsub, int mode, int group, int hier_g, int hier_k, void* stream) {
-  if (nsub > kMaxSub || group < 1 || nsub % group || hier_g < 1 || mode < kArgsort ||
-      mode > kHier) {
+// The mode instantiations: `mode` a Mode, period >= 1 (K6); argsort with
+// period 1 is rt_tile_search / rt_tile_occl.
+int rt_tile_search_mode(const float* eps, const float* rays, const float* aabbs, const float* tc,
+                        float* t_out, int* idx_out, int* cnt_out, int bundles, int nsub, int mode,
+                        int hier_g, int hier_k, void* stream) {
+  if (nsub > kMaxSub || hier_g < 1 || mode < kExact || mode > kHier) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (bundles > 0) {
@@ -735,20 +724,17 @@ int rt_tile_search_mode(const float* eps, const float* rays, const float* aabbs,
     const auto st = static_cast<cudaStream_t>(stream);
     auto kernel = mode == kExact      ? tile_search_mode_kernel<kExact>
                   : mode == kInterval ? tile_search_mode_kernel<kInterval>
-                  : mode == kHier     ? tile_search_mode_kernel<kHier>
-                                      : tile_search_mode_kernel<kArgsort>;
-    kernel<<<blocks, kGenWarps * 32, 0, st>>>(eps, rays, aabbs, cb, tc, t_out, idx_out, cnt_out,
-                                              bundles, nsub, group, hier_g, hier_k);
+                                      : tile_search_mode_kernel<kHier>;
+    kernel<<<blocks, kGenWarps * 32, 0, st>>>(eps, rays, aabbs, tc, t_out, idx_out, cnt_out,
+                                              bundles, nsub, hier_g, hier_k);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-int rt_tile_occl_mode(const float* eps, const float* rays, const float* aabbs, const float* cb,
-                      const float* tc, const float* ov, int* occ_out, int* cnt_out, int bundles,
-                      int nsub, int mode, int group, int hier_g, int hier_k, int period,
-                      void* stream) {
-  if (nsub > kMaxSub || group < 1 || nsub % group || hier_g < 1 || period < 1 ||
-      mode < kArgsort || mode > kEntry) {
+int rt_tile_occl_mode(const float* eps, const float* rays, const float* aabbs, const float* tc,
+                      const float* ov, int* occ_out, int* cnt_out, int bundles, int nsub, int mode,
+                      int hier_g, int hier_k, int period, void* stream) {
+  if (nsub > kMaxSub || hier_g < 1 || period < 1 || mode < kArgsort || mode > kEntry) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (bundles > 0) {
@@ -759,8 +745,8 @@ int rt_tile_occl_mode(const float* eps, const float* rays, const float* aabbs, c
                   : mode == kHier     ? tile_occl_mode_kernel<kHier>
                   : mode == kEntry    ? tile_occl_mode_kernel<kEntry>
                                       : tile_occl_mode_kernel<kArgsort>;
-    kernel<<<blocks, kGenWarps * 32, 0, st>>>(eps, rays, aabbs, cb, tc, ov, occ_out, cnt_out,
-                                              bundles, nsub, group, hier_g, hier_k, period);
+    kernel<<<blocks, kGenWarps * 32, 0, st>>>(eps, rays, aabbs, tc, ov, occ_out, cnt_out, bundles,
+                                              nsub, hier_g, hier_k, period);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,19 +30,25 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 }
 
 // block_cull_mask's slab test: does the ray (o, inv = 1/d) keep box [lo, hi]?
-// Its entry t (block_cull_mask(..., return_entry=True)) goes to tn.
-__device__ __forceinline__ bool slab_keep(Vec o, Vec inv, float tl, Vec lo, Vec hi, float& tn) {
+__device__ __forceinline__ bool slab_keep(Vec o, Vec inv, float tl, Vec lo, Vec hi) {
+  const float t0x = (lo.x - o.x) * inv.x, t1x = (hi.x - o.x) * inv.x;
+  const float t0y = (lo.y - o.y) * inv.y, t1y = (hi.y - o.y) * inv.y;
+  const float t0z = (lo.z - o.z) * inv.z, t1z = (hi.z - o.z) * inv.z;
+  const float tn = nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)), nan_min(t0z, t1z));
+  const float tf = nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)), nan_max(t0z, t1z));
+  return !(tn > tf || tf < 0.0f || tn > tl);
+}
+
+// slab_keep that also gives its entry t (block_cull_mask(...,
+// return_entry=True)) in tn; a copy, so that slab_keep's callers compile as
+// they did before the "entry" lists existed.
+__device__ __forceinline__ bool slab_entry(Vec o, Vec inv, float tl, Vec lo, Vec hi, float& tn) {
   const float t0x = (lo.x - o.x) * inv.x, t1x = (hi.x - o.x) * inv.x;
   const float t0y = (lo.y - o.y) * inv.y, t1y = (hi.y - o.y) * inv.y;
   const float t0z = (lo.z - o.z) * inv.z, t1z = (hi.z - o.z) * inv.z;
   tn = nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)), nan_min(t0z, t1z));
   const float tf = nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)), nan_max(t0z, t1z));
   return !(tn > tf || tf < 0.0f || tn > tl);
-}
-
-__device__ __forceinline__ bool slab_keep(Vec o, Vec inv, float tl, Vec lo, Vec hi) {
-  float tn;
-  return slab_keep(o, inv, tl, lo, hi, tn);
 }
 
 // An "entry" list's key of a ray's slab entry t: NaN (a kept box) first,

@@ -39,15 +39,14 @@ kernels use float32 FMAs on the CUDA cores, and the plain version's
 Sums taken in another order than the reference's change last-ulp t
 values: a winner can flip only on an exact near-tie.
 
-The JAX package's search switches, with its names, defaults and
-resolution rules: `CULL_MODE` (None = "argsort"; "exact" and "interval"
+The JAX package's pre-pass switch, with its name, default and
+resolution rule: `CULL_MODE` (None = "argsort"; "exact" and "interval"
 as in `rt_tile`, the interval test over the whole 128-ray group; any
-other name, "hier" and "entry" among them, is "argsort"), the oversized
-pre-hit (`rt_tile.PRIMARY_PREHIT`) in the search, and `SEARCH_BF16X3`:
-K1 contracts the hi and lo bfloat16 parts of the features and the
-coefficients (`_split_bf16`) as hi*hi + hi*lo + lo*hi, each sum in
-float32 (`_dot3`). K2 stays float32. Each mode, and bf16x3, is one
-instantiation of the same kernels on the card.
+other name, "hier" and "entry" among them, is "argsort"). Each mode is
+one instantiation of the same kernels on the card, slower there than the
+default (PERF.md §6). The JAX package's bf16x3 contraction
+(`SEARCH_BF16X3`) is not ported: it made K1 2.5x slower on the card,
+where the contraction runs on float32 CUDA cores and not on an MXU.
 """
 
 from __future__ import annotations
@@ -58,11 +57,10 @@ import torch
 
 from esctp1raytracer_tpu_torch.core.intersect import BIG, NO_HIT, ray_features, tri_features
 from esctp1raytracer_tpu_torch.kernels import _build
-from esctp1raytracer_tpu_torch.kernels import rt_tile
 from esctp1raytracer_tpu_torch.kernels.cull import block_cull_mask, extract_lists, group_cull_mask
 from esctp1raytracer_tpu_torch.kernels.rt_tile import (
-    COHERENT, RAY_W, ROWS, _clustered_tables, _eps_tensor, _orig, _oversized_min_t, _pack_sub,
-    _pad_rays, _ptr, _sweep_occl as _tile_sweep_occl,
+    COHERENT, RAY_W, ROWS, _clustered_tables, _eps_tensor, _orig, _pack_sub, _pad_rays, _ptr,
+    _sweep_occl as _tile_sweep_occl,
 )
 from esctp1raytracer_tpu_torch.scene.types import TriangleBuffer
 
@@ -72,29 +70,15 @@ MXU_TRI_LIMIT = 32_768  # triangles per segment (256 blocks)
 
 _INT_BIG = 2**31 - 1
 
-# The search switches (module docstring), as in the JAX package.
-SEARCH_BF16X3 = False
+# The pre-pass switch (module docstring), as in the JAX package.
 CULL_MODE = None  # None = auto = "argsort"
 _MODES = {"exact": 1, "interval": 2}  # the kernels' mode numbers; any other name is argsort
 
 
-def _resolve_cull_mode(coherent: bool, nsub: int = 0) -> str:
-    if CULL_MODE is not None:
-        return CULL_MODE
-    return "argsort"
-
-
-def _split_bf16(x: torch.Tensor):
-    """f32 -> (hi, lo) bfloat16 pair with hi + lo ~ x (round to nearest even)."""
-    hi = x.to(torch.bfloat16)
-    return hi, (x - hi.to(torch.float32)).to(torch.bfloat16)
-
-
-def _dot3(a_hi, a_lo, b_hi, b_lo):
-    """bf16x3 batched product: hi*hi + hi*lo + lo*hi, each in float32 (the
-    bfloat16 products are exact there; lo*lo is dropped)."""
-    f = [x.to(torch.float32) for x in (a_hi, a_lo, b_hi, b_lo)]
-    return torch.bmm(f[0], f[2]) + torch.bmm(f[0], f[3]) + torch.bmm(f[1], f[2])
+def _resolve_cull_mode() -> str:
+    """The search's mode: CULL_MODE, else "argsort". (The JAX package's
+    `_resolve_cull_mode(coherent, nsub)` reads neither argument.)"""
+    return "argsort" if CULL_MODE is None else CULL_MODE
 
 
 def _pack_mxu(sorted_tris: TriangleBuffer, exclude=None):
@@ -181,25 +165,19 @@ def _listed(jb, tfq):
     return jb.long().clamp(max=tfq.shape[0] - 1)
 
 
-def _sweep_search(eps, ids, cnt, rf, tfq, bf16x3: bool = False):
+def _sweep_search(eps, ids, cnt, rf, tfq):
     """K1's sweep of given lists: (t [G, m] f32, sorted idx [G, m] int32).
 
     A running (t, block) per (ray, column) over the ascending block list,
-    updated on strict <, then the lowest index among the minimum t. With
-    bf16x3 each block's contraction is `_dot3` of the split parts.
+    updated on strict <, then the lowest index among the minimum t.
     """
     g, m, _ = rf.shape
     bt = torch.full((g, m, SUB), BIG, dtype=torch.float32, device=rf.device)
     bb = torch.full((g, m, SUB), NO_HIT, dtype=torch.int32, device=rf.device)
     kmax = int(cnt.max()) if g else 0
-    if bf16x3:
-        rf_hi, rf_lo = _split_bf16(rf)
-        tf_hi, tf_lo = _split_bf16(tfq)
     for k in range(kmax):
         jb = ids[:, k]
-        at = _listed(jb, tfq)
-        s = _dot3(rf_hi, rf_lo, tf_hi[at], tf_lo[at]) if bf16x3 else torch.bmm(rf, tfq[at])
-        t, ok = _window(s, eps)
+        t, ok = _window(torch.bmm(rf, tfq[_listed(jb, tfq)]), eps)
         better = ok & (t < bt) & (k < cnt)[:, None, None]
         bt = torch.where(better, t, bt)
         bb = torch.where(better, jb[:, None, None], bb)
@@ -233,12 +211,11 @@ def _plain_lists(rays, aabbs, cnt_out, mode="argsort"):
     return rf, ids, cnt, tl
 
 
-def _mxu_search_plain(eps, rays, aabbs, tfq, cnt_out=None, mode="argsort", bf16x3=False):
+def _mxu_search_plain(eps, rays, aabbs, tfq, cnt_out=None, mode="argsort"):
     """Plain version of K1: `_prep_mxu`'s lists in `mode`, swept by
-    `_sweep_search` (bf16x3: the split contraction). Returns (t [Rp] f32,
-    sorted idx [Rp] int32)."""
+    `_sweep_search`. Returns (t [Rp] f32, sorted idx [Rp] int32)."""
     rf, ids, cnt, _ = _plain_lists(rays, aabbs, cnt_out, mode)
-    t, idx = _sweep_search(eps, ids, cnt, rf, tfq, bf16x3)
+    t, idx = _sweep_search(eps, ids, cnt, rf, tfq)
     return t.reshape(-1), idx.reshape(-1)
 
 
@@ -269,7 +246,7 @@ def _lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.rt_mxu_search.argtypes = [vp] * 7 + [ci, ci, vp]
         lib.rt_mxu_occl.argtypes = [vp] * 7 + [ci, ci, vp]
-        lib.rt_mxu_search_mode.argtypes = [vp] * 9 + [ci] * 4 + [vp]
+        lib.rt_mxu_search_mode.argtypes = [vp] * 7 + [ci] * 3 + [vp]
         lib.rt_mxu_occl_mode.argtypes = [vp] * 7 + [ci] * 3 + [vp]
         for fn in ("rt_mxu_search", "rt_mxu_occl", "rt_mxu_search_mode", "rt_mxu_occl_mode"):
             getattr(lib, fn).restype = ci
@@ -300,7 +277,7 @@ def _check(eps, rays, aabbs, tfq, ov=None, cnt_out=None):
     return g, nsub
 
 
-def mxu_kernel(eps, rays, aabbs, tfq, cnt_out=None, mode="argsort", bf16x3=False):
+def mxu_kernel(eps, rays, aabbs, tfq, cnt_out=None, mode="argsort"):
     """K1, closest hit per ray over the blocks each 128-ray group keeps.
 
     eps f32 [1]; rays f32 [128G, 8] (o, d, t_limit, pad; from
@@ -308,24 +285,22 @@ def mxu_kernel(eps, rays, aabbs, tfq, cnt_out=None, mode="argsort", bf16x3=False
     aabbs f32 [8, NSUB] (NSUB <= 256); tfq f32 [NSUB, 16, 512]; cnt_out
     int32 [G] or None: receives each group's list length (padding-only
     blocks included); mode: the pre-pass mode whose lists the kernel walks
-    (module docstring); bf16x3: the split contraction. Returns (t [128G]
-    f32 — BIG on a miss, sorted index [128G] int32 — -1 on a miss).
+    (module docstring). Returns (t [128G] f32 — BIG on a miss, sorted index
+    [128G] int32 — -1 on a miss).
     """
     if rays.device.type == "cpu":
-        return _mxu_search_plain(eps, rays, aabbs, tfq, cnt_out, mode, bf16x3)
+        return _mxu_search_plain(eps, rays, aabbs, tfq, cnt_out, mode)
     g, nsub = _check(eps, rays, aabbs, tfq, cnt_out=cnt_out)
     m = _MODES.get(mode, 0)
     t = torch.empty((RAY_TILE * g,), dtype=torch.float32, device=rays.device)
     idx = torch.empty((RAY_TILE * g,), dtype=torch.int32, device=rays.device)
     if g:
         stream = torch.cuda.current_stream(rays.device).cuda_stream
-        if m == 0 and not bf16x3:
-            ptrs = (_ptr(x) for x in (eps, rays, aabbs, tfq, t, idx, cnt_out))
+        ptrs = (_ptr(x) for x in (eps, rays, aabbs, tfq, t, idx, cnt_out))
+        if m == 0:
             err = _lib().rt_mxu_search(*ptrs, g, nsub, stream)
         else:
-            tf_hi, tf_lo = _split_bf16(tfq) if bf16x3 else (None, None)
-            ptrs = (_ptr(x) for x in (eps, rays, aabbs, tfq, tf_hi, tf_lo, t, idx, cnt_out))
-            err = _lib().rt_mxu_search_mode(*ptrs, g, nsub, m, int(bf16x3), stream)
+            err = _lib().rt_mxu_search_mode(*ptrs, g, nsub, m, stream)
         _build.check_launch(_lib(), "rt_mxu", err)
         mxu_kernel.launches += 1
     return t, idx
@@ -384,27 +359,21 @@ def _segments(tris: TriangleBuffer, exclude_oversized: bool):
     return gen(), ov_buf, ov_orig
 
 
-def mxu_tile_search(o, d, tris: TriangleBuffer, eps, t_limit=None, coherent: bool = False):
+def mxu_tile_search(o, d, tris: TriangleBuffer, eps, t_limit=None):
     """tri_search hook (core/intersect.py contract): (best_t [R], orig idx [R]).
 
-    `t_limit` only culls (see `mxu_kernel`); with `rt_tile.PRIMARY_PREHIT`
-    the closest oversized hit caps it. `coherent` marks a shared-origin
-    wavefront (camera rays), which `_resolve_cull_mode` may use. Segments
-    combine first-wins: an earlier segment keeps a tie.
+    `t_limit` only culls (see `mxu_kernel`). Segments combine first-wins:
+    an earlier segment keeps a tie.
     """
     eps_arr = _eps_tensor(eps, o.device)
     r = o.shape[0]
+    rays = _pad_rays(o, d, t_limit)
     best_t = torch.full((r,), BIG, dtype=torch.float32, device=o.device)
     best_i = torch.full((r,), NO_HIT, dtype=torch.int32, device=o.device)
-    segments, ov_buf, _ = _segments(tris, exclude_oversized=False)
-    if rt_tile.PRIMARY_PREHIT:
-        hint = _oversized_min_t(o, d, ov_buf, eps)
-        t_limit = hint if t_limit is None else torch.minimum(t_limit, hint)
-    rays = _pad_rays(o, d, t_limit)
+    segments, _, _ = _segments(tris, exclude_oversized=False)
+    mode = _resolve_cull_mode()
     for tfq, aabbs, perm_k in segments:
-        t_k, idx_k = mxu_kernel(eps_arr, rays, aabbs, tfq,
-                                mode=_resolve_cull_mode(coherent, aabbs.shape[1]),
-                                bf16x3=SEARCH_BF16X3)
+        t_k, idx_k = mxu_kernel(eps_arr, rays, aabbs, tfq, mode=mode)
         t_k, idx_k = t_k[:r], idx_k[:r]
         better = t_k < best_t
         best_t = torch.where(better, t_k, best_t)
@@ -414,15 +383,14 @@ def mxu_tile_search(o, d, tris: TriangleBuffer, eps, t_limit=None, coherent: boo
 
 def mxu_tile_occlusion(o, d, t_limit, tris: TriangleBuffer, eps) -> torch.Tensor:
     """Occlusion [R] bool: any accepted hit in (eps, t_limit). The oversized
-    triangles go to the first segment's K2 launch as one extra sub-block.
-    Shadow origins are per-pixel hit points, never coherent."""
+    triangles go to the first segment's K2 launch as one extra sub-block."""
     eps_arr = _eps_tensor(eps, o.device)
     r = o.shape[0]
     rays = _pad_rays(o, d, t_limit)
     occluded = torch.zeros((r,), dtype=torch.bool, device=o.device)
     segments, ov_buf, _ = _segments(tris, exclude_oversized=True)
     ov, _ = _pack_sub(ov_buf)
-    mode = _resolve_cull_mode(False)
+    mode = _resolve_cull_mode()
     for k, (tfq, aabbs, _) in enumerate(segments):
         occluded |= mxu_occl_kernel(eps_arr, rays, aabbs, tfq, ov if k == 0 else None,
                                     mode=mode)[:r] > 0
@@ -430,4 +398,3 @@ def mxu_tile_occlusion(o, d, t_limit, tris: TriangleBuffer, eps) -> torch.Tensor
 
 
 mxu_tile_search.occlusion = mxu_tile_occlusion
-mxu_tile_search.supports_coherent = True

@@ -41,7 +41,7 @@ fails the direction test and the light's tight box fails the t-window.
 Tables over TILE_TRI_LIMIT triangles go through in segments, combined
 first-wins.
 
-The JAX package's search switches, with its names, defaults and
+The JAX package's pre-pass switches, with its names, defaults and
 resolution rules (`tile_tri_search`, `tile_occlusion`):
 
 * `CULL_MODE` (None = "argsort"): how a bundle's list is built --
@@ -52,16 +52,18 @@ resolution rules (`tile_tri_search`, `tile_occlusion`):
   HIER_K kept, else every sub-block; padding-only sub-blocks are never
   listed) and "entry" (nearest-first by the bundle's slab entry t; for
   the any-hit search only: K5's tie rule needs ascending lists);
-* `_CULL_COLS`: above that many sub-blocks, the lists are built over the
-  union boxes of runs of adjacent sub-blocks and expanded;
-* `PRIMARY_PREHIT`: the closest oversized hit caps the search's t_limit;
 * `OCCL_EARLY_EXIT` (E, 0 = off): "entry" lists for the any-hit search,
   tested for "every ray occluded" every E sub-blocks.
 
-K5 and K6 run each mode on the card in the same kernels (one
-instantiation per mode; the default, argsort over fine boxes with E = 0,
-is the kernels' own two-level cull), visiting the same sub-blocks as the
-plain version's lists in the same order, and count the same kept total.
+K5 and K6 run each mode on the card as another instantiation of the
+kernels (the default, argsort with E = 0, is the kernels' own two-level
+cull), visiting the same sub-blocks as the plain version's lists in the
+same order, and count the same kept total. Every mode is slower on the
+card than the default (PERF.md §6), as the JAX package measured on
+the TPU. The JAX package's coarse cull (`_CULL_COLS`) and oversized
+pre-hit (`PRIMARY_PREHIT`) are not ported: the first never acts at its
+default on a segment of at most 1024 sub-blocks, the second made the
+search 7-11x slower on the card.
 """
 
 from __future__ import annotations
@@ -97,41 +99,19 @@ _SWEEP_RAYS = 1 << 19
 
 _INT_BIG = 2**31 - 1
 
-# The search switches (module docstring), as in the JAX package.
+# The pre-pass switches (module docstring), as in the JAX package.
 CULL_MODE = None  # None = auto = "argsort"
-_CULL_COLS = 1024  # coarse cull above this many sub-blocks; a segment has at most 1024
-PRIMARY_PREHIT = False
 OCCL_EARLY_EXIT = 0
 HIER_GROUP = 8  # sub-blocks per superblock of the "hier" lists
 HIER_K = 32  # kept superblocks above which "hier" sweeps every sub-block
-HIER_MIN_NSUB = 256
 # The kernels' mode numbers; any other name is "argsort", as in the JAX package.
 _MODES = {"exact": 1, "interval": 2, "hier": 3, "entry": 4}
 
 
-def _resolve_cull_mode(coherent: bool, nsub: int = 0) -> str:
-    if CULL_MODE is not None:
-        return CULL_MODE
-    return "argsort"
-
-
-def _coarse_group(nsub: int) -> int:
-    """Sub-blocks per cull column: doubled while more than _CULL_COLS
-    columns remain and the count still divides."""
-    group = 1
-    while nsub // group > _CULL_COLS and nsub % (group * 2) == 0:
-        group *= 2
-    return group
-
-
-def _coarse_boxes(aabbs, group: int):
-    """The cull columns' boxes [8, NSUB / group]: the union of each run of
-    `group` sub-block boxes (a run of padding only stays inverted)."""
-    if group == 1:
-        return aabbs
-    nc = aabbs.shape[1] // group
-    return torch.cat([aabbs[0:3].reshape(3, nc, group).amin(2),
-                      aabbs[3:6].reshape(3, nc, group).amax(2), aabbs.new_zeros((2, nc))])
+def _resolve_cull_mode() -> str:
+    """The search's mode: CULL_MODE, else "argsort". (The JAX package's
+    `_resolve_cull_mode(coherent, nsub)` reads neither argument.)"""
+    return "argsort" if CULL_MODE is None else CULL_MODE
 
 
 def _clustered_tables(tris: TriangleBuffer):
@@ -188,16 +168,6 @@ def _oversized_hits(o, d, ov_buf: TriangleBuffer, eps):
     v = wvx * px + wvy * py + wvz * pz + bv
     ok = ok_det & (torch.minimum(u, v) >= eps) & (u + v <= 1.0) & (t >= eps)
     return t, ok
-
-
-def _oversized_min_t(o, d, ov_buf: TriangleBuffer, eps):
-    """Closest accepted t over the oversized buffer: [R] (BIG = none), in
-    chunks of _SWEEP_RAYS rays. A true upper bound on the search's winner:
-    these triangles stay in the search table, with the same constants."""
-    out = [torch.amin(torch.where(ok, t, BIG), dim=1) for t, ok in (
-        _oversized_hits(o[i:i + _SWEEP_RAYS], d[i:i + _SWEEP_RAYS], ov_buf, eps)
-        for i in range(0, max(o.shape[0], 1), _SWEEP_RAYS))]
-    return torch.cat(out)
 
 
 def _oversized_occl(o, d, t_limit, ov_buf: TriangleBuffer, eps):
@@ -406,24 +376,18 @@ def _lists(rays, aabbs, cull_mode="argsort"):
     (ids [Rp / 8, NSUB] int32, cnt [Rp / 8] int32). Row b of `ids` lists,
     in its first cnt[b] entries, the sub-blocks bundle b sweeps, in the
     order `cull_mode` gives them, culling by the rays' t_limit (+inf: no
-    cull). Above _CULL_COLS sub-blocks the lists are built over the
-    coarse columns (`_coarse_boxes`) and each column expanded into its
-    sub-blocks, ascending. Streams in ray chunks of about _PREPASS_ELEMS
-    (ray, column) pairs (one chunk for a small wavefront)."""
+    cull). Streams in ray chunks of about _PREPASS_ELEMS (ray, sub-block)
+    pairs (one chunk for a small wavefront)."""
     rp, nsub = rays.shape[0], aabbs.shape[1]
-    group = _coarse_group(nsub)
-    cb = _coarse_boxes(aabbs, group)
-    nc = cb.shape[1]
-    chunk = max(RAY_GROUP, _PREPASS_ELEMS // nc // RAY_GROUP * RAY_GROUP)
-    ids = torch.empty((rp // COHERENT, nc), dtype=torch.int32, device=rays.device)
+    # The JAX package coarsens the cull above 1024 sub-blocks; a segment
+    # never has more (TILE_TRI_LIMIT / SUB), so that path is not carried over.
+    assert nsub <= TILE_TRI_LIMIT // SUB, nsub
+    chunk = max(RAY_GROUP, _PREPASS_ELEMS // nsub // RAY_GROUP * RAY_GROUP)
+    ids = torch.empty((rp // COHERENT, nsub), dtype=torch.int32, device=rays.device)
     cnt = torch.empty((rp // COHERENT,), dtype=torch.int32, device=rays.device)
     for i in range(0, rp, chunk):
         r, bl = rays[i:i + chunk], slice(i // COHERENT, (i + chunk) // COHERENT)
-        ids[bl], cnt[bl] = _cull_lists(r[:, 0:3], r[:, 3:6], r[:, 6], cb, cull_mode)
-    if group > 1:
-        ids = (ids[:, :, None] * group
-               + torch.arange(group, dtype=torch.int32, device=ids.device)).reshape(-1, nsub)
-        cnt = cnt * group
+        ids[bl], cnt[bl] = _cull_lists(r[:, 0:3], r[:, 3:6], r[:, 6], aabbs, cull_mode)
     return ids, cnt
 
 
@@ -540,8 +504,8 @@ def _lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.rt_tile_search.argtypes = [vp] * 8 + [ci, ci, vp]
         lib.rt_tile_occl.argtypes = [vp] * 8 + [ci, ci, vp]
-        lib.rt_tile_search_mode.argtypes = [vp] * 8 + [ci] * 6 + [vp]
-        lib.rt_tile_occl_mode.argtypes = [vp] * 8 + [ci] * 7 + [vp]
+        lib.rt_tile_search_mode.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+        lib.rt_tile_occl_mode.argtypes = [vp] * 7 + [ci] * 6 + [vp]
         for fn in ("rt_tile_search", "rt_tile_occl", "rt_tile_search_mode", "rt_tile_occl_mode"):
             getattr(lib, fn).restype = ci
         _LIB = lib
@@ -588,15 +552,6 @@ def _group_boxes(aabbs):
                       aabbs.new_zeros((1, flag.shape[1]))]).contiguous()
 
 
-def _general(aabbs, mode):
-    """(mode number, coarse group, the cull columns' boxes) of a call, or
-    None for the default instantiation (argsort over the sub-blocks)."""
-    m, group = _MODES.get(mode, 0), _coarse_group(aabbs.shape[1])
-    if m == 0 and group == 1:
-        return None
-    return m, group, _coarse_boxes(aabbs, group).contiguous()
-
-
 def tile_kernel(eps, rays, aabbs, tc, cnt_out=None, mode="argsort"):
     """K5, closest hit per ray over the sub-blocks each bundle keeps.
 
@@ -605,25 +560,23 @@ def tile_kernel(eps, rays, aabbs, tc, cnt_out=None, mode="argsort"):
     f32 [NSUB, 16, 128]; cnt_out int32 [B] or None: receives each bundle's
     list length (padding-only sub-blocks included; counting them costs the
     kernel a box-by-box test of their groups); mode: the pre-pass mode
-    whose lists the kernel walks (module docstring; coarse columns above
-    _CULL_COLS sub-blocks). Returns (t [8B] f32 -- BIG on a miss, sorted
-    index [8B] int32 -- -1 on a miss).
+    whose lists the kernel walks (module docstring). Returns (t [8B] f32 --
+    BIG on a miss, sorted index [8B] int32 -- -1 on a miss).
     """
     if rays.device.type == "cpu":
         return _tile_search_plain(eps, rays, aabbs, tc, cnt_out, mode)
-    general = _general(aabbs, _search_mode(mode))
+    m = _MODES.get(_search_mode(mode), 0)
     b, nsub = _check(eps, rays, aabbs, tc, cnt_out=cnt_out)
     t = torch.empty((COHERENT * b,), dtype=torch.float32, device=rays.device)
     idx = torch.empty((COHERENT * b,), dtype=torch.int32, device=rays.device)
     if b:
         stream = torch.cuda.current_stream(rays.device).cuda_stream
-        if general is None:
+        if m == 0:
             ptrs = (_ptr(x) for x in (eps, rays, aabbs, _group_boxes(aabbs), tc, t, idx, cnt_out))
             err = _lib().rt_tile_search(*ptrs, b, nsub, stream)
         else:
-            m, group, cb = general
-            ptrs = (_ptr(x) for x in (eps, rays, aabbs, cb, tc, t, idx, cnt_out))
-            err = _lib().rt_tile_search_mode(*ptrs, b, nsub, m, group, HIER_GROUP, HIER_K, stream)
+            ptrs = (_ptr(x) for x in (eps, rays, aabbs, tc, t, idx, cnt_out))
+            err = _lib().rt_tile_search_mode(*ptrs, b, nsub, m, HIER_GROUP, HIER_K, stream)
         _build.check_launch(_lib(), "rt_tile", err)
         tile_kernel.launches += 1
     return t, idx
@@ -639,20 +592,17 @@ def tile_occl_kernel(eps, rays, aabbs, tc, ov=None, cnt_out=None, mode="argsort"
     """
     if rays.device.type == "cpu":
         return _tile_occl_plain(eps, rays, aabbs, tc, ov, cnt_out, mode, early_exit)
-    general = _general(aabbs, mode)
-    if general is None and early_exit:
-        general = 0, 1, aabbs
+    m = _MODES.get(mode, 0)
     b, nsub = _check(eps, rays, aabbs, tc, ov, cnt_out)
     occ = torch.empty((COHERENT * b,), dtype=torch.int32, device=rays.device)
     if b:
         stream = torch.cuda.current_stream(rays.device).cuda_stream
-        if general is None:
+        if m == 0 and not early_exit:
             ptrs = (_ptr(x) for x in (eps, rays, aabbs, _group_boxes(aabbs), tc, ov, occ, cnt_out))
             err = _lib().rt_tile_occl(*ptrs, b, nsub, stream)
         else:
-            m, group, cb = general
-            ptrs = (_ptr(x) for x in (eps, rays, aabbs, cb, tc, ov, occ, cnt_out))
-            err = _lib().rt_tile_occl_mode(*ptrs, b, nsub, m, group, HIER_GROUP, HIER_K,
+            ptrs = (_ptr(x) for x in (eps, rays, aabbs, tc, ov, occ, cnt_out))
+            err = _lib().rt_tile_occl_mode(*ptrs, b, nsub, m, HIER_GROUP, HIER_K,
                                            max(int(early_exit), 1), stream)
         _build.check_launch(_lib(), "rt_tile", err)
         tile_occl_kernel.launches += 1
@@ -678,26 +628,21 @@ def _orig(idx, perm):
     return torch.where(idx >= 0, perm[torch.clamp(idx, min=0).long()], NO_HIT)
 
 
-def tile_tri_search(o, d, tris: TriangleBuffer, eps, t_limit=None, coherent: bool = False):
+def tile_tri_search(o, d, tris: TriangleBuffer, eps, t_limit=None):
     """tri_search hook (core/intersect.py contract): (best_t [R], orig idx [R]).
 
-    `t_limit` only culls (see the module docstring); with PRIMARY_PREHIT
-    the closest oversized hit caps it. `coherent` marks a shared-origin
-    wavefront (camera rays), which `_resolve_cull_mode` may use. Segments
-    combine first-wins: an earlier segment keeps a tie.
+    `t_limit` only culls (see the module docstring). Segments combine
+    first-wins: an earlier segment keeps a tie.
     """
     eps_arr = _eps_tensor(eps, o.device)
     r = o.shape[0]
+    rays = _pad_rays(o, d, t_limit)
     best_t = torch.full((r,), BIG, dtype=torch.float32, device=o.device)
     best_i = torch.full((r,), NO_HIT, dtype=torch.int32, device=o.device)
-    segments, ov_buf, _ = _sliced(tris)
-    if PRIMARY_PREHIT:
-        hint = _oversized_min_t(o, d, ov_buf, eps)
-        t_limit = hint if t_limit is None else torch.minimum(t_limit, hint)
-    rays = _pad_rays(o, d, t_limit)
+    segments, _, _ = _sliced(tris)
+    mode = _resolve_cull_mode()
     for tc, aabbs, perm_k in segments:
-        t_k, idx_k = tile_kernel(eps_arr, rays, aabbs, tc,
-                                 mode=_resolve_cull_mode(coherent, aabbs.shape[1]))
+        t_k, idx_k = tile_kernel(eps_arr, rays, aabbs, tc, mode=mode)
         t_k, idx_k = t_k[:r], idx_k[:r]
         better = t_k < best_t
         best_t = torch.where(better, t_k, best_t)
@@ -705,30 +650,28 @@ def tile_tri_search(o, d, tris: TriangleBuffer, eps, t_limit=None, coherent: boo
     return best_t, best_i
 
 
-def _occl_mode(nsub: int) -> str:
+def _occl_mode() -> str:
     """The any-hit search's mode: CULL_MODE when set, else "entry" under
-    OCCL_EARLY_EXIT (nearest-first lists), else the resolved default."""
+    OCCL_EARLY_EXIT (nearest-first lists), else "argsort"."""
     if CULL_MODE is not None:
         return CULL_MODE
-    return "entry" if OCCL_EARLY_EXIT else _resolve_cull_mode(False, nsub)
+    return "entry" if OCCL_EARLY_EXIT else "argsort"
 
 
 def tile_occlusion(o, d, t_limit, tris: TriangleBuffer, eps) -> torch.Tensor:
     """Occlusion [R] bool: any accepted hit in (eps, t_limit). The oversized
-    triangles go to the first segment's K6 launch as one extra sub-block.
-    Shadow origins are per-pixel hit points, never coherent."""
+    triangles go to the first segment's K6 launch as one extra sub-block."""
     eps_arr = _eps_tensor(eps, o.device)
     r = o.shape[0]
     rays = _pad_rays(o, d, t_limit)
     occluded = torch.zeros((r,), dtype=torch.bool, device=o.device)
     segments, ov_buf, _ = _sliced(tris, exclude_oversized=True)
     ov, _ = _pack_sub(ov_buf)
+    mode = _occl_mode()
     for k, (tc, aabbs, _) in enumerate(segments):
         occluded |= tile_occl_kernel(eps_arr, rays, aabbs, tc, ov if k == 0 else None,
-                                     mode=_occl_mode(aabbs.shape[1]),
-                                     early_exit=OCCL_EARLY_EXIT)[:r] > 0
+                                     mode=mode, early_exit=OCCL_EARLY_EXIT)[:r] > 0
     return occluded
 
 
 tile_tri_search.occlusion = tile_occlusion
-tile_tri_search.supports_coherent = True

@@ -58,9 +58,8 @@ _caches: "weakref.WeakSet[Graphed]" = weakref.WeakSet()
 _WARM = object()  # a key seen once: its next call captures
 # The module switches that choose what the search kernels do (kernels/rt_tile.py,
 # kernels/rt_mxu.py), read when a step runs: (module, name) each.
-SEARCH_SWITCHES = ((rt_tile, "CULL_MODE"), (rt_tile, "_CULL_COLS"), (rt_tile, "PRIMARY_PREHIT"),
-                   (rt_tile, "OCCL_EARLY_EXIT"), (rt_tile, "HIER_GROUP"), (rt_tile, "HIER_K"),
-                   (rt_mxu, "CULL_MODE"), (rt_mxu, "SEARCH_BF16X3"))
+SEARCH_SWITCHES = ((rt_tile, "CULL_MODE"), (rt_tile, "OCCL_EARLY_EXIT"), (rt_tile, "HIER_GROUP"),
+                   (rt_tile, "HIER_K"), (rt_mxu, "CULL_MODE"))
 
 
 def _switches() -> tuple:

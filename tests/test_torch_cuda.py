@@ -833,23 +833,21 @@ def test_failed_capture_raises_without_eager_retry(dev):
 
 
 # --------------------------------------------------------------------------
-# The JAX package's selectable search paths on the card (rt_tile.CULL_MODE,
-# _CULL_COLS, HIER_K, OCCL_EARLY_EXIT; rt_mxu.CULL_MODE, SEARCH_BF16X3)
+# The JAX package's selectable pre-pass modes on the card (rt_tile.CULL_MODE,
+# HIER_K, OCCL_EARLY_EXIT; rt_mxu.CULL_MODE)
 # --------------------------------------------------------------------------
 
-# case: (mode, _CULL_COLS, HIER_K, early exit E); "coarse": columns of 4
-# sub-blocks (16 on "padded"); "hier-overflow": every bundle with two kept
-# superblocks sweeps every sub-block.
+# case: (mode, HIER_K, early exit E); "hier-overflow": every bundle with two
+# kept superblocks sweeps every sub-block.
 TILE_MODES = {
-    "exact": ("exact", 1024, 32, 0),
-    "interval": ("interval", 1024, 32, 0),
-    "hier": ("hier", 1024, 32, 0),
-    "hier-overflow": ("hier", 1024, 1, 0),
-    "entry": ("entry", 1024, 32, 0),
-    "coarse": ("argsort", 4, 32, 0),
-    "coarse-hier": ("hier", 4, 32, 0),
-    "entry-E1": ("entry", 1024, 32, 1),
-    "argsort-E8": ("argsort", 1024, 32, 8),
+    "exact": ("exact", 32, 0),
+    "interval": ("interval", 32, 0),
+    "hier": ("hier", 32, 0),
+    "hier-overflow": ("hier", 1, 0),
+    "entry": ("entry", 32, 0),
+    "entry-E1": ("entry", 32, 1),
+    "entry-E8": ("entry", 32, 8),
+    "argsort-E8": ("argsort", 32, 8),
 }
 
 
@@ -861,8 +859,7 @@ def test_tile_mode_kernels_match_plain(dev, monkeypatch, case, name):
     and without cnt_out, cnt_out equal to the plain lists' cnt. "padded":
     64 padding-only sub-blocks, which every bundle keeps: more than 32 kept
     sub-blocks, so "exact" and "interval" take their dense fallback."""
-    mode, cols, hier_k, period = TILE_MODES[case]
-    monkeypatch.setattr(rt_tile, "_CULL_COLS", cols)
+    mode, hier_k, period = TILE_MODES[case]
     monkeypatch.setattr(rt_tile, "HIER_K", hier_k)
     sc = b.mesh_scene(3)
     tris = sc.triangles
@@ -906,36 +903,29 @@ def test_tile_mode_kernels_match_plain(dev, monkeypatch, case, name):
         assert int(cnt.max()) == aabbs.shape[1]
 
 
-@pytest.mark.parametrize("mode,bf16x3", [("exact", False), ("interval", False),
-                                         ("argsort", True), ("exact", True)])
+@pytest.mark.parametrize("mode", ["exact", "interval"])
 @pytest.mark.parametrize("name", ["icospheres", "padded"])
-def test_mxu_mode_kernels_match_plain(dev, scene, name, mode, bf16x3):
-    """K1 (and, in float32, K2) in each mode against the plain version in
-    the same mode: tests/test_rt_mxu.py's bars, cnt_out equal to
-    `_prep_mxu`'s cnt in that mode. bf16x3 K1 also against the float32
-    search, with the JAX test's bf16x3 bars (>= 97% same winners, relative
-    t error < 5e-4 on the rest)."""
+def test_mxu_mode_kernels_match_plain(dev, scene, name, mode):
+    """K1 and K2 in each mode against the plain version in the same mode:
+    tests/test_rt_mxu.py's bars, cnt_out equal to `_prep_mxu`'s cnt in that
+    mode, the outputs equal to the default kernels'."""
     tris = _mxu_tris(scene, dev, name)
     o, d = (x.reshape(-1, 3) for x in CAM.to(dev).ray_grid(160, 117))
     r = o.shape[0]
     eps, rays, aabbs, tfq = _mxu_args(tris, o, d, None, False)
     cnt = torch.full((rays.shape[0] // 128,), -1, dtype=torch.int32, device=dev)
-    t, idx = rt_mxu.mxu_kernel(eps, rays, aabbs, tfq, cnt, mode=mode, bf16x3=bf16x3)
-    t1, idx1 = rt_mxu.mxu_kernel(eps, rays, aabbs, tfq, mode=mode, bf16x3=bf16x3)
+    t, idx = rt_mxu.mxu_kernel(eps, rays, aabbs, tfq, cnt, mode=mode)
+    t1, idx1 = rt_mxu.mxu_kernel(eps, rays, aabbs, tfq, mode=mode)
     torch.cuda.synchronize()
     want_cnt = rt_mxu._prep_mxu(rays[:, 0:3], rays[:, 3:6], aabbs, rays[:, 6], cull_mode=mode)[2]
     assert torch.equal(cnt, want_cnt)
     assert torch.equal(t, t1) and torch.equal(idx, idx1)
-    t2, idx2 = rt_mxu._mxu_search_plain(eps, rays, aabbs, tfq, mode=mode, bf16x3=bf16x3)
+    t2, idx2 = rt_mxu._mxu_search_plain(eps, rays, aabbs, tfq, mode=mode)
     same = idx == idx2
     assert same.float().mean().item() >= 0.999
     assert ((t - t2).abs()[same] / t2.abs()[same].clamp(min=1.0)).max().item() < 1e-5
-    if bf16x3:
-        t0, idx0 = rt_mxu.mxu_kernel(eps, rays, aabbs, tfq)
-        same = idx[:r] == idx0[:r]
-        assert same.float().mean().item() > 0.97
-        assert ((t[:r] - t0[:r]).abs()[same] / t0[:r].abs()[same].clamp(min=1.0)).max().item() < 5e-4
-        return
+    t0, idx0 = rt_mxu.mxu_kernel(eps, rays, aabbs, tfq)  # the default's
+    assert torch.equal(t[:r], t0[:r]) and torch.equal(idx[:r], idx0[:r])
     sc = scene.to(dev)
     hit = closest_hit(o, d, sc, EPS, tri_search=rt_mxu.mxu_tile_search)
     hp = o + d * (torch.where(hit.hit, hit.t, 1.0)[:, None] - 1e-4)
@@ -957,11 +947,9 @@ def test_mxu_mode_kernels_match_plain(dev, scene, name, mode, bf16x3):
 # switch: (module, name, value, backend); each run by `render` on the card.
 SWITCH_FLIPS = {
     "tile-interval": (rt_tile, "CULL_MODE", "interval", "tile"),
-    "tile-coarse": (rt_tile, "_CULL_COLS", 4, "tile"),
-    "tile-prehit": (rt_tile, "PRIMARY_PREHIT", True, "tile"),
+    "tile-hier": (rt_tile, "CULL_MODE", "hier", "tile"),
     "tile-early-exit": (rt_tile, "OCCL_EARLY_EXIT", 8, "tile"),
     "mxtile-exact": (rt_mxu, "CULL_MODE", "exact", "mxtile"),
-    "mxtile-bf16x3": (rt_mxu, "SEARCH_BF16X3", True, "mxtile"),
 }
 
 
@@ -997,9 +985,8 @@ def test_graphed_render_follows_a_flipped_switch(dev, scene, monkeypatch, flip):
                 want = render(sc, cam, 64, 48, cfg)
         assert len(render.cache) == 2
         assert seen, "the flipped key ran no search eagerly"
-        if name in ("CULL_MODE", "SEARCH_BF16X3"):
-            key = "mode" if name == "CULL_MODE" else "bf16x3"
-            assert all(kw[key] == value for kw in seen), seen
+        if name == "CULL_MODE":
+            assert all(kw["mode"] == value for kw in seen), seen
         for img in after:
             assert torch.equal(img, want)
         assert torch.isfinite(before).all()

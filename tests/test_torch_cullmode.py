@@ -5,11 +5,11 @@ rays and boxes, as numpy; seeded scattered rays) go through the JAX
 package's jnp pre-pass functions and the port's: `group_cull_mask`,
 `extract_lists` and `block_cull_mask(return_entry=True)` must be
 bit-equal, and so must the block lists of every mode ("argsort",
-"exact", "interval", "hier", "entry"; coarse columns above `_CULL_COLS`)
-from `rt_tile._cull_lists` / `_prep` and `rt_mxu._prep_mxu`. The port's
-winners and occlusion under every mode (and the any-hit early exit)
-must be bit-equal to its "argsort" ones, and `_resolve_cull_mode` must
-resolve as JAX's does. The JAX interpret-mode kernels are not run here.
+"exact", "interval", "hier", "entry") from `rt_tile._cull_lists` /
+`_prep` and `rt_mxu._prep_mxu`. The port's winners and occlusion under
+every mode (and the any-hit early exit) must be bit-equal to its
+"argsort" ones, and `_resolve_cull_mode` must resolve as JAX's does. The
+JAX interpret-mode kernels are not run here.
 """
 
 import numpy as np
@@ -30,9 +30,6 @@ from esctp1raytracer_tpu.scene.types import TriangleBuffer as JTriangleBuffer  #
 import esctp1raytracer_tpu_torch.kernels.cull as pc  # noqa: E402
 import esctp1raytracer_tpu_torch.kernels.rt_mxu as pm  # noqa: E402
 import esctp1raytracer_tpu_torch.kernels.rt_tile as pt  # noqa: E402
-from esctp1raytracer_tpu_torch.core.camera import Camera as PCamera  # noqa: E402
-from esctp1raytracer_tpu_torch.core.render import RenderConfig, trace_rays  # noqa: E402
-from esctp1raytracer_tpu_torch.scene import builders as pb  # noqa: E402
 from esctp1raytracer_tpu_torch.scene.types import scene_from_numpy  # noqa: E402
 
 EPS = np.float32(np.finfo(np.float32).eps)
@@ -212,20 +209,16 @@ def _jax_prep_lists(o, d, aabbs, tl, mode):
 
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("cols", [1024, 4], ids=["fine", "coarse"])
-def test_prep_lists_match_jax(aabbs, monkeypatch, mode, cols):
+@pytest.mark.parametrize("rays", ["camera", "scattered"])
+def test_prep_lists_match_jax(aabbs, mode, rays):
     """`_lists` on the port's padded rays against JAX's `_prep` (its ray
-    padding and, at _CULL_COLS = 4, its coarse columns expanded x4)."""
-    monkeypatch.setattr(jt, "_CULL_COLS", cols)
-    monkeypatch.setattr(pt, "_CULL_COLS", cols)
-    o, d = camera_rays(30, 17)  # 510 rays: padded to 512
+    padding: 510 rays go to 512)."""
+    o, d = camera_rays(30, 17) if rays == "camera" else scattered_rays(n=510, seed=11)
     tl = np.random.RandomState(5).uniform(1.0, 8.0, o.shape[0]).astype(np.float32)
     for limit in (None, tl):
         want = _jax_prep_lists(o, d, aabbs, limit, mode)
         rays = pt._pad_rays(T(o), T(d), None if limit is None else T(limit))
         assert_lists_equal(pt._lists(rays, T(aabbs), mode), want)
-    if cols == 4:
-        assert pt._coarse_group(aabbs.shape[1]) == 4
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -260,16 +253,16 @@ def switches(monkeypatch):
 
 def _tile_search(ps, o, d, tl=None):
     return pt.tile_tri_search(T(o), T(d), ps.triangles, float(EPS),
-                              None if tl is None else T(tl), coherent=True)
+                              None if tl is None else T(tl))
 
 
-@pytest.mark.parametrize("mode", ["exact", "interval", "hier", "coarse"])
+@pytest.mark.parametrize("mode", ["exact", "interval", "hier"])
 def test_tile_winners_equal_argsort(mesh, switches, mode):
     _, ps = mesh
     o, d = camera_rays()
     tl = np.random.RandomState(2).uniform(2.0, 9.0, o.shape[0]).astype(np.float32)
     ref = [_tile_search(ps, o, d), _tile_search(ps, o, d, tl)]
-    switches(CULL_MODE=None, _CULL_COLS=4) if mode == "coarse" else switches(CULL_MODE=mode)
+    switches(CULL_MODE=mode)
     for (tr, ir), limit in zip(ref, (None, tl)):
         tm, im = _tile_search(ps, o, d, limit)
         assert torch.equal(im, ir) and torch.equal(tm, tr)
@@ -286,8 +279,7 @@ def _occl_rays(seed=3, n=128):
 
 
 @pytest.mark.parametrize("mode,period", [("exact", 0), ("interval", 0), ("hier", 0),
-                                         ("entry", 0), ("coarse", 0), (None, 1), (None, 8),
-                                         ("argsort", 8)])
+                                         ("entry", 0), (None, 1), (None, 8), ("argsort", 8)])
 def test_tile_occlusion_equal_argsort(mesh, switches, mode, period):
     """Every mode, and the early exit E in {1, 8} (on "entry" lists, or on
     CULL_MODE's when set), against the default; the seeded random rays of
@@ -295,10 +287,7 @@ def test_tile_occlusion_equal_argsort(mesh, switches, mode, period):
     _, ps = mesh
     o, d, tl = _occl_rays()
     ref = pt.tile_occlusion(o, d, tl, ps.triangles, float(EPS))
-    if mode == "coarse":
-        switches(_CULL_COLS=4, OCCL_EARLY_EXIT=period)
-    else:
-        switches(CULL_MODE=mode, OCCL_EARLY_EXIT=period)
+    switches(CULL_MODE=mode, OCCL_EARLY_EXIT=period)
     got = pt.tile_occlusion(o, d, tl, ps.triangles, float(EPS))
     assert torch.equal(got, ref)
     assert 0.05 < ref.float().mean().item() < 0.95
@@ -308,11 +297,11 @@ def test_tile_occlusion_equal_argsort(mesh, switches, mode, period):
 def test_mxu_winners_and_occlusion_equal_argsort(mesh, switches, mode):
     _, ps = mesh
     o, d = camera_rays()
-    t0, i0 = pm.mxu_tile_search(T(o), T(d), ps.triangles, float(EPS), coherent=True)
+    t0, i0 = pm.mxu_tile_search(T(o), T(d), ps.triangles, float(EPS))
     tl = T(np.full(o.shape[0], 4.0, np.float32))
     occ0 = pm.mxu_tile_occlusion(T(o), T(d), tl, ps.triangles, float(EPS))
     switches(mxu_CULL_MODE=mode)
-    t1, i1 = pm.mxu_tile_search(T(o), T(d), ps.triangles, float(EPS), coherent=True)
+    t1, i1 = pm.mxu_tile_search(T(o), T(d), ps.triangles, float(EPS))
     assert torch.equal(i1, i0) and torch.equal(t1, t0)
     assert torch.equal(pm.mxu_tile_occlusion(T(o), T(d), tl, ps.triangles, float(EPS)), occ0)
 
@@ -328,7 +317,7 @@ def test_search_refuses_entry_lists(mesh, switches):
 
 
 # --------------------------------------------------------------------------
-# Resolution and the coherent hint
+# Resolution
 # --------------------------------------------------------------------------
 
 
@@ -336,35 +325,12 @@ def test_search_refuses_entry_lists(mesh, switches):
 @pytest.mark.parametrize("coherent,nsub", [(True, 784), (False, 784), (True, 84), (False, 255),
                                            (False, 256)])
 def test_resolve_cull_mode_matches_jax(monkeypatch, override, coherent, nsub):
+    """JAX's cases (tests/test_cullmode.py): its `_resolve_cull_mode(coherent,
+    nsub)` reads neither argument, and the port's takes none."""
     for mod in (jt, pt, jm, pm):
         monkeypatch.setattr(mod, "CULL_MODE", override)
-    assert pt._resolve_cull_mode(coherent, nsub) == jt._resolve_cull_mode(coherent, nsub)
-    assert pm._resolve_cull_mode(coherent, nsub) == jm._resolve_cull_mode(coherent, nsub)
-    assert pt._resolve_cull_mode(coherent, nsub) == (override or "argsort")
+    assert pt._resolve_cull_mode() == jt._resolve_cull_mode(coherent, nsub)
+    assert pm._resolve_cull_mode() == jm._resolve_cull_mode(coherent, nsub)
+    assert pt._resolve_cull_mode() == (override or "argsort")
     monkeypatch.setattr(pt, "OCCL_EARLY_EXIT", 4)
-    assert pt._occl_mode(nsub) == (override or "entry")
-
-
-def test_coherent_reaches_the_search_at_bounce_0_only():
-    """`render`'s bounce loop passes coherent=(bounce == 0) through
-    closest_hit and argmin_hit to a search that declares supports_coherent;
-    one that does not gets no such keyword."""
-    scene = pb.mixed_scene(device="cpu")
-    cam = PCamera.look_at((0.0, 2.5, 7.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=1.0, device="cpu")
-    o, d = (x.reshape(-1, 3) for x in cam.ray_grid(8, 8))
-    ids = torch.arange(o.shape[0])
-    seen = []
-
-    def search(oo, dd, tris, eps, t_limit=None, **kw):
-        seen.append(kw.get("coherent"))
-        return pt.tile_tri_search(oo, dd, tris, eps, t_limit, **kw)
-
-    search.occlusion = pt.tile_occlusion
-    search.supports_coherent = True
-    trace_rays(o, d, scene, ids, RenderConfig(backend="tile", depth=3), tri_search=search)
-    assert seen == [True, False, False]
-    del search.supports_coherent
-    seen.clear()
-    trace_rays(o, d, scene, ids, RenderConfig(backend="tile", depth=2), tri_search=search)
-    assert seen == [None, None]
-    assert pt.tile_tri_search.supports_coherent and pm.mxu_tile_search.supports_coherent
+    assert pt._occl_mode() == (override or "entry")

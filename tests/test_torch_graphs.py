@@ -123,10 +123,8 @@ def test_key(soup, change, new_entry):
 
 
 @pytest.mark.parametrize("module,name,value", [
-    (rt_tile, "CULL_MODE", "interval"), (rt_tile, "_CULL_COLS", 4),
-    (rt_tile, "PRIMARY_PREHIT", True), (rt_tile, "OCCL_EARLY_EXIT", 8),
-    (rt_tile, "HIER_GROUP", 4), (rt_tile, "HIER_K", 1),
-    (rt_mxu, "CULL_MODE", "exact"), (rt_mxu, "SEARCH_BF16X3", True),
+    (rt_tile, "CULL_MODE", "interval"), (rt_tile, "OCCL_EARLY_EXIT", 8),
+    (rt_tile, "HIER_GROUP", 4), (rt_tile, "HIER_K", 1), (rt_mxu, "CULL_MODE", "exact"),
 ], ids=lambda v: v if isinstance(v, str) else None)
 def test_key_follows_the_search_switches(soup, monkeypatch, module, name, value):
     """A graph bakes in the search switches it ran under: flipping one gives

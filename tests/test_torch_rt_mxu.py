@@ -233,39 +233,3 @@ def test_tri_features_structural_zeros():
     cols = tfq.reshape(2, 16, 4, 128).permute(0, 3, 1, 2).reshape(256, 16, 4)
     assert bool((cols[:, ~keep] == 0.0).all()) and bool((cols[~valid] == 0.0).all())
     assert bool((cols[valid][:, keep] != 0.0).all())
-
-
-@pytest.mark.parametrize("against", ["float32", "jax-bf16x3"])
-def test_bf16x3_search(scenes, monkeypatch, against):
-    """SEARCH_BF16X3 (tests/test_rt_mxu.py:test_bf16x3_flag_path): the split
-    contraction against the port's float32 search with the JAX test's bars
-    (>= 97% same winners, relative t error < 5e-4 on the rest), and against
-    the JAX package's own bf16x3 search with the float32 parity bars (the
-    split parts are equal; only the order of the float32 sums differs)."""
-    js, ps = scenes
-    o, d = rays(24, 24)
-    to, td = torch.from_numpy(o), torch.from_numpy(d)
-    t1, p1 = pm.mxu_tile_search(to, td, ps.triangles, float(EPS))
-    monkeypatch.setattr(pm, "SEARCH_BF16X3", True)
-    t2, p2 = pm.mxu_tile_search(to, td, ps.triangles, float(EPS))
-    if against == "float32":
-        t1, p1, t2, p2 = t1.numpy(), p1.numpy(), t2.numpy(), p2.numpy()
-        same = p1 == p2
-        assert same.mean() > 0.97
-        rel = np.abs(t1[same] - t2[same]) / np.maximum(np.abs(t1[same]), 1.0)
-        assert rel.max() < 5e-4
-        assert (p2 >= 0).mean() > 0.3
-    else:
-        monkeypatch.setattr(jm, "SEARCH_BF16X3", True)
-        tj, ij = jm.mxu_tile_search(jnp.asarray(o), jnp.asarray(d), js.triangles, EPS)
-        assert_search_agrees(tj, ij, t2, p2)
-
-
-def test_split_bf16_matches_jax():
-    """_split_bf16: the hi and lo parts equal JAX's (round to nearest even)."""
-    x = np.random.RandomState(4).normal(size=(64, 16)).astype(np.float32) * 10.0 ** np.arange(
-        -8, 8, dtype=np.float32)
-    hj, lj = jm._split_bf16(jnp.asarray(x))
-    hp, lp = pm._split_bf16(torch.from_numpy(x))
-    np.testing.assert_array_equal(hp.float().numpy(), np.asarray(hj, np.float32))
-    np.testing.assert_array_equal(lp.float().numpy(), np.asarray(lj, np.float32))

@@ -467,28 +467,3 @@ def test_group_boxes_reject_only_what_every_member_rejects():
     d1 = T(np.array([[0.0, 1.0, 0.0]], np.float32))
     assert bool(block_cull_mask(o1, d1, aabbs)[0, 40])
     assert not bool(block_cull_mask(o1, d1, gb)[0, 1])
-
-
-@pytest.mark.parametrize("what", ["search", "occlusion"])
-def test_coarse_cull_matches_fine(monkeypatch, what):
-    """tests/test_rt_tile.py:test_coarse_cull_matches_fine: above _CULL_COLS
-    sub-blocks the lists are built over merged columns (here 4 sub-blocks
-    each) and expanded x4; a coarser list is a superset, so winners and
-    occlusion equal the fine path's exactly."""
-    _, ps, _, _ = case("mesh3")  # 16 sub-blocks
-    o, d = rays(MESH_CAM, 48, 48)
-    o, d = T(o), T(d)
-    t_lim = torch.full((o.shape[0],), 6.0)  # past the sphere for some rays, short of the floor
-
-    def run():
-        if what == "search":
-            return pt.tile_tri_search(o, d, ps.triangles, float(EPS))
-        return (pt.tile_occlusion(o, d, t_lim, ps.triangles, float(EPS)),)
-
-    ref = run()
-    monkeypatch.setattr(pt, "_CULL_COLS", 4)
-    assert pt._coarse_group(16) == 4
-    for a, b in zip(run(), ref):
-        assert torch.equal(a, b)
-    if what == "occlusion":
-        assert 0.05 < ref[0].float().mean().item() < 0.95
