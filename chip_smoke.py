@@ -1547,6 +1547,8 @@ def profile_phase(card, cases):
             step(1 + k)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU]):
+            step(4)  # a graphed step's first call under a profiler captures its spanned twin
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             step(4)
@@ -2900,8 +2902,11 @@ def timed_calls(call, ids, stride, reps):
 
 
 def busy_share(call, ids):
-    """One call under torch.profiler: (device ms, busy share), or (None, None)
-    when the profiler recorded no device operation in it."""
+    """One call under torch.profiler, after one more under it (a graphed
+    call's first under a profiler captures its spanned twin): (device ms,
+    busy share), or (None, None) when the profiler recorded no device
+    operation in it."""
+    profiling.device_time(lambda: call(ids))
     prof = profiling.device_time(lambda: call(ids))
     if not prof["device_ops"]:
         return None, None

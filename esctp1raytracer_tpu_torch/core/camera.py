@@ -15,6 +15,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from esctp1raytracer_tpu_torch.utils.profiling import annotate
+
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:
     return v / torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
@@ -75,9 +77,10 @@ class Camera:
 
     def ray_grid(self, width: int, height: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """All camera rays for a width x height image, [H, W, 3] each."""
-        f32 = dict(dtype=torch.float32, device=self.origin.device)
-        ws = torch.arange(width, **f32) / float(width - 1)
-        hs = torch.arange(height, **f32) / float(height - 1)
-        s = torch.broadcast_to(ws[None, :], (height, width))
-        t = torch.broadcast_to(hs[:, None], (height, width))
-        return self.get_ray(s, t)
+        with annotate("camera.ray_grid"):
+            f32 = dict(dtype=torch.float32, device=self.origin.device)
+            ws = torch.arange(width, **f32) / float(width - 1)
+            hs = torch.arange(height, **f32) / float(height - 1)
+            s = torch.broadcast_to(ws[None, :], (height, width))
+            t = torch.broadcast_to(hs[:, None], (height, width))
+            return self.get_ray(s, t)

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from esctp1raytracer_tpu_torch.scene.types import Scene, SphereBuffer, TriangleBuffer
+from esctp1raytracer_tpu_torch.utils.profiling import annotate
 
 # float32 machine epsilon (the reference's std::numeric_limits<float>::epsilon()).
 EPS = float(np.finfo(np.float32).eps)
@@ -294,42 +295,43 @@ def closest_hit(o, d, scene: Scene, eps=EPS, block_size: int = 512,
     recomputed differentiably on the winning primitive. with_row=True also
     returns the winner's packed_tri_table row [R, 32] for shading.
     """
-    with torch.no_grad():
-        best_t, prim, is_sphere = argmin_hit(
-            o.detach(), d.detach(), scene.detach(), eps, block_size, use_mxu,
-            tri_search,
-        )
-    safe_prim = torch.clamp(prim, min=0).long()
+    with annotate("intersect.closest_hit"):
+        with torch.no_grad():
+            best_t, prim, is_sphere = argmin_hit(
+                o.detach(), d.detach(), scene.detach(), eps, block_size, use_mxu,
+                tri_search,
+            )
+        safe_prim = torch.clamp(prim, min=0).long()
 
-    trow = take_rows(packed_tri_table(scene.triangles), safe_prim)
-    t_tri, u_tri, v_tri, _ = mt_intersect(
-        o, d, trow[:, 0:3], trow[:, 3:6], trow[:, 6:9], eps)
-    # Borderline winners can be accepted by the (differently rounded)
-    # search yet rejected by this recompute: fall back to the search's t.
-    t_tri = torch.where(t_tri < BIG, t_tri, best_t)
+        trow = take_rows(packed_tri_table(scene.triangles), safe_prim)
+        t_tri, u_tri, v_tri, _ = mt_intersect(
+            o, d, trow[:, 0:3], trow[:, 3:6], trow[:, 6:9], eps)
+        # Borderline winners can be accepted by the (differently rounded)
+        # search yet rejected by this recompute: fall back to the search's t.
+        t_tri = torch.where(t_tri < BIG, t_tri, best_t)
 
-    # Sphere recompute with sanitized masked lanes: non-sphere rays see a
-    # benign unit sphere hit along the axis, so no inf * 0 reaches the grads.
-    is_s = is_sphere
-    sphere_prim = torch.where(is_s, safe_prim, 0)
-    sph_packed = torch.cat([scene.spheres.center, scene.spheres.radius[:, None]], dim=1)
-    srow = select_rows(sph_packed, sphere_prim)  # [R, 4]
-    c, r = srow[:, 0:3], srow[:, 3]
-    m = is_s[:, None]
-    o_s = torch.where(m, o, vec3(o, 0.0, 0.0, 3.0))
-    d_s = torch.where(m, d, vec3(d, 0.0, 0.0, -1.0))
-    c_s = torch.where(m, c, 0.0)
-    r_s = torch.where(is_s, r, 1.0)
-    t_sph, _ = sphere_intersect(o_s, d_s, c_s, r_s, eps)
-    t_sph = torch.where(t_sph < BIG, t_sph, best_t)
+        # Sphere recompute with sanitized masked lanes: non-sphere rays see a
+        # benign unit sphere hit along the axis, so no inf * 0 reaches the grads.
+        is_s = is_sphere
+        sphere_prim = torch.where(is_s, safe_prim, 0)
+        sph_packed = torch.cat([scene.spheres.center, scene.spheres.radius[:, None]], dim=1)
+        srow = select_rows(sph_packed, sphere_prim)  # [R, 4]
+        c, r = srow[:, 0:3], srow[:, 3]
+        m = is_s[:, None]
+        o_s = torch.where(m, o, vec3(o, 0.0, 0.0, 3.0))
+        d_s = torch.where(m, d, vec3(d, 0.0, 0.0, -1.0))
+        c_s = torch.where(m, c, 0.0)
+        r_s = torch.where(is_s, r, 1.0)
+        t_sph, _ = sphere_intersect(o_s, d_s, c_s, r_s, eps)
+        t_sph = torch.where(t_sph < BIG, t_sph, best_t)
 
-    hit = prim >= 0
-    t = torch.where(is_sphere, t_sph, t_tri)
-    t = torch.where(hit, t, BIG)
-    u = torch.where(hit & ~is_sphere, u_tri, 0.0)
-    v = torch.where(hit & ~is_sphere, v_tri, 0.0)
-    rec = HitRecord(t=t, u=u, v=v, prim=prim, is_sphere=is_sphere, hit=hit)
-    return (rec, trow) if with_row else rec
+        hit = prim >= 0
+        t = torch.where(is_sphere, t_sph, t_tri)
+        t = torch.where(hit, t, BIG)
+        u = torch.where(hit & ~is_sphere, u_tri, 0.0)
+        v = torch.where(hit & ~is_sphere, v_tri, 0.0)
+        rec = HitRecord(t=t, u=u, v=v, prim=prim, is_sphere=is_sphere, hit=hit)
+        return (rec, trow) if with_row else rec
 
 
 @torch.no_grad()
@@ -340,12 +342,13 @@ def any_hit(o, d, t_limit, scene: Scene, eps=EPS, block_size: int = 512,
     Non-differentiable. A backend's dedicated any-hit (`tri_search.occlusion`)
     is used when it has one; otherwise closest-hit-then-compare.
     """
-    o, d, t_limit, scene = o.detach(), d.detach(), t_limit.detach(), scene.detach()
-    occl_fn = getattr(tri_search, "occlusion", None)
-    if occl_fn is not None:
-        tri_occ = occl_fn(o, d, t_limit, scene.triangles, eps)
-        sph_t, _ = _sphere_best(o, d, scene.spheres, eps)
-        return tri_occ | (sph_t < t_limit)
-    best_t, _, _ = argmin_hit(o, d, scene, eps, block_size, use_mxu, tri_search,
-                              t_limit=t_limit)
-    return best_t < t_limit
+    with annotate("intersect.any_hit"):
+        o, d, t_limit, scene = o.detach(), d.detach(), t_limit.detach(), scene.detach()
+        occl_fn = getattr(tri_search, "occlusion", None)
+        if occl_fn is not None:
+            tri_occ = occl_fn(o, d, t_limit, scene.triangles, eps)
+            sph_t, _ = _sphere_best(o, d, scene.spheres, eps)
+            return tri_occ | (sph_t < t_limit)
+        best_t, _, _ = argmin_hit(o, d, scene, eps, block_size, use_mxu, tri_search,
+                                  t_limit=t_limit)
+        return best_t < t_limit

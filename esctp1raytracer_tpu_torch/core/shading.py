@@ -21,6 +21,7 @@ from esctp1raytracer_tpu_torch.core.intersect import (
 )
 from esctp1raytracer_tpu_torch.scene.types import Scene
 from esctp1raytracer_tpu_torch.utils import rng
+from esctp1raytracer_tpu_torch.utils.profiling import annotate
 
 _TINY = 1e-12
 
@@ -149,46 +150,47 @@ def shade(o, d, hit: HitRecord, scene: Scene, seed: int, ray_ids: torch.Tensor,
     occlusion_fn(origins [M,3], dirs [M,3], t_limit [M]) -> occluded [M] bool.
     Returns (color [R,3], hit_point [R,3], normal [R,3], ks [R,3]).
     """
-    r = o.shape[0]
-    hit_p, normal, mat = surface_attributes(o, d, hit, scene, shadow_eps, trow=trow)
+    with annotate("shading.shade"):
+        r = o.shape[0]
+        hit_p, normal, mat = surface_attributes(o, d, hit, scene, shadow_eps, trow=trow)
 
-    p_light, _, num_l = sample_lights(scene, seed, ray_ids, bounce, light_mode)
-    if num_l == 0:
-        # The sum over no light source: exactly black, and still a function of
-        # the scene, so that a backward runs and gives zero gradients.
-        return torch.sum(hit_p[:, None, :][:, :0], dim=1), hit_p, normal, mat["ks"]
+        p_light, _, num_l = sample_lights(scene, seed, ray_ids, bounce, light_mode)
+        if num_l == 0:
+            # The sum over no light source: exactly black, and still a function of
+            # the scene, so that a backward runs and gives zero gradients.
+            return torch.sum(hit_p[:, None, :][:, :0], dim=1), hit_p, normal, mat["ks"]
 
-    l_vec = p_light - hit_p[:, None, :]  # [R, L, 3]
-    dist = torch.sqrt(torch.clamp(torch.sum(l_vec * l_vec, dim=-1), min=_TINY))  # [R, L]
-    l_dir = l_vec / dist[..., None]
-    d_nl = torch.sum(normal[:, None, :] * l_dir, dim=-1)  # [R, L]
-    # Back-facing points are unlit whatever the occlusion: a negative
-    # t_limit lets the culling backends drop their shadow rays.
-    t_limit = torch.where(d_nl > 0.0, dist - shadow_eps, -1.0)
+        l_vec = p_light - hit_p[:, None, :]  # [R, L, 3]
+        dist = torch.sqrt(torch.clamp(torch.sum(l_vec * l_vec, dim=-1), min=_TINY))  # [R, L]
+        l_dir = l_vec / dist[..., None]
+        d_nl = torch.sum(normal[:, None, :] * l_dir, dim=-1)  # [R, L]
+        # Back-facing points are unlit whatever the occlusion: a negative
+        # t_limit lets the culling backends drop their shadow rays.
+        t_limit = torch.where(d_nl > 0.0, dist - shadow_eps, -1.0)
 
-    # Missed primary rays: park the shadow origin far outside every box
-    # so the culling drops them (the result is masked by `visible`).
-    far = hit_p.new_full((3,), 3e7)
-    occl_origin = torch.where(hit.hit[:, None], hit_p, far)
+        # Missed primary rays: park the shadow origin far outside every box
+        # so the culling drops them (the result is masked by `visible`).
+        far = hit_p.new_full((3,), 3e7)
+        occl_origin = torch.where(hit.hit[:, None], hit_p, far)
 
-    def flat(a):
-        return a.reshape((r * num_l,) + a.shape[2:])
+        def flat(a):
+            return a.reshape((r * num_l,) + a.shape[2:])
 
-    occluded = occlusion_fn(
-        flat(torch.broadcast_to(occl_origin[:, None, :], l_vec.shape)),
-        flat(l_dir),
-        flat(t_limit),
-    ).reshape(r, num_l)
+        occluded = occlusion_fn(
+            flat(torch.broadcast_to(occl_origin[:, None, :], l_vec.shape)),
+            flat(l_dir),
+            flat(t_limit),
+        ).reshape(r, num_l)
 
-    h_vec = _normalize((normal[:, None, :] + l_dir) * 2.0)
-    spec_dot = torch.clamp(torch.sum(normal[:, None, :] * h_vec, dim=-1), min=0.0)
-    # pow with a floor keeps grads finite at grazing angles.
-    spec = torch.pow(torch.clamp(spec_dot, min=_TINY), mat["ns"][:, None])
+        h_vec = _normalize((normal[:, None, :] + l_dir) * 2.0)
+        spec_dot = torch.clamp(torch.sum(normal[:, None, :] * h_vec, dim=-1), min=0.0)
+        # pow with a floor keeps grads finite at grazing angles.
+        spec = torch.pow(torch.clamp(spec_dot, min=_TINY), mat["ns"][:, None])
 
-    inv_l = 1.0 / num_l
-    base = (mat["ka"] * 0.5 + mat["ke"])[:, None, :] * inv_l  # [R, 1, 3]
-    lit = (mat["kd"][:, None, :] * d_nl[..., None]
-           + mat["ks"][:, None, :] * spec[..., None]) * inv_l
-    visible = hit.hit[:, None] & ~occluded & (d_nl > 0.0)
-    color = torch.sum(torch.where(visible[..., None], base + lit, 0.0), dim=1)
-    return color, hit_p, normal, mat["ks"]
+        inv_l = 1.0 / num_l
+        base = (mat["ka"] * 0.5 + mat["ke"])[:, None, :] * inv_l  # [R, 1, 3]
+        lit = (mat["kd"][:, None, :] * d_nl[..., None]
+               + mat["ks"][:, None, :] * spec[..., None]) * inv_l
+        visible = hit.hit[:, None] & ~occluded & (d_nl > 0.0)
+        color = torch.sum(torch.where(visible[..., None], base + lit, 0.0), dim=1)
+        return color, hit_p, normal, mat["ks"]

@@ -37,6 +37,7 @@ from esctp1raytracer_tpu_torch.scene.types import Scene
 from esctp1raytracer_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from esctp1raytracer_tpu_torch.utils.debug import get_logger
 from esctp1raytracer_tpu_torch.utils.graphs import graphed
+from esctp1raytracer_tpu_torch.utils.profiling import annotate
 
 logger = get_logger(__name__)
 
@@ -49,10 +50,12 @@ def loss_and_grad(scene: Scene, target: torch.Tensor, camera: Camera, width: int
     with torch.enable_grad():
         leaves = [p.detach().requires_grad_(not frz)
                   for p, frz in zip(float_params(scene), frozen)]
-        img = render(merge_params(scene, leaves), camera, width, height, cfg)
-        loss = torch.mean((img - target) ** 2)
+        with annotate("optimize.loss"):
+            img = render(merge_params(scene, leaves), camera, width, height, cfg)
+            loss = torch.mean((img - target) ** 2)
         fitted = [p for p in leaves if p.requires_grad]
-        got = iter(torch.autograd.grad(loss, fitted, allow_unused=True) if fitted else ())
+        with annotate("optimize.backward"):
+            got = iter(torch.autograd.grad(loss, fitted, allow_unused=True) if fitted else ())
     return loss.detach(), [next(got) if p.requires_grad else None for p in leaves]
 
 
@@ -64,20 +67,22 @@ def adam_init(params: Sequence[torch.Tensor]):
 
 @torch.no_grad()
 def adam_update(params, grads, state, lr=1e-2, b1=0.9, b2=0.999, eps=1e-8):
-    """JAX's update formula, term for term, on new tensors (nothing in place)."""
-    t = state["t"] + 1
-    m = [b1 * m_ + (1 - b1) * g for m_, g in zip(state["m"], grads)]
-    v = [b2 * v_ + (1 - b2) * g * g for v_, g in zip(state["v"], grads)]
-    tf = t.to(torch.float32)
-    # 0-d float32 tensors on the host: a CUDA operand takes them as scalars.
-    c1, c2 = 1 - b1 ** tf, 1 - b2 ** tf
-    mhat = [m_ / c1 for m_ in m]
-    vhat = [v_ / c2 for v_ in v]
-    new_params = [
-        p - lr * mh / (torch.sqrt(vh) + eps)
-        for p, mh, vh in zip(params, mhat, vhat)
-    ]
-    return new_params, {"m": m, "v": v, "t": t}
+    """JAX's update formula, term for term, on new tensors (nothing in place).
+    The span `optimize.adam` counts the allocator's device allocations."""
+    with annotate("optimize.adam", allocs=True):
+        t = state["t"] + 1
+        m = [b1 * m_ + (1 - b1) * g for m_, g in zip(state["m"], grads)]
+        v = [b2 * v_ + (1 - b2) * g * g for v_, g in zip(state["v"], grads)]
+        tf = t.to(torch.float32)
+        # 0-d float32 tensors on the host: a CUDA operand takes them as scalars.
+        c1, c2 = 1 - b1 ** tf, 1 - b2 ** tf
+        mhat = [m_ / c1 for m_ in m]
+        vhat = [v_ / c2 for v_ in v]
+        new_params = [
+            p - lr * mh / (torch.sqrt(vh) + eps)
+            for p, mh, vh in zip(params, mhat, vhat)
+        ]
+        return new_params, {"m": m, "v": v, "t": t}
 
 
 @dataclass

@@ -40,6 +40,7 @@ from esctp1raytracer_tpu_torch.kernels.lane_pallas import (
 )
 from esctp1raytracer_tpu_torch.scene.types import Scene, TriangleBuffer, float_params, merge_params
 from esctp1raytracer_tpu_torch.utils import rng
+from esctp1raytracer_tpu_torch.utils.profiling import annotate
 
 RAYS_PER_STEP = 1024  # the TPU kernel's tile of rays (its cull granularity)
 FUSED_TRI_LIMIT = 2048
@@ -437,7 +438,7 @@ def fused_trace(o, d, scene: Scene, ray_ids, cfg) -> torch.Tensor:
     The caller checks `fused_supported` first. On the card: two launches,
     the table build and K3.
     """
-    with torch.no_grad():
+    with torch.no_grad(), annotate("fused.frame"):
         tables = fused_tables(scene.detach())
         return fused_kernel(o.detach().contiguous(), d.detach().contiguous(), ray_ids, *tables,
                             seed=cfg.seed, eps=float(cfg.eps),

@@ -27,6 +27,7 @@ import torch
 from esctp1raytracer_tpu_torch.core.intersect import BIG, NO_HIT
 from esctp1raytracer_tpu_torch.kernels import _build
 from esctp1raytracer_tpu_torch.scene.types import TriangleBuffer
+from esctp1raytracer_tpu_torch.utils.profiling import annotate
 
 LANE_TRI_LIMIT = 4096  # the JAX kernel's SMEM table bound (13 * N * 4 B, ~213 KB)
 TCS_W = 13  # nx ny nz nv0 wux wuy wuz bu wvx wvy wvz bv valid
@@ -230,5 +231,7 @@ def lane_tri_search(o, d, tris: TriangleBuffer, eps, t_limit=None):
     n = tris.capacity
     if n > LANE_TRI_LIMIT:
         raise ValueError(f"lane kernel supports up to {LANE_TRI_LIMIT} triangles; got {n}")
-    return lane_kernel(eps, tris.v0.contiguous(), tris.v1.contiguous(), tris.v2.contiguous(),
-                       tris.valid.contiguous(), o.contiguous(), d.contiguous())
+    with annotate("lane.search"):
+        return lane_kernel(eps, tris.v0.contiguous(), tris.v1.contiguous(),
+                           tris.v2.contiguous(), tris.valid.contiguous(), o.contiguous(),
+                           d.contiguous())

@@ -63,6 +63,7 @@ from esctp1raytracer_tpu_torch.kernels.rt_tile import (
     _sweep_occl as _tile_sweep_occl,
 )
 from esctp1raytracer_tpu_torch.scene.types import TriangleBuffer
+from esctp1raytracer_tpu_torch.utils import profiling
 
 RAY_TILE = 128  # rays per group = threads per CUDA block
 SUB = 128  # triangles per block = 128 columns per quantity
@@ -359,21 +360,35 @@ def _segments(tris: TriangleBuffer, exclude_oversized: bool):
     return gen(), ov_buf, ov_orig
 
 
+def _tested(rays):
+    """While spans are on, the kernels' cnt_out: each group's list length,
+    summed into the counter of the search's span (utils/profiling.py)."""
+    if not profiling.enabled():
+        return None
+    return torch.empty((rays.shape[0] // RAY_TILE,), dtype=torch.int32, device=rays.device)
+
+
 def mxu_tile_search(o, d, tris: TriangleBuffer, eps, t_limit=None):
     """tri_search hook (core/intersect.py contract): (best_t [R], orig idx [R]).
 
     `t_limit` only culls (see `mxu_kernel`). Segments combine first-wins:
-    an earlier segment keeps a tie.
+    an earlier segment keeps a tie. The span `rt_mxu.prepass` holds the
+    sort and pack; while spans are on, the counter
+    `rt_mxu.closest_hit_blocks` sums the blocks K1's groups test.
     """
-    eps_arr = _eps_tensor(eps, o.device)
+    with profiling.annotate("rt_mxu.prepass"):
+        eps_arr = _eps_tensor(eps, o.device)
+        rays = _pad_rays(o, d, t_limit)
+        segments = list(_segments(tris, exclude_oversized=False)[0])
     r = o.shape[0]
-    rays = _pad_rays(o, d, t_limit)
     best_t = torch.full((r,), BIG, dtype=torch.float32, device=o.device)
     best_i = torch.full((r,), NO_HIT, dtype=torch.int32, device=o.device)
-    segments, _, _ = _segments(tris, exclude_oversized=False)
     mode = _resolve_cull_mode()
     for tfq, aabbs, perm_k in segments:
-        t_k, idx_k = mxu_kernel(eps_arr, rays, aabbs, tfq, mode=mode)
+        cnt = _tested(rays)
+        t_k, idx_k = mxu_kernel(eps_arr, rays, aabbs, tfq, cnt_out=cnt, mode=mode)
+        if cnt is not None:
+            profiling.count("rt_mxu.closest_hit_blocks", cnt.sum())
         t_k, idx_k = t_k[:r], idx_k[:r]
         better = t_k < best_t
         best_t = torch.where(better, t_k, best_t)
@@ -383,17 +398,23 @@ def mxu_tile_search(o, d, tris: TriangleBuffer, eps, t_limit=None):
 
 def mxu_tile_occlusion(o, d, t_limit, tris: TriangleBuffer, eps) -> torch.Tensor:
     """Occlusion [R] bool: any accepted hit in (eps, t_limit). The oversized
-    triangles go to the first segment's K2 launch as one extra sub-block."""
-    eps_arr = _eps_tensor(eps, o.device)
+    triangles go to the first segment's K2 launch as one extra sub-block.
+    Spans and counter as `mxu_tile_search` (`rt_mxu.any_hit_blocks`)."""
+    with profiling.annotate("rt_mxu.prepass"):
+        eps_arr = _eps_tensor(eps, o.device)
+        rays = _pad_rays(o, d, t_limit)
+        segments, ov_buf, _ = _segments(tris, exclude_oversized=True)
+        segments = list(segments)
+        ov, _ = _pack_sub(ov_buf)
     r = o.shape[0]
-    rays = _pad_rays(o, d, t_limit)
     occluded = torch.zeros((r,), dtype=torch.bool, device=o.device)
-    segments, ov_buf, _ = _segments(tris, exclude_oversized=True)
-    ov, _ = _pack_sub(ov_buf)
     mode = _resolve_cull_mode()
     for k, (tfq, aabbs, _) in enumerate(segments):
+        cnt = _tested(rays)
         occluded |= mxu_occl_kernel(eps_arr, rays, aabbs, tfq, ov if k == 0 else None,
-                                    mode=mode)[:r] > 0
+                                    cnt_out=cnt, mode=mode)[:r] > 0
+        if cnt is not None:
+            profiling.count("rt_mxu.any_hit_blocks", cnt.sum())
     return occluded
 
 

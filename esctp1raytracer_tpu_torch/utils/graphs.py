@@ -37,6 +37,21 @@ wrappers count a launch when they are called, so a capture would count
 launches that the card never ran: the counts a capture adds are taken
 back and added again on every replay, so `.launches` stays the number of
 launches on the card.
+
+Spans (utils/profiling.py) key the graphs too: while a torch.profiler
+records, a key whose plain graph is already captured (or warmed) gets a
+spanned twin, captured at once with no second warm-up, whose spans are
+event nodes timed by each replay; with no profiler the plain graph, which
+holds no event node, replays as before. The twin is two graphs replayed in
+turn (`_Captured`); its capture keeps the allocator's cache
+(`torch.cuda.graph` empties it), so that the steps after it allocate as the
+steps before did. Each call through a graph is the span
+`graphs.call` (with the allocator's counts) holding `graphs.copy_in`,
+`graphs.replay` and `graphs.clone_out`. The plain graphs' eager first calls
+and captures are counted with their seconds on the host clock
+(`profiling.counters()`: `graphs.warm_calls`, `graphs.warm_s`,
+`graphs.captures`, `graphs.capture_s`; the twins' as `graphs.twin_captures`,
+`graphs.twin_capture_s`).
 """
 
 from __future__ import annotations
@@ -45,12 +60,14 @@ import contextlib
 import dataclasses
 import functools
 import inspect
+import time
 import weakref
 from typing import Callable, Iterator
 
 import torch
 
 from esctp1raytracer_tpu_torch.kernels import launches, rt_mxu, rt_tile
+from esctp1raytracer_tpu_torch.utils import profiling
 from esctp1raytracer_tpu_torch.utils.debug import TRACE, current_level
 
 _state = {"disabled": 0}
@@ -114,37 +131,85 @@ def _rebuild(obj, tensors: Iterator[torch.Tensor]):
     return obj
 
 
-class _Captured:
-    """One key's graph: its static inputs and outputs, and the launches per replay."""
+def _on_card(tensors) -> bool:
+    return any(t.is_cuda for t in tensors)
 
-    def __init__(self, fn, static, dynamic, tensors):
-        self.inputs = [t.detach().clone().requires_grad_(t.requires_grad) for t in tensors]
-        args = _rebuild(dynamic, iter(self.inputs))
-        before = {name: w.launches for name, w in launches.WRAPPERS.items()}
-        self.graph = torch.cuda.CUDAGraph()
+
+def _capture_spanned(graph, fn, kwargs):
+    """`torch.cuda.graph` without its emptying of the allocator's cache."""
+    torch.cuda.synchronize()
+    stream = _state.get("stream")
+    if stream is None:
+        stream = _state["stream"] = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
         try:
+            return fn(**kwargs)
+        finally:
+            graph.capture_end()
+
+
+class _Take:
+    """One captured graph of a key: its outputs and, spanned, its spans and
+    their copies for the last replay."""
+
+    def __init__(self, fn, kwargs, spanned):
+        self.graph = torch.cuda.CUDAGraph()
+        self.spans = self.last = None
+        if spanned:
+            with profiling.capturing() as self.spans:
+                out = _capture_spanned(self.graph, fn, kwargs)
+        else:
             with torch.cuda.graph(self.graph):
-                out = fn(**static, **args)
-        finally:  # the capture ran nothing on the card
-            self.launches = {name: w.launches - before[name]
-                             for name, w in launches.WRAPPERS.items()}
-            for name, w in launches.WRAPPERS.items():
-                w.launches = before[name]
+                out = fn(**kwargs)
         self.outputs = []
         self.out_tree = out
         _flatten(out, self.outputs)
-        if any(t.requires_grad for t in self.outputs):
+
+
+class _Captured:
+    """One key's graph on its static inputs, and the launches per replay. A
+    spanned twin captures two graphs and replays them in turn: a replay
+    rewrites its graph's span events, so the other graph's last replay is
+    read while this one runs, with the card busy."""
+
+    def __init__(self, fn, static, dynamic, tensors, spanned=False):
+        self.inputs = [t.detach().clone().requires_grad_(t.requires_grad) for t in tensors]
+        kwargs = dict(static, **_rebuild(dynamic, iter(self.inputs)))
+        before = {name: w.launches for name, w in launches.WRAPPERS.items()}
+        self.takes, self.turn = [], 0
+        try:
+            for _ in range(2 if spanned else 1):
+                self.takes.append(_Take(fn, kwargs, spanned))
+        finally:  # the captures ran nothing on the card
+            self.launches = {name: (w.launches - before[name]) // max(len(self.takes), 1)
+                             for name, w in launches.WRAPPERS.items()}
+            for name, w in launches.WRAPPERS.items():
+                w.launches = before[name]
+        if any(t.requires_grad for t in self.takes[0].outputs):
             raise RuntimeError("a captured function must not return a tensor that requires "
                                "grad: a replay cannot extend the caller's autograd graph")
 
     def replay(self, tensors):
-        with torch.no_grad():
+        take = self.takes[self.turn]
+        self.turn = (self.turn + 1) % len(self.takes)
+        with profiling.annotate("graphs.copy_in"), torch.no_grad():
             for static, t in zip(self.inputs, tensors):
                 static.copy_(t)
-        self.graph.replay()
+        if take.spans is not None:
+            profiling.settle(take.last)  # this replay rewrites what they read
+        with profiling.annotate("graphs.replay") as span:
+            take.graph.replay()
+        if take.spans is not None:
+            take.last = profiling.replayed(take.spans, span)
         for name, n in self.launches.items():
             launches.WRAPPERS[name].launches += n
-        return _rebuild(self.out_tree, (t.clone() for t in self.outputs))
+        with profiling.annotate("graphs.clone_out"):
+            out = _rebuild(take.out_tree, (t.clone() for t in take.outputs))
+        if take.spans is not None:
+            profiling.drain()  # what the card has completed, read while it runs this replay
+        return out
 
 
 class Graphed:
@@ -165,7 +230,8 @@ class Graphed:
         static = {k: v for k, v in bound.arguments.items() if k in self.static_argnames}
         dynamic = {k: v for k, v in bound.arguments.items() if k not in self.static_argnames}
         tensors = []
-        key = (tuple(static.items()), _flatten(dynamic, tensors), current_level(), _switches())
+        key = (tuple(static.items()), _flatten(dynamic, tensors), current_level(), _switches(),
+               profiling.enabled())
         return key, static, dynamic, tensors
 
     def key(self, *args, **kwargs):
@@ -174,13 +240,24 @@ class Graphed:
 
     def __call__(self, *args, **kwargs):
         key, static, dynamic, tensors = self._bind(args, kwargs)
-        if (not any(t.is_cuda for t in tensors) or _state["disabled"]
+        if (not _on_card(tensors) or _state["disabled"]
                 or torch.cuda.is_current_stream_capturing()
                 or (torch.is_grad_enabled() and any(t.requires_grad for t in tensors))):
             return self.fn(*args, **kwargs)
+        with profiling.annotate("graphs.call", allocs=True):
+            return self._call(key, static, dynamic, tensors, args, kwargs)
+
+    def _call(self, key, static, dynamic, tensors, args, kwargs):
+        spans = key[-1]
         entry = self.cache.get(key)
+        if entry is None and spans and self.cache.get(key[:-1] + (False,)) is not None:
+            entry = _WARM  # a spanned twin: the plain key's first call warmed it up
         if entry is None:
+            t0 = time.perf_counter()
             out = self.fn(*args, **kwargs)
+            if not spans:
+                profiling.add("graphs.warm_calls", 1)
+                profiling.add("graphs.warm_s", time.perf_counter() - t0)
             self.cache[key] = _WARM
             return out
         if entry is _WARM:
@@ -188,7 +265,11 @@ class Graphed:
                 raise RuntimeError(f"{self.fn.__qualname__}: a CUDA graph cannot capture the "
                                    "TRACE print, which reads the card; run it eagerly under "
                                    "graphs.disabled() or below TRACE level")
-            entry = self.cache[key] = _Captured(self.fn, static, dynamic, tensors)
+            t0 = time.perf_counter()
+            entry = self.cache[key] = _Captured(self.fn, static, dynamic, tensors, spans)
+            what = "graphs.twin_capture" if spans else "graphs.capture"
+            profiling.add(what + "s", 1)
+            profiling.add(what + "_s", time.perf_counter() - t0)
         return entry.replay(tensors)
 
 

@@ -992,3 +992,120 @@ def test_graphed_render_follows_a_flipped_switch(dev, scene, monkeypatch, flip):
         assert torch.isfinite(before).all()
     finally:
         graphs.clear()
+
+
+# --------------------------------------------------------------------------
+# Spans inside the CUDA graphs (utils/profiling.py, utils/graphs.py)
+# --------------------------------------------------------------------------
+
+SPAN_W, SPAN_H = 960, 540  # the searches and shading well above a launch's latency
+
+
+def _profiled(fn, n):
+    """fn() n times under torch.profiler: (the last result, the profile)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            out = fn()
+    return out, prof
+
+
+def _last_replay(profiling):
+    """The newest `graphs.call` root and its `graphs.replay` span."""
+    root = [r for r in profiling.records() if r.name == "graphs.call"][-1]
+    (replay,) = root.find("graphs.replay")
+    return root, replay
+
+
+def _spans_cover_replay(profiling, prof, replay):
+    """The replay's top-level spans sum to it within 3%, and the profiler
+    draws no span on the device."""
+    top = sum(r.device_ms for r in replay.children)
+    assert replay.children and abs(top - replay.device_ms) <= 0.03 * replay.device_ms, (
+        [(r.name, r.device_ms) for r in replay.children], replay.device_ms)
+    names = {r.name for root in profiling.records() for r in [root] + root.children}
+    names |= {"intersect.closest_hit", "shading.shade", "optimize.backward", "rt_mxu.prepass"}
+    drawn = {e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA} & names
+    assert not drawn, drawn
+
+
+def test_spanned_twin_render_bit_equal_timed_and_counted(dev, scene):
+    """Under torch.profiler a graphed render whose plain graph is captured gets
+    a spanned twin, captured (two graphs, replayed in turn) without a second
+    eager call: its replays bit-equal to the plain graph's; its top-level spans (`camera.ray_grid`, the search,
+    the shading) sum to its `graphs.replay` span within 3%; K1's tested-block
+    count equals the sum of `_prep_mxu`'s list lengths on the same rays. With
+    the profiler stopped the plain graph replays again."""
+    from esctp1raytracer_tpu_torch.core.intersect import _sphere_best
+    from esctp1raytracer_tpu_torch.utils import graphs, profiling
+
+    sc, cam, cfg = scene.to(dev), CAM.to(dev), RenderConfig(backend="mxtile")
+    calls = []
+    fn = render.fn
+    try:
+        with torch.no_grad():
+            render(sc, cam, SPAN_W, SPAN_H, cfg)  # eager
+            plain = render(sc, cam, SPAN_W, SPAN_H, cfg)  # the capture
+            assert torch.equal(render(sc, cam, SPAN_W, SPAN_H, cfg), plain)
+            render.fn = lambda *a, **k: calls.append(1) or fn(*a, **k)
+            profiling.reset()
+            twin, prof = _profiled(lambda: render(sc, cam, SPAN_W, SPAN_H, cfg), 3)
+            assert len(render.cache) == 2 and len(calls) == 2  # the twin's two captures alone
+            assert torch.equal(twin, plain)
+            assert torch.equal(render(sc, cam, SPAN_W, SPAN_H, cfg), plain)
+            assert len(calls) == 2 and profiling.counters()["graphs.twin_captures"] == 1
+            root, replay = _last_replay(profiling)
+            assert [r.name for r in replay.children] == [
+                "camera.ray_grid", "intersect.closest_hit", "shading.shade"]
+            _spans_cover_replay(profiling, prof, replay)
+            o, d = (x.reshape(-1, 3).contiguous() for x in cam.ray_grid(SPAN_W, SPAN_H))
+            hint, _ = _sphere_best(o, d, sc.spheres, EPS)
+            (tfq, aabbs, _), = list(rt_mxu._segments(sc.triangles, False)[0])
+            want = int(_mxu_cnt(rt_tile._pad_rays(o, d, hint), aabbs).sum())
+            assert root.count("rt_mxu.closest_hit_blocks") == want > 0
+            assert root.count("rt_mxu.any_hit_blocks") > 0
+            assert root.counts["alloc.device_mallocs"] >= 0
+    finally:
+        render.fn = fn
+        graphs.clear()
+
+
+def test_spanned_twin_fit_step_bit_equal_and_timed(dev, scene):
+    """The fit step's spanned twin: the loss bit-equal to the plain graph's
+    and the gradients within grads_agreement's bars (the backward's
+    scatter-adds are atomic, so two replays of one graph can differ in the
+    last bits); `optimize.loss` and `optimize.backward` sum to the replay
+    within 3%; each step's Adam update is a root span of its own, timed on
+    the card."""
+    from esctp1raytracer_tpu_torch.grad import optimize
+    from esctp1raytracer_tpu_torch.utils import graphs, profiling
+
+    sc, cam, cfg = scene.to(dev), CAM.to(dev), RenderConfig(backend="auto")
+    frozen = (False,) * len(float_params(sc))
+    with torch.no_grad():
+        target = render.__wrapped__(sc, cam, SPAN_W, SPAN_H, cfg) * 0.8
+    args = (sc, target, cam, SPAN_W, SPAN_H, cfg, frozen)
+    try:
+        optimize.loss_and_grad(*args)
+        loss0, grads0 = optimize.loss_and_grad(*args)
+        profiling.reset()
+
+        def step():
+            loss, grads = optimize.loss_and_grad(*args)
+            params = float_params(sc)
+            optimize.adam_update(params, [torch.zeros_like(p) if g is None else g
+                                          for p, g in zip(params, grads)],
+                                 optimize.adam_init(params))
+            return loss, grads
+
+        (loss, grads), prof = _profiled(step, 3)
+        assert torch.equal(loss, loss0)
+        _grads_within(grads, grads0)
+        _, replay = _last_replay(profiling)
+        assert [r.name for r in replay.children] == ["optimize.loss", "optimize.backward"]
+        _spans_cover_replay(profiling, prof, replay)
+        adam = [r for r in profiling.records() if r.name == "optimize.adam"]
+        assert len(adam) == 3 and all(r.device_ms > 0 for r in adam)
+    finally:
+        graphs.clear()

@@ -7,7 +7,6 @@ at the same elapsed time.
 
 import io
 import json
-import logging
 
 import pytest
 
@@ -17,7 +16,7 @@ torch.set_num_threads(1)  # one intra-op thread: the suite's parallel workers sh
 from esctp1raytracer_tpu.utils import debug as j_debug  # noqa: E402
 from esctp1raytracer_tpu.utils.timing import Timer as JTimer  # noqa: E402
 from esctp1raytracer_tpu_torch.utils import debug  # noqa: E402
-from esctp1raytracer_tpu_torch.utils.profiling import annotate, phase, trace  # noqa: E402
+from esctp1raytracer_tpu_torch.utils.profiling import annotate, trace  # noqa: E402
 from esctp1raytracer_tpu_torch.utils.timing import Timer  # noqa: E402
 
 
@@ -53,24 +52,6 @@ def test_timer_report_identical_to_jax(fields):
         timer.report(file=buf)
     assert out.getvalue() == ref.getvalue()
     assert out.getvalue().endswith("\n Duration  : 12.346 ms\n")
-
-
-def test_phase_logs():
-    records = []
-
-    class Capture(logging.Handler):
-        def emit(self, record):
-            records.append(record.getMessage())
-
-    logger = logging.getLogger("esctp1raytracer_tpu_torch")
-    handler = Capture(level=logging.INFO)
-    logger.addHandler(handler)
-    try:
-        with phase("unit-test-phase"):
-            torch.ones(4).sum()
-    finally:
-        logger.removeHandler(handler)
-    assert any("unit-test-phase" in m for m in records)
 
 
 def test_trace_is_a_noop_without_a_directory(monkeypatch, tmp_path):
