@@ -142,7 +142,7 @@ Phases, any failure exits non-zero (no phase catches its own failure):
 1. device: needs a CUDA device (there is no CPU path); prints the card's
    name and power limit (nvidia-smi), the torch and CUDA versions, and
    turns TF32 off;
-2. build: builds the four CUDA sources from csrc/ with nvcc and the three
+2. build: builds the five CUDA sources from csrc/ with nvcc and the three
    host C++ libraries from native/ with g++ (the OBJ loader, the PPM
    writer, the BVH builder), one process each, all started together; a
    host library that does not build fails the run; prints each kernel's
@@ -177,11 +177,20 @@ Phases, any failure exits non-zero (no phase catches its own failure):
    occluder, with a fixed count per ray for the rest; K3 and K4 count a
    pair that the exact division skip rejects at 16 operations, not 40.
    K3-K6 build with -fmad=false (no FMAs), so they can reach at most half
-   of a bound taken at 67 TFLOP/s;
+   of a bound taken at 67 TFLOP/s. The winner-row fetch (csrc/winner.cu) on
+   the winners of the flagship's and Cornell's camera wavefronts (their
+   routes' own searches): the gather bit-equal to index_select of the
+   [R, 32] row, the scatter-add within 1e-5 of a float64 index_add_
+   relative to the sum of the gradients' magnitudes, its group count equal
+   to its plain version's; each timed beside its plain version, the library
+   call it replaced and its bound (bytes);
 4. main paths A-F: for each, every kernel's launch counter set to 0 just
    before a run and read just after (forward, then forward + backward),
    checks (finite, non-black image, finite gradients, counters > 0, a
-   small frame agreeing with the plain `jnp` backend), then forward and
+   small frame agreeing with the plain `jnp` backend; the winner fetch's
+   gathers and scatters, exactly one each in the flagship's fwd+bwd, one
+   gather in its forward, none in Cornell's fused forward and one each in
+   its fwd+bwd, and elsewhere no scatter in a forward), then forward and
    fwd+bwd times from CUDA events (median of 5, ray ids varied per
    iteration) and the peak device memory; the flagship's fwd+bwd step
    calls neither `_prep_mxu` nor `_oversized_occl` (counting spies);
@@ -214,7 +223,8 @@ Phases, any failure exits non-zero (no phase catches its own failure):
    to the route's exact counts; the resolved backend, the times, the peak
    memory and each kernel's time beside its bound printed per leg. Path M:
    each step's eager call and one replay with the counts set to 0 just
-   before and read just after, held equal. Path N: each graphed render
+   before and read just after, held equal (fit_scene's: also one winner
+   gather and one scatter a step, eager and graphed). Path N: each graphed render
    with the counts set to 0 just before and read just after;
 5. prints the wall time, {"kernels": [...]} and, as the last line, the
    result line.
@@ -251,12 +261,13 @@ import torch.distributed as dist
 from esctp1raytracer_tpu_torch import cli
 from esctp1raytracer_tpu_torch.accel import clusters, native_bvh
 from esctp1raytracer_tpu_torch.core.camera import Camera
+from esctp1raytracer_tpu_torch.core.intersect import EPS, argmin_hit, packed_tri_table
 from esctp1raytracer_tpu_torch.core.render import RenderConfig, render, resolve_backend, trace_rays
 from esctp1raytracer_tpu_torch.grad import fit_scene, optimize
 from esctp1raytracer_tpu_torch.io import native_ppm
 from esctp1raytracer_tpu_torch.io.ppm import read_ppm, write_ppm, write_ppm_python
 from esctp1raytracer_tpu_torch.kernels import (
-    _build, fused_pallas, lane_pallas, launches, rt_mxu, rt_tile,
+    _build, fused_pallas, lane_pallas, launches, rt_mxu, rt_tile, winner,
 )
 from esctp1raytracer_tpu_torch.kernels.cull import block_cull_mask
 from esctp1raytracer_tpu_torch.parallel import (
@@ -296,7 +307,17 @@ _PLAIN = {
     "tile_occl_kernel": (rt_tile._tile_occl_plain, "rt_tile.cu", TPU + "rt_tile.py:328"),
 }
 KERNELS = {name: _PLAIN[name] for name in launches.WRAPPERS}
-SOURCES = ("rt_mxu", "lane", "fused", "rt_tile")
+# The winner-row fetch's kernels (launches.FETCH), read apart from KERNELS: every
+# route that calls closest_hit launches them.
+FETCH = {
+    "winner_gather": (winner._gather_plain, "winner.cu",
+                      "esctp1raytracer_tpu/core/intersect.py:431 jnp.take of the winner row "
+                      "(XLA's gather, not a Pallas kernel)"),
+    "winner_scatter": (winner._scatter_plain, "winner.cu",
+                       "esctp1raytracer_tpu/core/intersect.py:431 the gather's gradient "
+                       "(XLA's scatter-add fused with the slices', not a Pallas kernel)"),
+}
+SOURCES = ("rt_mxu", "lane", "fused", "rt_tile", "winner")
 # The host C++ of path G: each library's availability check (built with g++).
 NATIVE = {"objloader": native_loader.native_available, "ppm": native_ppm.native_available,
           "bvh": native_bvh.native_bvh_available}
@@ -422,7 +443,7 @@ def build_phase():
         native = {name: pool.submit(fn) for name, fn in NATIVE.items()}
         libs = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
         native = {name: f.result() for name, f in native.items()}
-    for mod in (rt_mxu, lane_pallas, fused_pallas, rt_tile):
+    for mod in (rt_mxu, lane_pallas, fused_pallas, rt_tile, winner):
         mod._lib()
     say(f"build: {time.perf_counter() - t0:.2f} s ({len(SOURCES)} CUDA sources and "
         f"{len(NATIVE)} host libraries in parallel)")
@@ -764,6 +785,73 @@ def lane_kernels(card, o, d, scene, ids, results):
                                              seen[0]))
     results["lane_kernel"]["shadow_wavefront"] = lane_check(
         card, "Cornell 1024x768 shadow wavefront", seen[1])
+
+
+def winner_kernels(card, label, scene, cam, w, h, search):
+    """The winner-row gather and scatter-add on the winners of a main path's
+    camera wavefront, found by the route's own search, as closest_hit passes
+    them (missed rays and sphere winners on row 0). The gather bit-equal to
+    index_select of the [R, 32] row; the scatter, of normal gradients for
+    every field but has_normals (which gets none on the main paths), within
+    1e-5 of a float64 index_add_ relative to the float64 sum of the gradients'
+    magnitudes (float32 sums in another order: its atomics', which
+    index_add_ does not fix either), its group count equal to `warp_groups`.
+    Each timed beside its plain version (an index_select / index_add_ per
+    field), the library call the main path made before (index_select of the
+    [R, 32] row; index_add_ of an [R, 32] gradient) and its bound (bytes:
+    the fields written or the gradients read, the indices, one table).
+    Returns the gather's and the scatter's entries."""
+    o, d, _ = rays(cam, w, h)
+    with torch.no_grad():
+        _, prim, is_sphere = argmin_hit(o, d, scene, EPS, tri_search=search)
+    prim = torch.where((prim >= 0) & ~is_sphere, prim, 0).long()
+    table = packed_tri_table(scene.triangles).detach().contiguous()
+    r, n, cols = prim.shape[0], table.shape[0], winner.COLS
+    fields = winner.winner_gather(table, prim)
+    rows = torch.index_select(table, 0, prim)
+    for (name, a, wd), got in zip(winner.FIELDS, fields):
+        check(torch.equal(got, rows[:, a] if wd == 1 else rows[:, a:a + wd]),
+              f"winner_gather [{label}]: {name} differs from index_select")
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    grads = [None if name == "has_normals" else torch.randn(f.shape, generator=gen, device="cuda")
+             for (name, _, _), f in zip(winner.FIELDS, fields)]
+    cnt = torch.full((-(-r // winner.WARP),), -1, dtype=torch.int32, device="cuda")
+    got = winner.winner_scatter(grads, prim, n, cnt_out=cnt).double()
+    want = torch.zeros((n, cols), dtype=torch.float64, device="cuda")
+    mag = torch.zeros_like(want)
+    for (_, a, wd), g in zip(winner.FIELDS, grads):
+        if g is not None:
+            want[:, a:a + wd].index_add_(0, prim, g.double().reshape(-1, wd))
+            mag[:, a:a + wd].index_add_(0, prim, g.double().abs().reshape(-1, wd))
+    err = (got - want).abs()
+    rel = float((err / mag.clamp(min=1e-30)).max())
+    check(bool((err <= 1e-5 * mag).all()),
+          f"winner_scatter [{label}]: {rel:.3e} of the magnitudes' sum from float64 index_add_")
+    check(torch.equal(cnt, winner.warp_groups(prim)),
+          f"winner_scatter [{label}]: its group count differs from warp_groups")
+    groups = int(cnt.sum())
+    g_ms, g_plain = time_pair("winner_gather", lambda: winner.winner_gather(table, prim),
+                              lambda: winner._gather_plain(table, prim), 50, 20, card, label)
+    g_lib = elapsed_ms(lambda: torch.index_select(table, 0, prim), "cuda", 20)
+    s_ms, s_plain = time_pair("winner_scatter", lambda: winner.winner_scatter(grads, prim, n),
+                              lambda: winner._scatter_plain(grads, prim, n), 50, 3, card, label)
+    g_row = torch.randn((r, cols), generator=gen, device="cuda")
+    s_lib = elapsed_ms(lambda: torch.zeros((n, cols), device="cuda").index_add_(0, prim, g_row),
+                       "cuda", 3)
+    g_bound = bound(0, tensor_bytes(*fields, prim, table))
+    s_bound = bound(0, tensor_bytes(*(g for g in grads if g is not None), prim, table))
+    say(f"winner_gather [{label}]: bit-equal to index_select; {g_ms:.3f} ms, bound "
+        f"{g_bound[0]:.3f} ms (bytes), plain {g_plain:.3f} ms, index_select of the [R, 32] row "
+        f"{g_lib:.3f} ms  [{card}]")
+    say(f"winner_scatter [{label}]: within {rel:.3e} of float64 index_add_ (bar 1e-5), "
+        f"{groups} groups for {r} rays ({100.0 * groups / r:.2f}%); {s_ms:.3f} ms, bound "
+        f"{s_bound[0]:.3f} ms (bytes), plain {s_plain:.3f} ms, index_add_ of an [R, 32] "
+        f"gradient {s_lib:.3f} ms  [{card}]")
+    common = dict(rays=r, rows=n)
+    return (dict(common, max_abs_err=0.0, ms=g_ms, plain_ms=g_plain, library_ms=g_lib,
+                 bound_ms=g_bound[0], bound_by=g_bound[1]),
+            dict(common, max_abs_err=float(err.max()), max_rel_err=rel, groups=groups, ms=s_ms,
+                 plain_ms=s_plain, library_ms=s_lib, bound_ms=s_bound[0], bound_by=s_bound[1]))
 
 
 def fused_tables_check(card, label, scene, results=None):
@@ -1247,13 +1335,20 @@ def make_step(scene, o, d, ids, cfg):
     return step
 
 
+def fetch_counts(forward, fwd_bwd):
+    """path_phase's `fetch`: (gathers, scatters) of the forward and of the fwd+bwd."""
+    return {what: dict(zip(FETCH, n)) for what, n in (("forward", forward), ("fwd+bwd", fwd_bwd))}
+
+
 def path_phase(card, label, scene, cam, w, h, cfg, expect, fwd_kernels, bwd_kernels, results,
                min_nonzero=8, small=(192, 108), reps=5, min_launches=1, exact=None, lit=True,
-               flip_bar=False):
+               flip_bar=False, fetch=None):
     """Drive one main path: forward, then fwd+bwd, each with the launch
     counters reset just before and read just after; checks, and timings
     over `reps` steps. `exact` ({"forward": counts, "fwd+bwd": counts})
-    holds every wrapper's count to its value; a scene that is not `lit`
+    holds every wrapper's count to its value, `fetch` (likewise) the winner
+    fetch's; without it the forward launches no winner scatter and the
+    fwd+bwd no more scatters than gathers. A scene that is not `lit`
     must render exactly black, with every gradient exactly zero. The small
     frame is held to the jnp backend's with the image bars; with `flip_bar`
     the pixels off by > 1e-2 (eps-window near-ties, where the jnp route and
@@ -1277,7 +1372,13 @@ def path_phase(card, label, scene, cam, w, h, cfg, expect, fwd_kernels, bwd_kern
                   f"{label} {what}: {name} launched {counts[name]} times, < {min_launches}")
         if exact is not None:
             check(counts == exact[what], f"{label} {what}: launches {counts}, not {exact[what]}")
-        for name, n in counts.items():
+        got = launches.read(launches.FETCH)
+        say(f"{label} {what}: winner fetch launches {got}")
+        if fetch is not None:
+            check(got == fetch[what], f"{label} {what}: winner fetch {got}, not {fetch[what]}")
+        check(got["winner_scatter"] <= (got["winner_gather"] if backward else 0),
+              f"{label} {what}: winner fetch {got}")
+        for name, n in {**counts, **got}.items():
             results[name]["launches"] += n
         check(tuple(color.shape) == (w * h, 3), f"{label}: color shape {tuple(color.shape)}")
         check(bool(torch.isfinite(color).all()), f"{label}: non-finite pixel")
@@ -3026,7 +3127,10 @@ def fit_graph_leg(card, results, scene, cam, w, h, cfg, steps=3, lr=0.05):
             t0 = time.perf_counter()
             fit, counts = launches.counted(lambda: fit_scene(start, target, cam, **kw))
             runs[what] = (fit, counts, (time.perf_counter() - t0) * 1e3)
-        for name, n in counts.items():
+            got = launches.read(launches.FETCH)
+        check(got == dict.fromkeys(FETCH, steps), f"M fit_scene {what}: winner fetch {got}, "
+              f"want one gather and one scatter a step")
+        for name, n in {**counts, **got}.items():
             results[name]["launches"] += n
     (ef, ec, ems), (gf, gc_, gms) = runs["eager"], runs["graphed"]
     check(ec == gc_ and ec["mxu_kernel"] == steps and ec["mxu_occl_kernel"] == steps,
@@ -3340,8 +3444,9 @@ def graph_flip_leg(card, results, flag, flag_cam):
         def make_spy(k):
             def spy(*args, **kw):
                 per = rt_mxu.RAY_TILE if k.startswith("mxu") else rt_tile.COHERENT
-                kw.setdefault("cnt_out", torch.full((args[1].shape[0] // per,), -1,
-                                                    dtype=torch.int32, device=args[1].device))
+                if kw.get("cnt_out") is None:  # the searches pass None while spans are off
+                    kw["cnt_out"] = torch.full((args[1].shape[0] // per,), -1,
+                                               dtype=torch.int32, device=args[1].device)
                 records.append((k, args, kw))
                 out = originals[k](*args, **kw)
                 # The wrapper counts on its module's name, which is this spy: pass it on.
@@ -3436,7 +3541,7 @@ def main():
     build_phase()
     results = {name: {"name": name, "route": "cuda", "source": CSRC + src, "replaces": rep,
                       "launches": 0, "library_ms": None}
-               for name, (_, src, rep) in KERNELS.items()}
+               for name, (_, src, rep) in {**KERNELS, **FETCH}.items()}
 
     # Scenes and frames of the six paths.
     flag = bench_scene()
@@ -3464,6 +3569,8 @@ def main():
     seen = capture_wavefronts(o, d, flag, ids, auto, rt_mxu.mxu_tile_search,
                               rt_mxu.mxu_tile_occlusion)
     mxtile_kernels(card, seen, results)
+    results["winner_gather"]["flagship"], results["winner_scatter"]["flagship"] = winner_kernels(
+        card, "flagship 1920x1080", flag, flag_cam, 1920, 1080, rt_mxu.mxu_tile_search)
     fused_tables_check(card, "Cornell", corn, results)
     results["fused_tables"]["config4"] = fused_tables_check(card, "config 4", mixed)
     limit = random_scene(2044, extent=4.0)  # 2,048 valid triangles: the limit
@@ -3477,6 +3584,12 @@ def main():
                                                       "Cornell 1024x768, depth 1"),
                                    at="Cornell 1024x768, depth 1")
     lane_kernels(card, o, d, corn, ids, results)
+    results["winner_gather"]["cornell"], results["winner_scatter"]["cornell"] = winner_kernels(
+        card, "Cornell 1024x768", corn, corn_cam, 1024, 768, lane_pallas.lane_tri_search)
+    for name in FETCH:  # the kernels line's numbers: the flagship's
+        results[name].update({k: v for k, v in results[name]["flagship"].items()
+                              if k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")})
     o, d, ids = rays(mixed_cam, 1920, 1080)
     results["fused_kernel"]["config4"] = fused_kernel_check(
         card, o, d, mixed, ids, d4, "config 4, mixed 1920x1080, depth 4")
@@ -3510,10 +3623,12 @@ def main():
     k56 = ["tile_kernel", "tile_occl_kernel"]
     paths = {
         "flagship": path_phase(card, "flagship", flag, flag_cam, 1920, 1080, auto, "mxtile",
-                               k12, k12, results),
+                               k12, k12, results, fetch=fetch_counts((1, 0), (1, 1))),
         # Cornell's float leaves that can carry gradient: v0, v1, v2, ka, kd, ks, ke.
+        # Its forward is the fused kernel; the backward's lane re-derivation fetches.
         "cornell": path_phase(card, "Cornell", corn, corn_cam, 1024, 768, auto, "fused", k3,
-                              k3 + ["lane_kernel"], results, min_nonzero=7, small=(128, 96)),
+                              k3 + ["lane_kernel"], results, min_nonzero=7, small=(128, 96),
+                              fetch=fetch_counts((0, 0), (1, 1))),
         "config4": path_phase(card, "config 4", mixed, mixed_cam, 1920, 1080, d4, "fused", k3,
                               k3 + k12, results),
         "cornell_reference_cpp": path_phase(
@@ -3547,10 +3662,12 @@ def main():
     say(json.dumps({"paths": paths}))
     say(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    for name in KERNELS:
+    for name in {**KERNELS, **FETCH}:
         check(all(k in results[name] for k in keys), f"{name}: the kernels line lacks "
               f"{[k for k in keys if k not in results[name]]}")
-    say(json.dumps({"kernels": [results[name] for name in KERNELS]}))
+    check(all(results[name]["launches"] > 0 for name in FETCH),
+          f"the winner kernels' launches: {[results[name]['launches'] for name in FETCH]}")
+    say(json.dumps({"kernels": [results[name] for name in {**KERNELS, **FETCH}]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -23,6 +23,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from esctp1raytracer_tpu_torch.kernels.winner import winner_fields
 from esctp1raytracer_tpu_torch.scene.types import Scene, SphereBuffer, TriangleBuffer
 from esctp1raytracer_tpu_torch.utils.profiling import annotate
 
@@ -254,7 +255,8 @@ def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     Through `index_select`, whose backward is an `index_add_` scatter-add
     (atomics on the card). Plain `table[idx]` differentiates through a
     sort-based deterministic kernel that serializes the many rays hitting
-    one triangle: 221 ms of a 336 ms 1080p fwd+bwd step on the H100.
+    one triangle: 221 ms of a 336 ms 1080p fwd+bwd step on the H100. The
+    winner's packed row does not come through here: `winner_fields`.
     """
     flat = torch.index_select(table, 0, idx.reshape(-1).long())
     return flat.reshape(idx.shape + table.shape[1:])
@@ -278,8 +280,10 @@ def select_rows(table: torch.Tensor, idx: torch.Tensor, limit: int = 16) -> torc
 def packed_tri_table(tris: TriangleBuffer) -> torch.Tensor:
     """[N, 32] per-triangle row: v0 v1 v2 | n0 n1 n2 | ka kd ks ke | ns | has_normals.
 
-    One table means the winner fetch is one gather, and one scatter-add
-    in the backward.
+    One table means the winner fetch (`winner_fields`) is one gather of
+    twelve fields, and its backward one warp-merged scatter-add of their
+    gradients into the table, which this cat's backward splits into the
+    leaves.
     """
     return torch.cat(
         [tris.v0, tris.v1, tris.v2, tris.n0, tris.n1, tris.n2,
@@ -293,7 +297,8 @@ def closest_hit(o, d, scene: Scene, eps=EPS, block_size: int = 512,
 
     The search runs under no_grad on detached inputs; t/u/v are then
     recomputed differentiably on the winning primitive. with_row=True also
-    returns the winner's packed_tri_table row [R, 32] for shading.
+    returns the winner's packed_tri_table row for shading, as the fields of
+    a `WinnerRow` (`winner_fields`).
     """
     with annotate("intersect.closest_hit"):
         with torch.no_grad():
@@ -301,11 +306,12 @@ def closest_hit(o, d, scene: Scene, eps=EPS, block_size: int = 512,
                 o.detach(), d.detach(), scene.detach(), eps, block_size, use_mxu,
                 tri_search,
             )
-        safe_prim = torch.clamp(prim, min=0).long()
-
-        trow = take_rows(packed_tri_table(scene.triangles), safe_prim)
-        t_tri, u_tri, v_tri, _ = mt_intersect(
-            o, d, trow[:, 0:3], trow[:, 3:6], trow[:, 6:9], eps)
+        hit = prim >= 0
+        # Missed rays and sphere winners (whose index is a sphere's, not a
+        # triangle's) read triangle row 0: their gradient there is zero.
+        trow = winner_fields(packed_tri_table(scene.triangles),
+                             torch.where(hit & ~is_sphere, prim, 0))
+        t_tri, u_tri, v_tri, _ = mt_intersect(o, d, trow.v0, trow.v1, trow.v2, eps)
         # Borderline winners can be accepted by the (differently rounded)
         # search yet rejected by this recompute: fall back to the search's t.
         t_tri = torch.where(t_tri < BIG, t_tri, best_t)
@@ -313,7 +319,7 @@ def closest_hit(o, d, scene: Scene, eps=EPS, block_size: int = 512,
         # Sphere recompute with sanitized masked lanes: non-sphere rays see a
         # benign unit sphere hit along the axis, so no inf * 0 reaches the grads.
         is_s = is_sphere
-        sphere_prim = torch.where(is_s, safe_prim, 0)
+        sphere_prim = torch.where(is_s, prim, 0).long()
         sph_packed = torch.cat([scene.spheres.center, scene.spheres.radius[:, None]], dim=1)
         srow = select_rows(sph_packed, sphere_prim)  # [R, 4]
         c, r = srow[:, 0:3], srow[:, 3]
@@ -325,7 +331,6 @@ def closest_hit(o, d, scene: Scene, eps=EPS, block_size: int = 512,
         t_sph, _ = sphere_intersect(o_s, d_s, c_s, r_s, eps)
         t_sph = torch.where(t_sph < BIG, t_sph, best_t)
 
-        hit = prim >= 0
         t = torch.where(is_sphere, t_sph, t_tri)
         t = torch.where(hit, t, BIG)
         u = torch.where(hit & ~is_sphere, u_tri, 0.0)

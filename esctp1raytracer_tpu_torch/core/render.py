@@ -136,7 +136,7 @@ def trace_rays(o, d, scene: Scene, ray_ids: torch.Tensor, cfg: RenderConfig,
     active = torch.ones((r,), dtype=torch.bool, device=o.device)
     for bounce in range(cfg.depth):
         # The winner's packed row is gathered once and shared with shading:
-        # one scatter-add per bounce in the backward.
+        # one warp-merged scatter-add per bounce in the backward.
         hit, trow = closest_hit(o, d, scene, eps, block_size=cfg.block_size,
                                 use_mxu=use_mxu, tri_search=tri_search, with_row=True)
         if current_level() >= TRACE:

@@ -19,6 +19,7 @@ import torch
 from esctp1raytracer_tpu_torch.core.intersect import (
     HitRecord, packed_tri_table, select_rows, take_rows,
 )
+from esctp1raytracer_tpu_torch.kernels.winner import WinnerRow, winner_fields
 from esctp1raytracer_tpu_torch.scene.types import Scene
 from esctp1raytracer_tpu_torch.utils import rng
 from esctp1raytracer_tpu_torch.utils.profiling import annotate
@@ -31,23 +32,24 @@ def _normalize(v: torch.Tensor) -> torch.Tensor:
 
 
 def surface_attributes(o, d, hit: HitRecord, scene: Scene, shadow_eps: float,
-                       trow: torch.Tensor = None):
+                       trow: WinnerRow = None):
     """Per-ray surface data at the winner: (hit_point [R,3], normal [R,3], material dict).
 
-    Zero-safe for missed rays. trow is the winner's packed_tri_table row
-    when the caller already gathered it (closest_hit with_row=True).
+    Zero-safe for missed rays. trow is the winner's packed_tri_table row, as
+    `winner_fields` gives it, when the caller already gathered it
+    (closest_hit with_row=True).
     """
-    safe_prim = torch.clamp(hit.prim, min=0).long()
     sph = scene.spheres
-    if trow is None:
-        trow = take_rows(packed_tri_table(scene.triangles), safe_prim)
-    tv0, tv1, tv2 = trow[:, 0:3], trow[:, 3:6], trow[:, 6:9]
-    n0, n1, n2 = trow[:, 9:12], trow[:, 12:15], trow[:, 15:18]
+    if trow is None:  # missed rays and sphere winners read triangle row 0, as in closest_hit
+        trow = winner_fields(packed_tri_table(scene.triangles),
+                             torch.where(hit.hit & ~hit.is_sphere, hit.prim, 0))
+    tv0, tv1, tv2 = trow.v0, trow.v1, trow.v2
+    n0, n1, n2 = trow.n0, trow.n1, trow.n2
 
     n_geom = _normalize(torch.linalg.cross(tv1 - tv0, tv2 - tv0))
     u, v = hit.u[:, None], hit.v[:, None]
     n_smooth = _normalize(n1 * u + n2 * v + n0 * (1.0 - u - v))
-    has_n = trow[:, 31:32] > 0.5
+    has_n = trow.has_normals[:, None] > 0.5
     n_tri = torch.where(has_n, n_smooth, n_geom)
 
     # Back-off: hit = origin + dir * (t - eps).
@@ -58,7 +60,7 @@ def surface_attributes(o, d, hit: HitRecord, scene: Scene, shadow_eps: float,
     # division's backward squares the denominator; padded radius-0
     # spheres would give 0/0).
     is_s = hit.is_sphere[:, None]
-    sphere_prim = torch.where(hit.is_sphere, safe_prim, 0)
+    sphere_prim = torch.where(hit.is_sphere, hit.prim, 0).long()
     sph_packed = torch.cat(
         [sph.center, sph.radius[:, None], sph.ka, sph.kd, sph.ks, sph.ke,
          sph.ns[:, None]], dim=1)  # [M, 17]
@@ -74,11 +76,11 @@ def surface_attributes(o, d, hit: HitRecord, scene: Scene, shadow_eps: float,
         return torch.where(cond, sph_vals, tri_vals)
 
     mat = {
-        "ka": pick(trow[:, 18:21], srow[:, 4:7]),
-        "kd": pick(trow[:, 21:24], srow[:, 7:10]),
-        "ks": pick(trow[:, 24:27], srow[:, 10:13]),
-        "ke": pick(trow[:, 27:30], srow[:, 13:16]),
-        "ns": pick(trow[:, 30], srow[:, 16]),
+        "ka": pick(trow.ka, srow[:, 4:7]),
+        "kd": pick(trow.kd, srow[:, 7:10]),
+        "ks": pick(trow.ks, srow[:, 10:13]),
+        "ke": pick(trow.ke, srow[:, 13:16]),
+        "ns": pick(trow.ns, srow[:, 16]),
     }
     mask = hit.hit[:, None]
     hit_p = torch.where(mask, hit_p, 0.0)
@@ -144,7 +146,7 @@ def sample_lights(scene: Scene, seed: int, ray_ids: torch.Tensor, bounce: int = 
 def shade(o, d, hit: HitRecord, scene: Scene, seed: int, ray_ids: torch.Tensor,
           occlusion_fn: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor],
           shadow_eps: float = 1e-4, bounce: int = 0, light_mode: str = "area",
-          trow: torch.Tensor = None):
+          trow: WinnerRow = None):
     """Shade one wavefront against all light sources.
 
     occlusion_fn(origins [M,3], dirs [M,3], t_limit [M]) -> occluded [M] bool.

@@ -177,15 +177,15 @@ class _Captured:
     def __init__(self, fn, static, dynamic, tensors, spanned=False):
         self.inputs = [t.detach().clone().requires_grad_(t.requires_grad) for t in tensors]
         kwargs = dict(static, **_rebuild(dynamic, iter(self.inputs)))
-        before = {name: w.launches for name, w in launches.WRAPPERS.items()}
+        before = {name: w.launches for name, w in launches.COUNTED.items()}
         self.takes, self.turn = [], 0
         try:
             for _ in range(2 if spanned else 1):
                 self.takes.append(_Take(fn, kwargs, spanned))
         finally:  # the captures ran nothing on the card
             self.launches = {name: (w.launches - before[name]) // max(len(self.takes), 1)
-                             for name, w in launches.WRAPPERS.items()}
-            for name, w in launches.WRAPPERS.items():
+                             for name, w in launches.COUNTED.items()}
+            for name, w in launches.COUNTED.items():
                 w.launches = before[name]
         if any(t.requires_grad for t in self.takes[0].outputs):
             raise RuntimeError("a captured function must not return a tensor that requires "
@@ -204,7 +204,7 @@ class _Captured:
         if take.spans is not None:
             take.last = profiling.replayed(take.spans, span)
         for name, n in self.launches.items():
-            launches.WRAPPERS[name].launches += n
+            launches.COUNTED[name].launches += n
         with profiling.annotate("graphs.clone_out"):
             out = _rebuild(take.out_tree, (t.clone() for t in take.outputs))
         if take.spans is not None:

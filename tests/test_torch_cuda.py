@@ -15,7 +15,11 @@ kernels with nvcc at first use). Bars:
   1e-2, the rest within 3e-5; its table build and K4 (built with
   -fmad=false, constants rounded as PyTorch on the CPU): equal to their
   plain versions on a CPU copy, bit for bit;
-* rendered images within the test_rt_mxu.py image bars of the CPU port.
+* rendered images within the test_rt_mxu.py image bars of the CPU port;
+* the winner-row gather (csrc/winner.cu) equal to index_select bit for
+  bit; its scatter within 1e-5 of a float64 index_add_, relative to the
+  sum of the gradients' magnitudes (its atomics add in another order),
+  and its group count equal to its plain version's.
 """
 
 import dataclasses
@@ -1107,5 +1111,166 @@ def test_spanned_twin_fit_step_bit_equal_and_timed(dev, scene):
         _spans_cover_replay(profiling, prof, replay)
         adam = [r for r in profiling.records() if r.name == "optimize.adam"]
         assert len(adam) == 3 and all(r.device_ms > 0 for r in adam)
+    finally:
+        graphs.clear()
+
+
+# ----------------------------------------------------------------------------
+# The winner-row fetch (csrc/winner.cu)
+# ----------------------------------------------------------------------------
+
+WINNER_CASES = ["one_row", "random", "missed", "some_fields", "spheres", "r1", "r45",
+                "one_row_1080p", "random_1080p"]
+
+
+def _winner_case(scene, case):
+    """(packed table [N, 32] on the CPU, prim [R] int64 on the CPU, the
+    fields that get a gradient) of a case of `test_winner_kernels_match_reference`."""
+    from esctp1raytracer_tpu_torch.core.intersect import argmin_hit, packed_tri_table
+    from esctp1raytracer_tpu_torch.kernels import winner
+
+    sc = b.mixed_scene(device="cpu") if case == "spheres" else scene
+    table = packed_tri_table(sc.triangles)
+    n = table.shape[0]
+    g = torch.Generator().manual_seed(11)
+    every = [name for name, _, _ in winner.FIELDS if name != "has_normals"]
+    if case in ("missed", "spheres"):
+        o, d = (x.reshape(-1, 3) for x in CAM.ray_grid(64, 48))
+        _, prim, is_sphere = argmin_hit(o, d, sc, EPS)
+        assert (prim < 0).any() if case == "missed" else is_sphere.any()
+        return table, torch.clamp(prim, min=0).long(), every
+    prim = {"one_row": lambda: torch.full((5000,), 7, dtype=torch.int64),
+            "random": lambda: torch.randint(0, n, (5000,), generator=g),
+            "some_fields": lambda: torch.randint(0, 40, (5000,), generator=g),
+            "r1": lambda: torch.tensor([n - 1]),
+            "r45": lambda: torch.randint(0, 3, (45,), generator=g),
+            "one_row_1080p": lambda: torch.full((1920 * 1080,), 3, dtype=torch.int64),
+            "random_1080p": lambda: torch.randint(0, n, (1920 * 1080,), generator=g)}[case]()
+    return table, prim, ["v1", "ks", "ns"] if case == "some_fields" else every
+
+
+@pytest.mark.parametrize("case", WINNER_CASES)
+def test_winner_kernels_match_reference(dev, scene, case):
+    """The gather bit-equal to index_select on the card. The scatter within
+    1e-5 of a float64 index_add_, relative to the float64 sum of the
+    gradients' magnitudes per element: float32 sums in another order (the
+    order of the atomics, which index_add_ does not fix either) differ by
+    rounding bounded by that sum. Fields with no gradient add nothing; the
+    groups counted equal `warp_groups`: one per warp on one row, at most R.
+    The 1080p cases add into `MAX_COPIES` copies of the gradient."""
+    from esctp1raytracer_tpu_torch.kernels import winner
+
+    table, prim, diff = _winner_case(scene, case)
+    table, prim = table.to(dev), prim.to(dev)
+    r, n = prim.shape[0], table.shape[0]
+    fields = winner.winner_gather(table, prim)
+    rows = torch.index_select(table, 0, prim)
+    for (name, a, w), got in zip(winner.FIELDS, fields):
+        assert got.is_contiguous() and torch.equal(got, rows[:, a] if w == 1 else rows[:, a:a + w]), name
+    gen = torch.Generator(device=dev).manual_seed(3)
+    grads = [torch.randn(f.shape, generator=gen, device=dev) if name in diff else None
+             for (name, _, _), f in zip(winner.FIELDS, fields)]
+    cnt = torch.full((-(-r // 32),), -1, dtype=torch.int32, device=dev)
+    got = winner.winner_scatter(grads, prim, n, cnt_out=cnt)
+    want = torch.zeros((n, 32), dtype=torch.float64, device=dev)
+    mag = torch.zeros((n, 32), dtype=torch.float64, device=dev)
+    for (_, a, w), g in zip(winner.FIELDS, grads):
+        if g is not None:
+            want[:, a:a + w].index_add_(0, prim, g.double().reshape(-1, w))
+            mag[:, a:a + w].index_add_(0, prim, g.double().abs().reshape(-1, w))
+    err = (got.double() - want).abs()
+    assert bool((err <= 1e-5 * mag).all()), float((err / mag.clamp(min=1e-30)).max())
+    assert bool((got[mag == 0] == 0).all()) and bool((mag > 0).any())
+    assert torch.equal(cnt, winner.warp_groups(prim))
+    if case.startswith("one_row"):
+        assert bool((cnt == 1).all())
+    assert 0 < int(cnt.sum()) <= r
+
+
+def test_winner_fields_backward_runs_the_kernel_in_a_fit_step(dev):
+    """On the card the fetch is the two kernels: a fit step on the flagship at
+    a reduced size launches the gather once and the scatter once, by their
+    launch counters."""
+    from esctp1raytracer_tpu_torch.grad import optimize
+    from esctp1raytracer_tpu_torch.kernels import launches
+
+    sc, cam, cfg = b.bench_scene(device=dev), CAM.to(dev), RenderConfig(backend="auto")
+    with torch.no_grad():
+        target = render.__wrapped__(sc, cam, 320, 180, cfg) * 0.8
+    frozen = (False,) * len(float_params(sc))
+    launches.reset()
+    loss, grads = optimize.loss_and_grad.__wrapped__(sc, target, cam, 320, 180, cfg, frozen)
+    assert launches.read(launches.FETCH) == {"winner_gather": 1, "winner_scatter": 1}
+    assert any(g is not None and bool(g.abs().sum() > 0) for g in grads)
+
+
+def _sphere_grid(pad, dev):
+    """The ground plane and an area light (4 triangles, padded to `pad` rows)
+    under a 4 x 4 grid of spheres."""
+    from esctp1raytracer_tpu_torch.scene.types import Material
+
+    centers = [(-1.5 + x, 0.3, -1.5 + z) for x in range(4) for z in range(4)]
+    mat = Material.make(kd=(0.6, 0.3, 0.2), ks=(0.3, 0.3, 0.3), ns=16.0)
+    spheres = b.make_spheres(centers, [0.3] * 16, [mat] * 16, device=dev)
+    return b.scene_from_mesh([b._ground_plane(), b._area_light(center=(0.0, 6.0, 2.0), half=1.5)],
+                             spheres=spheres, pad_multiple=pad, device=dev)
+
+
+@pytest.mark.parametrize("backend", ["jnp", "auto"])
+def test_sphere_winners_beyond_the_triangle_rows_on_the_card(dev, backend):
+    """More spheres than triangle rows: a sphere winner's index is the sphere
+    table's, and the winner fetch reads triangle row 0 for it (the kernels
+    would stop on a row outside the table). The frame with 8 triangle rows
+    equals the one with 512, and every gradient is within grads_agreement's
+    bars of it (the scatter's atomics add in another order per run)."""
+    from esctp1raytracer_tpu_torch.kernels import launches
+
+    cam = Camera.look_at((0.0, 3.0, 5.0), (0.0, 0.3, -0.5), vfov=50.0, aspect=4 / 3,
+                         device=dev)
+    cfg = RenderConfig(backend=backend)
+
+    def run(pad):
+        sc = _sphere_grid(pad, dev)
+        params = [p.detach().requires_grad_() for p in float_params(sc)]
+        img = render.__wrapped__(merge_params(sc, params), cam, 96, 72, cfg)
+        grads = torch.autograd.grad((img * img).sum(), params, allow_unused=True)
+        return sc, img, grads
+
+    launches.reset()
+    small, img, grads = run(8)
+    assert launches.read(launches.FETCH)["winner_scatter"] >= 1
+    o, d = (x.reshape(-1, 3) for x in cam.ray_grid(96, 72))
+    hit = closest_hit(o, d, small, EPS)
+    assert bool((hit.is_sphere & (hit.prim >= small.triangles.capacity)).any())
+    _, img_512, grads_512 = run(512)
+    torch.testing.assert_close(img, img_512, rtol=0, atol=1e-6)
+    tri_rows = [g is not None and g.shape[0] == 512 for g in grads_512]  # the triangle leaves
+    assert not any(bool(g[8:].any()) for g, t in zip(grads_512, tri_rows) if t)
+    _grads_within(grads, [g[:8] if t else g for g, t in zip(grads_512, tri_rows)])
+    assert any(g is not None and bool(g.abs().sum() > 0) for g in grads)
+
+
+def test_graphed_flagship_fit_step_equals_eager(dev):
+    """The flagship's fit step (mxtile: K1, K2, the winner gather and
+    scatter) at 320x180, replayed from its CUDA graph: the loss within 1e-5
+    relative and every leaf's gradient within grads_agreement's bars of the
+    eager port's (the scatter's atomics add in another order each run)."""
+    from esctp1raytracer_tpu_torch.grad import optimize
+    from esctp1raytracer_tpu_torch.utils import graphs
+
+    sc, cam, cfg = b.bench_scene(device=dev), CAM.to(dev), RenderConfig(backend="auto")
+    with torch.no_grad():
+        target = render.__wrapped__(sc, cam, 320, 180, cfg) * 0.8
+    args = (sc, target, cam, 320, 180, cfg, (False,) * len(float_params(sc)))
+    try:
+        loss0, grads0 = optimize.loss_and_grad.__wrapped__(*args)
+        optimize.loss_and_grad(*args)  # eager
+        optimize.loss_and_grad(*args)  # the capture
+        for _ in range(2):
+            loss, grads = optimize.loss_and_grad(*args)
+            assert abs(loss.item() - loss0.item()) <= 1e-5 * abs(loss0.item())
+            _grads_within(grads, grads0)
+        assert len(optimize.loss_and_grad.cache) == 1
+        assert sum(float(g.abs().sum()) for g in grads if g is not None) > 0
     finally:
         graphs.clear()

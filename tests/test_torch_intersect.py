@@ -21,6 +21,7 @@ from esctp1raytracer_tpu.core.camera import Camera  # noqa: E402
 from esctp1raytracer_tpu.scene import builders as jb  # noqa: E402
 from esctp1raytracer_tpu.scene.types import Material  # noqa: E402
 from esctp1raytracer_tpu_torch.core import intersect as pi  # noqa: E402
+from esctp1raytracer_tpu_torch.kernels import winner  # noqa: E402
 from esctp1raytracer_tpu_torch.scene.types import scene_from_numpy  # noqa: E402
 
 EPS = np.float32(np.finfo(np.float32).eps)
@@ -130,6 +131,137 @@ def test_select_rows_and_packed_table(scenes):
     idx = torch.tensor([0, 5, 3, 3, 1])
     np.testing.assert_array_equal(pi.select_rows(table, idx).numpy(), table[idx].numpy())
     np.testing.assert_array_equal(pi.select_rows(table, idx, limit=2).numpy(), table[idx].numpy())
+
+
+# The columns of the packed row that closest_hit and surface_attributes
+# sliced before `winner_fields`: an int is one column, read as [R].
+ROW_SLICES = {"v0": (0, 3), "v1": (3, 6), "v2": (6, 9), "n0": (9, 12), "n1": (12, 15),
+              "n2": (15, 18), "ka": (18, 21), "kd": (21, 24), "ks": (24, 27), "ke": (27, 30),
+              "ns": 30, "has_normals": 31}
+
+
+def _winner_case(ps, case):
+    """(prim [R] int64, the fields the loss differentiates) of a case of
+    `test_winner_fields_equal_take_rows`."""
+    n = ps.triangles.capacity
+    g = torch.Generator().manual_seed(7)
+    every = [name for name in ROW_SLICES if name != "has_normals"]
+    if case == "one_row":
+        return torch.full((300,), 5, dtype=torch.int64), every
+    if case == "random":
+        return torch.randint(0, n, (300,), generator=g), every
+    if case == "r1":
+        return torch.tensor([n - 1]), every
+    if case == "r45":  # not a multiple of the kernel's 32-ray warps
+        return torch.randint(0, 3, (45,), generator=g), every
+    if case == "some_fields":
+        return torch.randint(0, n, (300,), generator=g), ["v1", "ks", "ns"]
+    o, d = rays(24, 24)
+    _, prim, is_sphere = pi.argmin_hit(torch.from_numpy(o), torch.from_numpy(d), ps,
+                                       float(EPS))
+    if case == "missed":  # missed rays clamped to row 0, as closest_hit does
+        assert (prim < 0).any()
+    else:  # "spheres": sphere winners index the triangle table too, masked later
+        assert is_sphere.any()
+    return torch.clamp(prim, min=0).long(), every
+
+
+@pytest.mark.parametrize("case", ["one_row", "random", "missed", "some_fields", "spheres",
+                                  "r1", "r45"])
+def test_winner_fields_equal_take_rows(scenes, case):
+    """`winner_fields` against `take_rows` and slices (the path it replaces)
+    on the CPU: every field bit-equal, and the gradients of the triangle
+    leaves of a loss over the fields (has_normals only as a mask: it gets no
+    gradient) bit-equal too: each element's additions come in the same order."""
+    _, ps = scenes
+    prim, diff = _winner_case(ps, case)
+    gen = torch.Generator().manual_seed(5)
+    w = {name: torch.randn((prim.shape[0],) if isinstance(cols, int) else
+                           (prim.shape[0], cols[1] - cols[0]), generator=gen)
+         for name, cols in ROW_SLICES.items()}
+
+    def grads(fetch):
+        tris = ps.triangles.map(lambda _, t: t.detach().clone().requires_grad_()
+                                if t.is_floating_point() else t)
+        row = fetch(pi.packed_tri_table(tris))
+        mask = row["has_normals"] > 0.5
+        loss = sum(torch.sum(torch.where(mask if w[k].dim() == 1 else mask[:, None],
+                                         row[k], 0.5 * row[k]) * w[k]) for k in diff)
+        leaves = [t for _, t in tris.leaves() if t.requires_grad]
+        return row, torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    def sliced(table):
+        rows = pi.take_rows(table, prim)
+        return {k: rows[:, c] if isinstance(c, int) else rows[:, c[0]:c[1]]
+                for k, c in ROW_SLICES.items()}
+
+    got, g_got = grads(lambda t: winner.winner_fields(t, prim)._asdict())
+    want, g_want = grads(sliced)
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].is_contiguous() and torch.equal(got[k], want[k]), k
+    for a, b in zip(g_got, g_want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+    assert any(a is not None and a.abs().sum() > 0 for a in g_got)
+
+
+def test_warp_groups_counts_distinct_rows_per_warp():
+    """The scatter kernel's count, as its plain version gives it: the
+    distinct rows among each 32 consecutive rays; the last warp's missing
+    lanes add none."""
+    prim = torch.cat([torch.full((32,), 4), torch.arange(32), torch.tensor([1, 1, 2])])
+    assert winner.warp_groups(prim).tolist() == [1, 32, 2]
+    assert winner.warp_groups(torch.tensor([9])).tolist() == [1]
+    cnt = torch.empty(3, dtype=torch.int32)
+    gtab = winner.winner_scatter([None] * len(winner.FIELDS), prim, 40, cnt_out=cnt)
+    assert cnt.tolist() == [1, 32, 2] and not gtab.any()
+
+
+def _sphere_grid(pad):
+    """The ground plane and an area light (4 triangles, padded to `pad` rows)
+    under a 4 x 4 grid of spheres."""
+    from esctp1raytracer_tpu_torch.scene import builders as pb
+    from esctp1raytracer_tpu_torch.scene.types import Material as PortMaterial
+
+    centers = [(-1.5 + x, 0.3, -1.5 + z) for x in range(4) for z in range(4)]
+    mat = PortMaterial.make(kd=(0.6, 0.3, 0.2), ks=(0.3, 0.3, 0.3), ns=16.0)
+    spheres = pb.make_spheres(centers, [0.3] * 16, [mat] * 16, device="cpu")
+    return pb.scene_from_mesh([pb._ground_plane(), pb._area_light(center=(0.0, 6.0, 2.0),
+                                                                  half=1.5)],
+                              spheres=spheres, pad_multiple=pad, device="cpu")
+
+
+def test_sphere_winners_beyond_the_triangle_rows():
+    """A sphere winner's index is a row of the sphere table: with more spheres
+    than triangle rows the winner fetch must not read it as a triangle row.
+    The frame and every leaf's gradient with 8 triangle rows equal those with
+    512 (rows 8 on zero)."""
+    from esctp1raytracer_tpu_torch.core.camera import Camera as PortCamera
+    from esctp1raytracer_tpu_torch.core.render import RenderConfig, render
+    from esctp1raytracer_tpu_torch.parallel.sharding import float_params, merge_params
+
+    cam = PortCamera.look_at((0.0, 3.0, 5.0), (0.0, 0.3, -0.5), vfov=50.0, aspect=4 / 3,
+                             device="cpu")
+
+    def run(pad):
+        sc = _sphere_grid(pad)
+        params = [p.detach().requires_grad_() for p in float_params(sc)]
+        img = render(merge_params(sc, params), cam, 48, 36, RenderConfig(backend="jnp"))
+        return sc, img, torch.autograd.grad((img * img).sum(), params, allow_unused=True)
+
+    small, img, grads = run(8)
+    o, d = (x.reshape(-1, 3) for x in cam.ray_grid(48, 36))
+    hit = pi.closest_hit(o, d, small, float(EPS))
+    assert small.triangles.capacity == 8 and bool((hit.is_sphere & (hit.prim >= 8)).any())
+    _, img_512, grads_512 = run(512)
+    assert torch.equal(img, img_512)
+    for g, g512 in zip(grads, grads_512):
+        assert (g is None) == (g512 is None)
+        if g is not None:
+            assert torch.equal(g, g512[:g.shape[0]]) and not g512[g.shape[0]:].any()
+    assert any(g is not None and bool(g.abs().sum() > 0) for g in grads)
 
 
 @pytest.mark.parametrize("name", ["EPS", "T_MAX", "BIG", "NO_HIT", "aabb.BIG"])

@@ -291,3 +291,68 @@ def test_cpu_fit_step_spans(scene, fresh):
     assert [c.name for c in roots[0].children][:1] == ["camera.ray_grid"]
     assert roots[0].find("lane.search") or roots[0].find("fused.frame")
     assert roots[2].counts == {} and all(r.host_ms > 0 for r in roots)
+
+
+def _metric(name):
+    """The reader `read(traced)` of rtbench/metrics/<name>.py."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "rtbench" / "metrics" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name.replace(".", "_"), path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.read
+
+
+def test_winner_adds_reader_reads_its_counters(monkeypatch):
+    """`intersect.winner_adds_pct`: the row adds over the rays reduced of the
+    profiled steps, in %; None without the counters, as on a program that
+    counts none, and None on a program without `by_step`."""
+    import types
+
+    read = _metric("intersect.winner_adds_pct")
+
+    def step(k, counts):
+        grad = _rec("intersect.winner_grad", 1.0, counts=counts)
+        return _rec("graphs.call", 9.0, [_rec("graphs.replay", 8.0, [
+            _rec("optimize.loss", 3.0), _rec("optimize.backward", 5.0, [grad])])])
+
+    ranges = [("rtbench.step", 20, 40), ("graphs.call", 21, 30),
+              ("rtbench.step", 40, 60), ("graphs.call", 41, 50)]
+    traced = types.SimpleNamespace(cpu=ranges, steps={1: (20, 40), 2: (40, 60)})
+    counted = [step(k, {"intersect.winner_rays": 6400, "intersect.winner_row_adds": 300 + k})
+               for k in range(2)]
+    monkeypatch.setattr(profiling, "records", lambda: counted)
+    assert read(traced) == pytest.approx(100.0 * 601 / 12800)
+    monkeypatch.setattr(profiling, "records", lambda: [step(k, {}) for k in range(2)])
+    assert read(traced) is None
+    monkeypatch.delattr(profiling, "by_step")
+    assert read(traced) is None
+
+
+def test_cpu_winner_grad_span_counts_rays_and_groups(scene, fresh):
+    """A fit step on the lane route under the profiler: the backward of the
+    winner fetch runs in `intersect.winner_grad` inside `optimize.backward`,
+    counting the rays it reduced and the row groups of 32 consecutive rays
+    (`warp_groups` of the clamped winners)."""
+    from esctp1raytracer_tpu_torch.core.intersect import closest_hit
+    from esctp1raytracer_tpu_torch.kernels import lane_pallas, winner
+
+    cfg = RenderConfig(backend="lane")
+    with torch.no_grad():
+        target = render(scene, CAM, W, H, cfg) * 0.8
+    params = float_params(scene)
+    with torch.profiler.profile():
+        optimize.loss_and_grad(scene, target, CAM, W, H, cfg, (False,) * len(params))
+    backward = [r for r in profiling.records() if r.name == "optimize.backward"]
+    assert len(backward) == 1
+    spans = backward[0].find("intersect.winner_grad")
+    assert len(spans) == 1 and spans[0].host_ms > 0
+    o, d = (x.reshape(-1, 3) for x in CAM.ray_grid(W, H))
+    with torch.no_grad():
+        prim = closest_hit(o, d, scene, tri_search=lane_pallas.lane_tri_search).prim
+    groups = int(winner.warp_groups(torch.clamp(prim, min=0).long()).sum())
+    assert spans[0].counts == {"intersect.winner_rays": W * H,
+                               "intersect.winner_row_adds": groups}
+    assert W * H // 32 <= groups < W * H
