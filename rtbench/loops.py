@@ -8,6 +8,8 @@ public entries only (imported here by name, so that a test can break one
 underneath a run). Each loop also keeps what the correctness check needs
 (`check`) and rebuilds any step's wavefronts for the work counts
 (`wavefronts`), both through the plain reference in `rtbench/reference/`.
+A render loop at a `share` below 1 has the reference trace only a seeded
+share of each frame's pixels, for the check and for the work counts alike.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ class Loop:
         self.profiling = False  # the profiler runs: keep what a step's work count needs,
         # and synchronise nothing, so that the profiled steps run as the untraced loop does
         self.reference_s = 0.0  # set-up seconds spent in the reference (not in setup_s)
+        self.work_scale = 1.0  # a step's rays over the rays its work-count records hold
         self.sampling = False  # the window: sample its answers for the check
 
     def traced(self, on: bool):
@@ -82,7 +85,9 @@ class Loop:
 class Fit(Loop):
     """Inverse rendering: loss_and_grad, adam_update, float(loss) per step."""
 
-    def __init__(self, config, mix, seed, device, size=None):
+    def __init__(self, config, mix, seed, device, size=None, share=1.0):
+        if share != 1.0:
+            raise ValueError("a fit's check compares whole frames: no reference_share")
         super().__init__(config, mix, seed, device, size)
         self.lr = mix["lr"]
         rng = np.random.default_rng(seed % 2**63)
@@ -251,8 +256,11 @@ class Fit(Loop):
 class Render(Loop):
     """Frames of a static scene: one graphed call per step, the image to the host."""
 
-    def __init__(self, config, mix, seed, device, size=None):
+    def __init__(self, config, mix, seed, device, size=None, share=1.0):
         super().__init__(config, mix, seed, device, size)
+        self.picked = self.rays if share >= 1.0 else max(1, round(share * self.rays))
+        self.work_scale = self.rays / self.picked
+        self.pixel_seed = seed % 2**63
         self.passes = mix["passes"]
         orbit = mix["orbit_deg_per_step"] != 0.0
         self.angle0 = (seed % 3600) / 10.0 if orbit else 0.0  # an orbit starts where the seed says
@@ -336,23 +344,36 @@ class Render(Loop):
         self.scene = self.frame = self.fixed = None
         graphs.clear()
 
-    def reference_frame(self, step: int, record=None):
+    def pixels(self, step: int):
+        """The flat indices of the pixels of step `step` that the reference traces:
+        None (every pixel) at share 1, else `picked` of them drawn without
+        replacement from the seed and the step, in order."""
+        if self.picked == self.rays:
+            return None
+        rng = np.random.default_rng([self.pixel_seed, step])
+        idx = np.sort(rng.choice(self.rays, self.picked, replace=False))
+        return torch.from_numpy(idx).to(self.device)
+
+    def reference_frame(self, step: int, record=None, pixels=None):
         base = ref.scene_from_arrays(self.arrays, self.device)
         ids = torch.arange(self.rays, dtype=torch.int64, device=self.device) + self.step_ids(step)
         return ref.image(base, self.camera_spec(step), self.width, self.height, ids, self.seed,
-                         self.depth, self.passes, record)
+                         self.depth, self.passes, record, pixels)
 
     def check(self, tf32_control=False) -> dict:
         bad = total = 0
         for step, host in self.sample:
+            px = self.pixels(step)
             with torch.no_grad():
                 with ref.precision(False):
-                    want = self.reference_frame(step)
+                    want = self.reference_frame(step, pixels=px)
                 if tf32_control:
                     with ref.precision(True):
-                        got = self.reference_frame(step)
+                        got = self.reference_frame(step, pixels=px)
                 else:
                     got = host.to(self.device)
+                    if px is not None:
+                        got = got.reshape(-1, 3)[px]
                 off = (got - want).abs().amax(-1) > PIXEL_TOL
             bad += int(off.sum())
             total += off.numel()
@@ -361,7 +382,7 @@ class Render(Loop):
     def wavefronts(self, step: int):
         rec = []
         with torch.no_grad(), ref.precision(False):
-            self.reference_frame(step, record=rec)
+            self.reference_frame(step, record=rec, pixels=self.pixels(step))
         tris = tuple(torch.as_tensor(self.arrays.v[:, i], device=self.device) for i in range(3))
         return tris, rec
 
@@ -369,5 +390,5 @@ class Render(Loop):
 LOOPS = {"fit": Fit, "render": Render}
 
 
-def make(config: dict, mix: dict, seed: int, device: str, size=None) -> Loop:
-    return LOOPS[mix["loop"]](config, mix, seed, device, size)
+def make(config: dict, mix: dict, seed: int, device: str, size=None, share=1.0) -> Loop:
+    return LOOPS[mix["loop"]](config, mix, seed, device, size, share)

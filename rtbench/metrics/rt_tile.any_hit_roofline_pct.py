@@ -1,0 +1,9 @@
+"""K6's share of its roofline (kernels/rt_tile.py, csrc/rt_tile.cu): the any-hit job's
+least time (rtbench/work/count.py) over the device time of these kernels."""
+
+KERNELS = ("tile_occl",)
+JOB = "any_hit"
+
+
+def read(traced):
+    return traced.roofline_pct(KERNELS, JOB)

@@ -335,14 +335,21 @@ def trace(o, d, ids, seed: int, depth: int, scene: Scene, record: list | None = 
 
 
 def image(scene: Scene, cam: dict, width: int, height: int, ids, seed: int, depth: int,
-          passes: int = 1, record: list | None = None):
-    """The frame [H, W, 3]: the mean of `passes` passes, pass i at ray ids + i * H * W."""
+          passes: int = 1, record: list | None = None, pixels=None):
+    """The frame [H, W, 3]: the mean of `passes` passes, pass i at ray ids + i * H * W.
+    With `pixels` (flat indices into the frame) only those pixels' rays are traced,
+    and their colors [P, 3] returned: a ray's color depends on its own ray and id
+    alone, so they are the whole frame's at those pixels."""
     o, d = camera_rays(cam, width, height, ids.device)
+    rays = o.shape[0]
+    if pixels is not None:
+        o, d, ids = o[pixels], d[pixels], ids[pixels]
     acc = None
     for i in range(passes):
-        c = trace(o, d, ids + i * o.shape[0], seed, depth, scene, record)
+        c = trace(o, d, ids + i * rays, seed, depth, scene, record)
         acc = c if acc is None else acc + c
-    return (acc / passes if passes > 1 else acc).reshape(height, width, 3)
+    acc = acc / passes if passes > 1 else acc
+    return acc if pixels is not None else acc.reshape(height, width, 3)
 
 
 def loss_and_grad(scene: Scene, target, cam, width, height, ids, seed, depth):

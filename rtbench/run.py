@@ -6,7 +6,10 @@ From the root of a checkout. The cell (`BENCHMARK.json`'s `workloads`) names
 a configuration (`rtbench/configs/<config>.json`: the scene, the size, the
 camera, the render settings) and a traffic mix (`rtbench/traffic/<mix>.json`:
 the loop and its parameters); its limits are in `rtbench/cells/<cell>.json`
-and each per-layer metric has a reader `rtbench/metrics/<metric>.py`. A run
+and each per-layer metric has a reader `rtbench/metrics/<metric>.py`. A
+render cell's file may also give `reference_share`: the share of each checked
+frame's pixels that the reference traces, drawn from the seed (1 when absent:
+every pixel). A run
 builds the scene, warms up every shape it will use (set-up), runs the closed
 loop for `--seconds` (the window), then checks what the window produced
 against the plain reference (`rtbench/reference/`) and prints, as the last
@@ -50,6 +53,7 @@ class Cell:
     config: dict
     mix: dict
     limits: dict
+    share: float
     end_to_end: list
     per_layer: list
 
@@ -66,10 +70,11 @@ def load_cell(name: str, bench: dict = None, root: Path = ROOT) -> Cell:
         return name in metric.get("workloads", [name])
 
     here = root / "rtbench"
+    own = json.loads((here / "cells" / f"{name}.json").read_text())
     return Cell(name=name, chips=cell["chips"], root=root,
                 config=json.loads((root / conf["file"]).read_text()),
                 mix=json.loads((here / "traffic" / f"{cell['traffic']}.json").read_text()),
-                limits=json.loads((here / "cells" / f"{name}.json").read_text())["limits"],
+                limits=own["limits"], share=float(own.get("reference_share", 1.0)),
                 end_to_end=[m for m in bench["end_to_end"] if applies(m)],
                 per_layer=[m for m in bench["per_layer"] if applies(m)])
 
@@ -128,7 +133,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
         torch.set_num_threads(1)  # the host's load: one process, one intra-op thread
     _say(f"imports done at {time.perf_counter() - T0:.3f} s")
     with faults.planted(fault) if fault else contextlib.nullcontext():
-        loop = loops.make(cell.config, cell.mix, seed, device, size)
+        loop = loops.make(cell.config, cell.mix, seed, device, size, cell.share)
         _say(f"scene and inputs made at {time.perf_counter() - T0:.3f} s "
              f"(the reference's target {loop.reference_s:.3f} s of it)")
         if device == "cuda":  # the program's peak from its first step on

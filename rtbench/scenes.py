@@ -1,13 +1,16 @@
 """Scenes of the benchmark's configurations, made from their files' recipes.
 
 A configuration file (`rtbench/configs/<name>.json`) describes its scene as
-data: a list of meshes (`icosphere` or `quads`, each with a material) and a
-list of spheres. `make_meshes` turns the recipe into plain numpy arrays, the
+data: a list of meshes (`icosphere`, `quads` or `soup`, each with a material)
+and a list of spheres. `make_meshes` turns the recipe into plain numpy arrays, the
 inputs that the benchmark hands to both sides: the port gets them through its
 public `scene_from_mesh` / `make_spheres`, the plain reference
 (`rtbench/reference/`) reads the arrays themselves. The icosphere recipe is a
 frozen copy of the subdivided icosahedron that `bench.py:175-183` renders, so
-the scene is the port's `bench_scene()` table for table (a CPU test holds it).
+the scene is the port's `bench_scene()` table for table, and the soup recipe
+a frozen copy of the draws of `scene/builders.py:random_scene`, so that a soup
+of 100,000 triangles with its ground and light is `random_scene(100_000)`
+(CPU tests hold both).
 """
 
 from __future__ import annotations
@@ -91,6 +94,16 @@ def _quads(quads) -> np.ndarray:
     return np.stack(tris)
 
 
+def _soup(count: int, seed: int, extent: float) -> np.ndarray:
+    """`count` independent small triangles: centres uniform in a cube of half-side
+    `extent` folded above the ground (y -> |y| / 2), corners within 0.25 of them."""
+    rng = np.random.RandomState(seed)
+    centers = (rng.rand(count, 1, 3) - 0.5) * 2.0 * extent
+    centers[..., 1] = np.abs(centers[..., 1]) * 0.5
+    offsets = (rng.rand(count, 3, 3) - 0.5) * 0.5
+    return (centers + offsets).astype(np.float32)
+
+
 def make_meshes(scene_spec: dict) -> List[Mesh]:
     """The recipe's meshes, in order."""
     out = []
@@ -99,6 +112,8 @@ def make_meshes(scene_spec: dict) -> List[Mesh]:
             v, n = _icosphere(m["subdivisions"], m["radius"], m["center"], m.get("smooth", True))
         elif m["kind"] == "quads":
             v, n = _quads(m["quads"]), None
+        elif m["kind"] == "soup":
+            v, n = _soup(m["count"], m["seed"], m["extent"]), None
         else:
             raise ValueError(f"unknown mesh kind {m['kind']!r}")
         out.append(Mesh(m.get("name", m["kind"]), v, n, _material(m["material"])))

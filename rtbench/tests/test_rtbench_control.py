@@ -2,8 +2,8 @@
 
 The control is the reference computed in TF32 (its search's operands rounded to
 10 mantissa bits) in the program's place; the faults are rtbench/faults.py's,
-planted under the timed path. At sizes the CPU holds; the card's readings at the
-cells' own sizes are in PERF.md."""
+planted under the timed path. At sizes the CPU holds, each cell at its own
+reference share; the card's readings at the cells' own sizes are in PERF.md."""
 
 import pytest
 import torch
@@ -11,7 +11,7 @@ import torch
 from rtbench import faults, run
 
 SIZES = {"flagship-fit": (32, 18), "cornell-fit": (32, 24), "flagship-render": (32, 18),
-         "cornell-render": (32, 24)}
+         "cornell-render": (32, 24), "soup100k-4k-render": (64, 36)}
 
 
 @pytest.mark.parametrize("cell", sorted(SIZES))

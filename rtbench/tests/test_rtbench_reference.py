@@ -9,7 +9,8 @@ import torch
 from rtbench import run, scenes
 from rtbench.reference import render as ref
 
-CONFIGS = {"flagship-10k-1080p": (24, 16), "cornell-original-1024x768": (24, 18)}
+CONFIGS = {"flagship-10k-1080p": (24, 16), "cornell-original-1024x768": (24, 18),
+           "soup100k-4k": (32, 18)}
 MIXES = ("fit-all-leaves", "render-orbit-1spp", "render-fixed-8spp")
 
 
@@ -25,7 +26,8 @@ def test_scenes_are_the_port_builders_tables():
     from esctp1raytracer_tpu_torch.scene import builders
 
     for name, built in (("flagship-10k-1080p", builders.bench_scene(device="cpu")),
-                        ("cornell-original-1024x768", builders.cornell_box(device="cpu"))):
+                        ("cornell-original-1024x768", builders.cornell_box(device="cpu")),
+                        ("soup100k-4k", builders.random_scene(100_000, device="cpu"))):
         spec = json.loads((run.ROOT / "rtbench" / "configs" / f"{name}.json").read_text())
         ours = scenes.port_scene(spec["scene"], "cpu")
         for (n, a), (m, b) in zip(ours.leaves(), built.leaves()):

@@ -56,6 +56,7 @@ class Traced:
         self.end = spans[-1][1] if spans else 0.0
         self.loop, self.timing = loop, timing
         self._work = {}
+        self._waves = {}  # step -> its wavefronts, rebuilt once for every job
         self._cpu_arrays = None
 
     # -- the device ----------------------------------------------------------
@@ -86,8 +87,10 @@ class Traced:
         total = {"flops": 0, "bytes": 0, "pairs": 0}
         for k in steps:
             if (job, k) not in self._work:
-                tris, records = self.loop.wavefronts(k)
-                self._work[(job, k)] = work.count(job, tris, records)
+                if k not in self._waves:
+                    self._waves[k] = self.loop.wavefronts(k)
+                tris, records = self._waves[k]
+                self._work[(job, k)] = work.count(job, tris, records, self.loop.work_scale)
             for key in total:
                 total[key] += self._work[(job, k)][key]
         return total

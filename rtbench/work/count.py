@@ -14,7 +14,10 @@ the program cannot raise the count, and a share of the roofline cannot pass
 * search: both (a kernel that serves the closest-hit and the shadow search);
 * frame: both, plus the shading arithmetic per hit and per light draw.
 
-Bytes: each input read once and each output written once. A kernel that a
+Bytes: each input read once and each output written once. Where the records
+hold a seeded share of a step's rays, the pairs, the per-ray bytes and the
+shading's counts are scaled up to the whole step; the table's bytes are not.
+A kernel that a
 job gains without its metric's file naming it reads high: that calls for a
 recount in a `benchmark` change, not here.
 """
@@ -90,17 +93,18 @@ def _any(lo, hi, rec):
 JOBS = ("closest_hit", "any_hit", "search", "frame")
 
 
-def count(job: str, tris, records) -> dict:
+def count(job: str, tris, records, scale: float = 1.0) -> dict:
     """{"flops", "bytes", "pairs"} of `job` over one step's searches.
 
     tris: (v0, v1, v2) [N, 3] of the step's scene; records: the reference's
     `("closest_hit", o, d, t_hit, bounce)` and `("any_hit", o, d, t_limit,
-    occluded, hit)` entries of every pass, in order."""
+    occluded, hit)` entries of every pass, in order; scale: the step's rays over
+    the rays the records hold (1: all of them)."""
     if job not in JOBS:
         raise ValueError(f"unknown job {job!r}")
     lo, hi = boxes(*tris)
     table = lo.shape[0] * TRI_GEOM_BYTES
-    pairs = nbytes = 0
+    pairs = ray_bytes = tables = 0
     for rec in records:
         if rec[0] == "closest_hit" and job != "any_hit":
             p, b = _closest(lo, hi, rec)
@@ -108,16 +112,18 @@ def count(job: str, tris, records) -> dict:
             p, b = _any(lo, hi, rec)
         else:
             continue
-        pairs, nbytes = pairs + p, nbytes + b + table
+        pairs, ray_bytes, tables = pairs + p, ray_bytes + b, tables + table
+    pairs = round(pairs * scale)
     flops = pairs * MT_PAIR_FLOPS
+    nbytes = round(ray_bytes * scale) + tables
     if job == "frame":
         # A frame reads its camera rays, ids and the whole table once per pass
         # and writes a color per ray; the searches' own traffic stays inside.
         cams = [r for r in records if r[0] == "closest_hit" and r[4] == 0]
         hits = sum(int(torch.isfinite(r[3]).sum()) for r in records if r[0] == "closest_hit")
         draws = sum(int(r[5].sum()) for r in records if r[0] == "any_hit")
-        flops += hits * SHADE_HIT_FLOPS + draws * SHADE_DRAW_FLOPS
-        nbytes = sum(r[1].shape[0] * (RAY_BYTES + ID_BYTES + COLOR_BYTES)
+        flops += round(hits * scale) * SHADE_HIT_FLOPS + round(draws * scale) * SHADE_DRAW_FLOPS
+        nbytes = sum(round(r[1].shape[0] * scale) * (RAY_BYTES + ID_BYTES + COLOR_BYTES)
                      + lo.shape[0] * TRI_ALL_BYTES for r in cams)
     return {"flops": flops, "bytes": nbytes, "pairs": pairs}
 
