@@ -32,6 +32,7 @@ from esctp1raytracer_tpu_torch.kernels.fused_pallas import (
     _fallback_cfg, fused_supported, fused_trace_diff,
 )
 from esctp1raytracer_tpu_torch.scene.types import Scene
+from esctp1raytracer_tpu_torch.utils import profiling
 from esctp1raytracer_tpu_torch.utils.debug import TRACE, current_level
 from esctp1raytracer_tpu_torch.utils.graphs import graphed
 
@@ -106,6 +107,11 @@ def trace_rays(o, d, scene: Scene, ray_ids: torch.Tensor, cfg: RenderConfig,
     Depth 1 is the primary ray + shadow rays; depth > 1 adds Whitted
     reflections. With cfg.ray_chunk > 0 the rays go through in chunks of
     that size; the counter-based RNG makes the result chunk-independent.
+    A ray that is no longer active keeps its origin and direction and is
+    searched and shaded again at each later bounce, then masked out; while
+    spans are on, each bounce after the first adds the rays it traces to
+    the counter `render.reflect_rays` and the active ones among them to
+    `render.reflect_live` (summed on the device).
     """
     r = o.shape[0]
     if cfg.ray_chunk and cfg.ray_chunk < r:
@@ -135,6 +141,9 @@ def trace_rays(o, d, scene: Scene, ray_ids: torch.Tensor, cfg: RenderConfig,
     throughput = torch.ones((r, 3), dtype=torch.float32, device=o.device)
     active = torch.ones((r,), dtype=torch.bool, device=o.device)
     for bounce in range(cfg.depth):
+        if bounce and profiling.enabled():
+            profiling.count("render.reflect_rays", r)
+            profiling.count("render.reflect_live", active.sum())
         # The winner's packed row is gathered once and shared with shading:
         # one warp-merged scatter-add per bounce in the backward.
         hit, trow = closest_hit(o, d, scene, eps, block_size=cfg.block_size,

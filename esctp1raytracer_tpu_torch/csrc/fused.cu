@@ -79,8 +79,14 @@
 //
 // Precision: IEEE division and sqrtf, expf(ns * logf(x)) for the specular
 // power (no fast math), rsqrtf for normalisations, and -fmad=false: every
-// product and sum rounds on its own, in the plain PyTorch version's order,
-// so the two agree to the last ulp but for the math functions. With nvcc's
+// product and sum rounds on its own, in the order of the plain PyTorch
+// version run on the card, so the two agree to the last ulp but for the math
+// functions. The dot products add as torch.sum adds on the card, (x + z) + y,
+// the cross products are torch.linalg.cross's (cross_fma, on the card as on
+// the CPU), and the sphere normal and the light direction are divided (by
+// the radius, by the distance): a grazing sphere hit then leads the forward
+// to the same surfaces and the same shadow tests as the backward's
+// re-derivation, which takes its dots with torch.sum. With nvcc's
 // default contraction into FMAs, last-ulp differences in the reflected
 // directions grew over four bounces to 9e-5 on highlights of the depth-4
 // mixed scene, past the 3e-5 bar of tests/test_fused.py.
@@ -146,10 +152,10 @@ __device__ __forceinline__ float uniform(uint32_t h0, uint32_t s) {
 }
 
 __device__ __forceinline__ Vec sub(Vec a, Vec b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
-__device__ __forceinline__ float dot(Vec a, Vec b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-__device__ __forceinline__ Vec cross(Vec a, Vec b) {
-  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
-}
+// (x + z) + y: torch.sum's order on the card (see Precision above). On a
+// grazing sphere hit the sphere test's cancellation turns one ulp of a dot
+// into a hit point on the other side of the surface.
+__device__ __forceinline__ float dot(Vec a, Vec b) { return (a.x * b.x + a.z * b.z) + a.y * b.y; }
 __device__ __forceinline__ Vec scale(Vec a, float s) { return {a.x * s, a.y * s, a.z * s}; }
 __device__ __forceinline__ Vec unit(Vec a) { return scale(a, rsqrtf(fmaxf(dot(a, a), kTiny))); }
 __device__ __forceinline__ Vec load3(const float* __restrict__ p, int i) {
@@ -311,13 +317,13 @@ fused_frame_kernel(const float* __restrict__ o_in, const float* __restrict__ d_i
       const Vec v0{row[0], row[1], row[2]};
       const Vec e1 = sub(Vec{row[3], row[4], row[5]}, v0);
       const Vec e2 = sub(Vec{row[6], row[7], row[8]}, v0);
-      const Vec pv = cross(d, e2);
+      const Vec pv = cross_fma(d, e2);
       const float det = dot(e1, pv);
       const bool ok_det = fabsf(det) >= eps;
       const float inv_det = ok_det ? 1.0f / det : 0.0f;
       const Vec tv = sub(o, v0);
       const float u_r = dot(tv, pv) * inv_det;
-      const Vec qv = cross(tv, e1);
+      const Vec qv = cross_fma(tv, e1);
       const float v_r = dot(d, qv) * inv_det;
       float t_r = dot(e2, qv) * inv_det;
       const bool ok_r = ok_det && u_r >= eps && u_r <= 1.0f && v_r >= eps &&
@@ -334,8 +340,8 @@ fused_frame_kernel(const float* __restrict__ o_in, const float* __restrict__ d_i
       float ns = row[31];
       if (is_s) {
         const float* s = s_sph + bsi * kSphW;
-        const float inv_r = 1.0f / fmaxf(s[3], 1e-6f);
-        nrm = Vec{(hp.x - s[0]) * inv_r, (hp.y - s[1]) * inv_r, (hp.z - s[2]) * inv_r};
+        const float r = fmaxf(s[3], 1e-6f);  // divided, as surface_attributes divides
+        nrm = Vec{(hp.x - s[0]) / r, (hp.y - s[1]) / r, (hp.z - s[2]) / r};
         ka = Vec{s[5], s[6], s[7]};
         kd = Vec{s[8], s[9], s[10]};
         ks = Vec{s[11], s[12], s[13]};
@@ -348,7 +354,7 @@ fused_frame_kernel(const float* __restrict__ o_in, const float* __restrict__ d_i
                          row[13] * u_r + row[16] * v_r + row[10] * w,
                          row[14] * u_r + row[17] * v_r + row[11] * w});
         } else {
-          nrm = unit(cross(e1, e2));
+          nrm = unit(cross_fma(e1, e2));
         }
       }
 
@@ -370,7 +376,7 @@ fused_frame_kernel(const float* __restrict__ o_in, const float* __restrict__ d_i
         }
         const Vec lv = sub(lp, hp);
         const float dist = sqrtf(fmaxf(dot(lv, lv), kTiny));
-        const Vec ld = scale(lv, 1.0f / dist);
+        const Vec ld{lv.x / dist, lv.y / dist, lv.z / dist};  // divided, as shade divides
         const float t_lim = dist - sh_eps;
         const float d_nl = dot(nrm, ld);
 

@@ -39,8 +39,7 @@ from esctp1raytracer_tpu_torch.kernels.lane_pallas import (
     PLAIN_BLOCK, TCS_W, _lane_search_plain, lane_plane_hits, valid_prefix,
 )
 from esctp1raytracer_tpu_torch.scene.types import Scene, TriangleBuffer, float_params, merge_params
-from esctp1raytracer_tpu_torch.utils import rng
-from esctp1raytracer_tpu_torch.utils.profiling import annotate
+from esctp1raytracer_tpu_torch.utils import profiling, rng
 
 RAYS_PER_STEP = 1024  # the TPU kernel's tile of rays (its cull granularity)
 FUSED_TRI_LIMIT = 2048
@@ -191,16 +190,19 @@ def _uniform(h0: torch.Tensor, stream: int) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-# Products and sums component by component, in the kernel's order, so the
-# plain version rounds as csrc/fused.cu does (built with -fmad=false).
+# Dots and cross products as the backward's re-derivation takes them
+# (core/intersect.py, core/shading.py), so that on either device the plain
+# version rounds as the re-derivation there does. On the card torch.sum adds
+# a [..., 3] product as (x + z) + y, the order csrc/fused.cu adds in (built
+# with -fmad=false); on the CPU it adds ((0 + x) + y) + z.
 def _dot(a, b):
-    return a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1] + a[:, 2] * b[:, 2]
+    return torch.sum(a * b, dim=1)
 
 
 def _cross(a, b):
-    return torch.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
-                        a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
-                        a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], dim=1)
+    """torch.linalg.cross: a fused multiply-add per component, on the CPU and
+    on the card alike (the kernel's cross_fma)."""
+    return torch.linalg.cross(a, b)
 
 
 def _unit(v):
@@ -234,10 +236,12 @@ def _fused_plain(o, d, ids, tcs, shad, sph, lc, cab, counts, n_tris, *, seed, ep
                  shadow_eps, depth, lights, faces, record=None):
     """Plain version of K3: colors [R, 3], all rays at once in tensor ops.
 
-    The same arithmetic as the kernel, step for step, with two shortcuts
-    that change no result: it sweeps every triangle instead of the culled
-    chunks (the cull is conservative: it drops no accepted hit of a ray
-    whose result is used), and it gathers rows directly. With a list
+    The same arithmetic as the kernel, step for step (its dots and cross
+    products those of the backward's re-derivation: on the card it rounds as
+    the kernel does, on the CPU as the re-derivation does), with two
+    shortcuts that change no result: it sweeps every triangle instead of the
+    culled chunks (the cull is conservative: it drops no accepted hit of a
+    ray whose result is used), and it gathers rows directly. With a list
     `record`, it appends the wavefronts the kernel sweeps, for counting its
     work: ("camera", o, d, active, hit) per bounce and ("shadow", hp, ld,
     t_lim, mask) per bounce and light.
@@ -311,7 +315,7 @@ def _fused_plain(o, d, ids, tcs, shad, sph, lc, cab, counts, n_tris, *, seed, ep
         ke = torch.where(s2, srow[:, 14:17], ke)
         ns = torch.where(is_s, srow[:, 17], ns)
         r_safe = torch.where(is_s, torch.clamp(srow[:, 3], min=1e-6), 1.0)
-        nsp = torch.where(s2, hp - srow[:, 0:3], 0.0) * (1.0 / r_safe)[:, None]
+        nsp = torch.where(s2, hp - srow[:, 0:3], 0.0) / r_safe[:, None]
         nrm = torch.where(hit[:, None], torch.where(s2, nsp, nt), 0.0)
 
         lcol = torch.zeros((r, 3), dtype=torch.float32, device=dev)
@@ -326,7 +330,7 @@ def _fused_plain(o, d, ids, tcs, shad, sph, lc, cab, counts, n_tris, *, seed, ep
             lp = lv[:, 0:3] + (lv[:, 3:6] - lv[:, 0:3]) * r1 + (lv[:, 6:9] - lv[:, 0:3]) * r2
             lvec = lp - hp
             dist = torch.sqrt(torch.clamp(_dot(lvec, lvec), min=_TINY))
-            ld = lvec * (1.0 / dist)[:, None]
+            ld = lvec / dist[:, None]
             t_lim = dist - shadow_eps
             d_nl = _dot(nrm, ld)
             if record is not None:
@@ -438,7 +442,7 @@ def fused_trace(o, d, scene: Scene, ray_ids, cfg) -> torch.Tensor:
     The caller checks `fused_supported` first. On the card: two launches,
     the table build and K3.
     """
-    with torch.no_grad(), annotate("fused.frame"):
+    with torch.no_grad(), profiling.annotate("fused.frame"):
         tables = fused_tables(scene.detach())
         return fused_kernel(o.detach().contiguous(), d.detach().contiguous(), ray_ids, *tables,
                             seed=cfg.seed, eps=float(cfg.eps),
@@ -449,7 +453,9 @@ def fused_trace(o, d, scene: Scene, ray_ids, cfg) -> torch.Tensor:
 class _FusedTraceDiff(torch.autograd.Function):
     """Forward: the fused kernel. Backward: re-derive the frame through
     `trace_rays` on `_bwd_cfg`'s backend at the same draws, one ray chunk
-    at a time (only one chunk's graph is alive at once), and sum."""
+    at a time (only one chunk's graph is alive at once), and sum. While
+    spans are on, the re-derivation is the span `fused.rederive`, with the
+    counters `fused.rederive_chunks` and `fused.rederive_rays`."""
 
     @staticmethod
     def forward(ctx, o, d, ray_ids, cfg, scene, *leaves):
@@ -468,7 +474,9 @@ class _FusedTraceDiff(torch.autograd.Function):
         chunk = fb.ray_chunk or o.shape[0]
         fb = fb.replace(ray_chunk=0)
         g_o, g_d, g_leaf = [], [], [None] * len(leaves)
-        with torch.enable_grad():
+        with torch.enable_grad(), profiling.annotate("fused.rederive"):
+            profiling.count("fused.rederive_chunks", -(-o.shape[0] // chunk))
+            profiling.count("fused.rederive_rays", o.shape[0])
             ps = [p.detach().requires_grad_(need) for p, need in zip(leaves, need_leaf)]
             scene = merge_params(ctx.scene, ps)
             for i in range(0, o.shape[0], chunk):

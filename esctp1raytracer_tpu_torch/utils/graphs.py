@@ -43,7 +43,8 @@ records, a key whose plain graph is already captured (or warmed) gets a
 spanned twin, captured at once with no second warm-up, whose spans are
 event nodes timed by each replay; with no profiler the plain graph, which
 holds no event node, replays as before. The twin is two graphs replayed in
-turn (`_Captured`); its capture keeps the allocator's cache
+turn (`_Captured`); its capture records no operation in the profiler's
+trace (`profiling.unrecorded`) and keeps the allocator's cache
 (`torch.cuda.graph` empties it), so that the steps after it allocate as the
 steps before did. Each call through a graph is the span
 `graphs.call` (with the allocator's counts) holding `graphs.copy_in`,
@@ -158,7 +159,7 @@ class _Take:
         self.graph = torch.cuda.CUDAGraph()
         self.spans = self.last = None
         if spanned:
-            with profiling.capturing() as self.spans:
+            with profiling.capturing() as self.spans, profiling.unrecorded():
                 out = _capture_spanned(self.graph, fn, kwargs)
         else:
             with torch.cuda.graph(self.graph):

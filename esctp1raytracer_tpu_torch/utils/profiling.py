@@ -290,6 +290,26 @@ def capturing() -> Iterator[list]:
         _capturing.remove(holder)
 
 
+@contextlib.contextmanager
+def unrecorded() -> Iterator[None]:
+    """The profiler records neither the operations opened inside the block nor,
+    on the card, their CUDA runtime calls, while the spans stay on. A spanned
+    twin's capture runs nothing on the card, and its host events (every
+    operation and kernel launch of the step, twice) would only lengthen the
+    trace that readers walk."""
+    autograd = torch._C._autograd
+    cuda = {torch._C._profiler.ProfilerActivity.CUDA} if torch.cuda.is_available() else None
+    autograd._enable_record_function(False)
+    if cuda:
+        autograd._toggle_collection_dynamic(False, cuda)
+    try:
+        yield
+    finally:
+        if cuda:
+            autograd._toggle_collection_dynamic(True, cuda)
+        autograd._enable_record_function(True)
+
+
 def replayed(captured: list, parent: Record) -> list:
     """Copies of a graph's captured spans for the replay just launched, added
     under `parent` (its `graphs.replay` span); returned for `settle`."""

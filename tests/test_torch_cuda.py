@@ -364,6 +364,30 @@ def test_fused_kernel_matches_plain(dev, name, cam, depth):
     assert flipped.mean() <= 2e-3 and np.abs(a - p)[~flipped].max() <= 3e-5
 
 
+def test_fused_frame_equals_its_rederivation_at_1080p(dev):
+    """K3's depth-4 frame of config 4 (`mixed_scene()`, 1920x1080, the fit
+    cell's camera) against the mxtile route's, which is what the fused
+    backward re-derives: every pixel within 1e-3, on three seeds of the light
+    draws. K3 adds its dots as torch.sum does on the card and divides the
+    sphere normal and the light direction, so grazing sphere hits, whose t
+    the sphere test's cancellation makes sensitive to the last ulp, reach the
+    same surfaces and shadow tests on both."""
+    from esctp1raytracer_tpu_torch.core.render import trace_rays
+
+    sc = b.mixed_scene(device="cpu").to(dev)
+    cam = Camera.look_at((0.0, 2.5, 7.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=16 / 9,
+                         device="cpu").to(dev)
+    o, d = (x.reshape(-1, 3).contiguous() for x in cam.ray_grid(1920, 1080))
+    ids = torch.arange(o.shape[0], device=dev)
+    for seed in (3100000011, 3100000604, 2**31 + 5):
+        cfg = RenderConfig(backend="auto", depth=4, seed=seed)
+        with torch.no_grad():
+            fused = fused_pallas.fused_trace(o, d, sc, ids, cfg)
+            rederived = trace_rays(o, d, sc, ids, cfg.replace(backend="mxtile"))
+        off = (fused - rederived).abs().amax(-1)
+        assert int((off > 1e-3).sum()) == 0, (seed, torch.nonzero(off > 1e-3).squeeze(1)[:16].tolist())
+
+
 @pytest.mark.parametrize("count", [0, 1, 31, 33, 129, "stride"])
 def test_fused_kernel_ray_counts(dev, count):
     """K3 at ray counts around the warp's 32-ray tile, and past the
@@ -1111,6 +1135,49 @@ def test_spanned_twin_fit_step_bit_equal_and_timed(dev, scene):
         _spans_cover_replay(profiling, prof, replay)
         adam = [r for r in profiling.records() if r.name == "optimize.adam"]
         assert len(adam) == 3 and all(r.device_ms > 0 for r in adam)
+    finally:
+        graphs.clear()
+
+
+def test_spanned_twin_rederive_timed_and_counted(dev, monkeypatch):
+    """Config 4's scene (`mixed_scene()`, depth 4) at 480x270 with the fused
+    backward's chunked mxtile branch shrunk to that size (4 chunks of 32,768
+    rays at most): each replay of the graphed fit step's spanned twin holds one
+    `fused.rederive` inside `optimize.backward`, timed on the card, with its
+    chunk, ray and reflection-ray counts equal to the eager profiled step's."""
+    from esctp1raytracer_tpu_torch.grad import optimize
+    from esctp1raytracer_tpu_torch.utils import graphs, profiling
+
+    monkeypatch.setattr(fused_pallas, "BWD_MIN_RAYS", 1)
+    monkeypatch.setattr(fused_pallas, "BWD_RAY_CHUNK", 32768)
+    sc = b.mixed_scene(device="cpu").to(dev)
+    cam = Camera.look_at((0.0, 2.5, 7.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=16 / 9,
+                         device="cpu").to(dev)
+    cfg, w, h = RenderConfig(backend="auto", depth=4), 480, 270
+    with torch.no_grad():
+        target = render.__wrapped__(sc, cam, w, h, cfg) * 0.8
+    args = (sc, target, cam, w, h, cfg, (False,) * len(float_params(sc)))
+    names = ("fused.rederive_chunks", "fused.rederive_rays", "render.reflect_rays",
+             "render.reflect_live")
+    try:
+        with graphs.disabled():
+            profiling.reset()
+            _profiled(lambda: optimize.loss_and_grad(*args), 1)
+            (eager,) = [r for root in profiling.records() for r in root.find("fused.rederive")]
+            want = {n: eager.count(n) for n in names}
+        assert want["fused.rederive_chunks"] == 4 and want["fused.rederive_rays"] == w * h
+        assert want["render.reflect_rays"] == 3 * w * h and 0 < want["render.reflect_live"]
+        optimize.loss_and_grad(*args)
+        optimize.loss_and_grad(*args)
+        profiling.reset()
+        _profiled(lambda: optimize.loss_and_grad(*args), 3)
+        roots = [r for r in profiling.records() if r.name == "graphs.call"]
+        assert len(roots) == 3
+        for root in roots:
+            (backward,) = root.find("optimize.backward")
+            (span,) = backward.find("fused.rederive")
+            assert 0 < span.device_ms <= backward.device_ms
+            assert {n: span.count(n) for n in names} == want
     finally:
         graphs.clear()
 

@@ -101,6 +101,24 @@ def test_spans_nest_and_exclusive_times_add_up(fresh):
         assert events[name].device_type == torch.autograd.DeviceType.CPU
 
 
+def test_unrecorded_drops_operations_and_keeps_spans(fresh):
+    """Inside `unrecorded()` (a spanned twin's capture) the profiler records
+    no operation, while a span opened there is still recorded with its
+    counts; after it, operations are recorded again."""
+    x = torch.ones((8, 8))
+    with torch.profiler.profile() as prof:
+        x + 1
+        with profiling.unrecorded():
+            with profiling.annotate("t.quiet"):
+                profiling.count("t.n", 3)
+                x * 2
+        x - 1
+    names = [e.name for e in prof.events()]
+    assert "aten::add" in names and "aten::sub" in names and "aten::mul" not in names
+    (rec,) = profiling.records()
+    assert rec.name == "t.quiet" and rec.counts == {"t.n": 3}
+
+
 def test_trace_exporter_turns_spans_on(monkeypatch, tmp_path, fresh):
     """`trace()` is a profiler: the program's spans record inside it, and
     only there."""
