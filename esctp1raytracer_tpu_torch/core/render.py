@@ -111,12 +111,19 @@ def trace_rays(o, d, scene: Scene, ray_ids: torch.Tensor, cfg: RenderConfig,
     searched and shaded again at each later bounce, then masked out; while
     spans are on, each bounce after the first adds the rays it traces to
     the counter `render.reflect_rays` and the active ones among them to
-    `render.reflect_live` (summed on the device).
+    `render.reflect_live` (summed on the device). The mxtile search's scene
+    tables are built once for all chunks and bounces (`rt_mxu.search_tables`).
     """
+    with rt_mxu.search_tables():
+        return _trace_rays(o, d, scene, ray_ids, cfg, tri_search)
+
+
+def _trace_rays(o, d, scene: Scene, ray_ids: torch.Tensor, cfg: RenderConfig,
+                tri_search) -> torch.Tensor:
     r = o.shape[0]
     if cfg.ray_chunk and cfg.ray_chunk < r:
         inner = cfg.replace(ray_chunk=0)
-        chunks = [trace_rays(o[i:i + cfg.ray_chunk], d[i:i + cfg.ray_chunk], scene,
+        chunks = [_trace_rays(o[i:i + cfg.ray_chunk], d[i:i + cfg.ray_chunk], scene,
                              ray_ids[i:i + cfg.ray_chunk], inner, tri_search)
                   for i in range(0, r, cfg.ray_chunk)]
         return torch.cat(chunks)

@@ -32,6 +32,12 @@ with the same visit order and tie rule. A wrapper given CPU tensors runs
 the plain version; given CUDA tensors it launches the kernel or raises.
 Each wrapper counts its kernel launches in its `launches` attribute.
 
+The scene tables (the cluster sort, the packed segments, the oversized
+sub-block) depend on the triangles alone. Inside a `search_tables()` block
+(`core/render.py:trace_rays`, the fused backward's re-derivation) they are
+built by the first search call on a triangle table and shared by the later
+ones: one sort and pack for every chunk and bounce of a trace.
+
 Precision: the contraction must be float32-faithful. The JAX package
 measured bf16x3 flipping ~1% of winners and ~6% of shadow tests, so the
 kernels use float32 FMAs on the CUDA cores, and the plain version's
@@ -51,7 +57,9 @@ where the contraction runs on float32 CUDA cores and not on an MXU.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
 import torch
 
@@ -334,10 +342,10 @@ mxu_kernel.launches = 0
 mxu_occl_kernel.launches = 0
 
 
-def _segments(tris: TriangleBuffer, exclude_oversized: bool):
-    """Cluster-sort + slice into MXU_TRI_LIMIT-sized segments.
+def _sorted(tris: TriangleBuffer):
+    """Cluster-sort the table and pad it to whole segments.
 
-    Returns (generator of (tfq, aabbs, perm_k), ov_buf, ov_orig).
+    Returns (sorted_tris, perm, exclude, nseg, ov_buf, ov_orig).
     """
     sorted_tris, perm, exclude, ov_buf, ov_orig = _clustered_tables(tris)
     seg = MXU_TRI_LIMIT
@@ -348,16 +356,106 @@ def _segments(tris: TriangleBuffer, exclude_oversized: bool):
         sorted_tris = sorted_tris.map(lambda name, a: torch.cat([a, getattr(filler, name)]))
         perm = torch.cat([perm, perm.new_full((pad,), NO_HIT)])
         exclude = torch.cat([exclude, exclude.new_zeros((pad,))])
+    return sorted_tris, perm, exclude, nseg, ov_buf, ov_orig
+
+
+def _packed(sorted_tris, perm, exclude, nseg: int, exclude_oversized: bool) -> list:
+    """The segments of `_sorted`'s table: [(tfq, aabbs, perm_k)]."""
     seg = sorted_tris.capacity // nseg
+    out = []
+    for k in range(nseg):
+        sl = slice(k * seg, (k + 1) * seg)
+        tfq, aabbs = _pack_mxu(sorted_tris.map(lambda _, a: a[sl]),
+                               exclude[sl] if exclude_oversized else None)
+        out.append((tfq, aabbs, perm[sl]))
+    return out
 
-    def gen():
-        for k in range(nseg):
-            sl = slice(k * seg, (k + 1) * seg)
-            tfq, aabbs = _pack_mxu(sorted_tris.map(lambda _, a: a[sl]),
-                                   exclude[sl] if exclude_oversized else None)
-            yield tfq, aabbs, perm[sl]
 
-    return gen(), ov_buf, ov_orig
+def _segments(tris: TriangleBuffer, exclude_oversized: bool):
+    """Cluster-sort + slice into MXU_TRI_LIMIT-sized segments.
+
+    Returns (list of (tfq, aabbs, perm_k), ov_buf, ov_orig).
+    """
+    sorted_tris, perm, exclude, nseg, ov_buf, ov_orig = _sorted(tris)
+    return _packed(sorted_tris, perm, exclude, nseg, exclude_oversized), ov_buf, ov_orig
+
+
+class _Tables:
+    """One triangle table's search tables: the cluster sort (`_sorted`), the
+    packed segments with and without the oversized triangles and the
+    oversized sub-block. Each is built under no_grad from the detached
+    triangles the first time a search asks for it; the sort counts one
+    `rt_mxu.table_builds` on the innermost span."""
+
+    def __init__(self, tris: TriangleBuffer):
+        self.tris = tris.detach()  # holds the storages its key names
+        self._sorted = None
+        self._segments = {}
+        self._ov = None
+
+    def sorted(self):
+        if self._sorted is None:
+            profiling.count("rt_mxu.table_builds", 1)
+            with torch.no_grad():
+                self._sorted = _sorted(self.tris)
+        return self._sorted
+
+    def segments(self, exclude_oversized: bool) -> list:
+        if exclude_oversized not in self._segments:
+            sorted_tris, perm, exclude, nseg, _, _ = self.sorted()
+            with torch.no_grad():
+                self._segments[exclude_oversized] = _packed(sorted_tris, perm, exclude, nseg,
+                                                            exclude_oversized)
+        return self._segments[exclude_oversized]
+
+    def oversized(self) -> torch.Tensor:
+        if self._ov is None:
+            ov_buf = self.sorted()[4]
+            with torch.no_grad():
+                self._ov = _pack_sub(ov_buf)[0]
+        return self._ov
+
+
+_scope = threading.local()  # `memo`: the open `search_tables` block's tables by key
+
+
+@contextlib.contextmanager
+def search_tables():
+    """Share the searches' scene tables inside the block: the first search
+    call on a triangle table builds its `_Tables`, the later calls on the same
+    table reuse them. A nested block joins the open one; the tables go when
+    the outermost block closes, so none outlives the trace that built it, and
+    a CUDA graph captures the one build, which each replay runs again on its
+    inputs. Outside a block each call builds its own."""
+    if getattr(_scope, "memo", None) is not None:
+        yield
+        return
+    _scope.memo = {}
+    try:
+        yield
+    finally:
+        _scope.memo = None
+
+
+def _key(tris: TriangleBuffer) -> tuple:
+    """The identity of the triangles' storage, which `detach()` keeps: device,
+    address, shape, strides and version counter (an in-place write moves it)
+    of v0, v1, v2 and valid. Host metadata only: no read of the card."""
+    return tuple((t.device, t.data_ptr(), t.shape, t.stride(), t._version)
+                 for t in (tris.v0, tris.v1, tris.v2, tris.valid))
+
+
+def _tables(tris: TriangleBuffer) -> _Tables:
+    """`tris`' tables in the open `search_tables` block, else tables of this
+    call's own. Counts one `rt_mxu.table_calls` on the innermost span."""
+    profiling.count("rt_mxu.table_calls", 1)
+    memo = getattr(_scope, "memo", None)
+    if memo is None:
+        return _Tables(tris)
+    key = _key(tris)
+    if key not in memo:
+        memo[key] = _Tables(tris)
+    return memo[key]
 
 
 def _tested(rays):
@@ -373,13 +471,15 @@ def mxu_tile_search(o, d, tris: TriangleBuffer, eps, t_limit=None):
 
     `t_limit` only culls (see `mxu_kernel`). Segments combine first-wins:
     an earlier segment keeps a tie. The span `rt_mxu.prepass` holds the
-    sort and pack; while spans are on, the counter
+    rays' padding and the sort and pack where this call builds them
+    (`search_tables`); while spans are on, the counters `rt_mxu.table_calls`
+    and `rt_mxu.table_builds` count the call and its build, and
     `rt_mxu.closest_hit_blocks` sums the blocks K1's groups test.
     """
     with profiling.annotate("rt_mxu.prepass"):
         eps_arr = _eps_tensor(eps, o.device)
         rays = _pad_rays(o, d, t_limit)
-        segments = list(_segments(tris, exclude_oversized=False)[0])
+        segments = _tables(tris).segments(exclude_oversized=False)
     r = o.shape[0]
     best_t = torch.full((r,), BIG, dtype=torch.float32, device=o.device)
     best_i = torch.full((r,), NO_HIT, dtype=torch.int32, device=o.device)
@@ -403,9 +503,9 @@ def mxu_tile_occlusion(o, d, t_limit, tris: TriangleBuffer, eps) -> torch.Tensor
     with profiling.annotate("rt_mxu.prepass"):
         eps_arr = _eps_tensor(eps, o.device)
         rays = _pad_rays(o, d, t_limit)
-        segments, ov_buf, _ = _segments(tris, exclude_oversized=True)
-        segments = list(segments)
-        ov, _ = _pack_sub(ov_buf)
+        tables = _tables(tris)
+        segments = tables.segments(exclude_oversized=True)
+        ov = tables.oversized()
     r = o.shape[0]
     occluded = torch.zeros((r,), dtype=torch.bool, device=o.device)
     mode = _resolve_cull_mode()

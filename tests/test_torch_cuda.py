@@ -1182,6 +1182,46 @@ def test_spanned_twin_rederive_timed_and_counted(dev, monkeypatch):
         graphs.clear()
 
 
+def test_graphed_rederive_builds_its_search_tables_on_each_replay(dev, monkeypatch):
+    """Config 4's fit step with the chunked mxtile re-derivation (4 chunks x 4
+    bounces at 480x270: 32 searches, one scene-table build), captured, then
+    replayed on the scene an Adam step moved: the replay's loss within 1e-5
+    relative and its gradients within grads_agreement's bars of the eager step
+    on the moved scene. The replay runs no Python, so the one build it holds
+    ran again on the moved leaves."""
+    from esctp1raytracer_tpu_torch.grad import optimize
+    from esctp1raytracer_tpu_torch.utils import graphs
+
+    monkeypatch.setattr(fused_pallas, "BWD_MIN_RAYS", 1)
+    monkeypatch.setattr(fused_pallas, "BWD_RAY_CHUNK", 32768)
+    builds = []
+    build = rt_tile.build_clusters
+    monkeypatch.setattr(rt_tile, "build_clusters", lambda tris: builds.append(1) or build(tris))
+    sc = b.mixed_scene(device="cpu").to(dev)
+    cam = Camera.look_at((0.0, 2.5, 7.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=16 / 9,
+                         device="cpu").to(dev)
+    cfg, w, h = RenderConfig(backend="auto", depth=4), 480, 270
+    with torch.no_grad():
+        target = render.__wrapped__(sc, cam, w, h, cfg) * 0.8
+    frozen = (False,) * len(float_params(sc))
+    try:
+        loss0, grads0 = optimize.loss_and_grad(sc, target, cam, w, h, cfg, frozen)  # eager
+        optimize.loss_and_grad(sc, target, cam, w, h, cfg, frozen)  # the capture
+        assert len(builds) == 2 and len(optimize.loss_and_grad.cache) == 1
+        params = float_params(sc)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads0)]
+        moved = merge_params(sc, optimize.adam_update(params, grads, optimize.adam_init(params))[0])
+        loss, got = optimize.loss_and_grad(moved, target, cam, w, h, cfg, frozen)  # a replay
+        assert len(builds) == 2 and len(optimize.loss_and_grad.cache) == 1
+        loss1, want = optimize.loss_and_grad.__wrapped__(moved, target, cam, w, h, cfg, frozen)
+        assert len(builds) == 3
+        assert loss1.item() != loss0.item()
+        assert abs(loss.item() - loss1.item()) <= 1e-5 * abs(loss1.item())
+        _grads_within(got, want)
+    finally:
+        graphs.clear()
+
+
 # ----------------------------------------------------------------------------
 # The winner-row fetch (csrc/winner.cu)
 # ----------------------------------------------------------------------------

@@ -238,7 +238,8 @@ class _FakeGraph:
 def test_rederive_counts_inside_a_graph_replay(chunked, monkeypatch):
     """The graphed fit step's spanned twin: each replay holds one copy of
     `fused.rederive` under `optimize.backward`, with its chunk, ray and
-    reflection counts as the eager profiled step counts them."""
+    reflection counts and its search-table calls and builds (one build for
+    the 32 searches) as the eager profiled step counts them."""
     monkeypatch.setattr(graphs, "_on_card", lambda tensors: True)
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph", lambda g: contextlib.nullcontext())
@@ -249,9 +250,11 @@ def test_rederive_counts_inside_a_graph_replay(chunked, monkeypatch):
         _port_step(fit)
     (eager,) = [r for root in profiling.records() for r in root.find("fused.rederive")]
     names = ("fused.rederive_chunks", "fused.rederive_rays", "render.reflect_rays",
-             "render.reflect_live")
+             "render.reflect_live", "rt_mxu.table_calls", "rt_mxu.table_builds")
     want = {n: eager.count(n) for n in names}
     assert want["fused.rederive_chunks"] == math.ceil(W * H / CHUNK)
+    assert want["rt_mxu.table_calls"] == 2 * 4 * math.ceil(W * H / CHUNK)
+    assert want["rt_mxu.table_builds"] == 1
     profiling.reset()
     _port_step(fit)  # the plain graph's eager first call
     _port_step(fit)  # its capture
@@ -359,6 +362,31 @@ def test_readers_of_the_new_spans_and_counters(monkeypatch):
     monkeypatch.setattr(profiling, "records", lambda: bare)
     assert _reader("fused.rederive_device_ms")(traced) is None
     assert _reader("render.reflect_live_pct")(traced) is None
+
+
+def test_table_reuse_reader_reads_its_counters(monkeypatch):
+    """`rt_mxu.table_reuse_pct`: 100 x (1 - builds / calls) of the mxtile
+    search's scene tables over the profiled steps; None on a program that
+    counts no call, and on one without `by_step`."""
+    def step(counts):
+        rederive = _rec("fused.rederive", 40.0, [
+            _rec("rt_mxu.prepass", 1.0, counts={"rt_mxu.table_calls": 1, **counts}),
+            _rec("rt_mxu.prepass", 0.1, counts={"rt_mxu.table_calls": 63})])
+        return _rec("graphs.call", 60.0, [_rec("graphs.replay", 59.0, [
+            _rec("optimize.loss", 2.0), _rec("optimize.backward", 55.0, [rederive])])])
+
+    ranges = [("rtbench.step", 20, 40), ("graphs.call", 21, 30),
+              ("rtbench.step", 40, 60), ("graphs.call", 41, 50)]
+    traced = types.SimpleNamespace(cpu=ranges, steps={1: (20, 40), 2: (40, 60)})
+    read = _reader("rt_mxu.table_reuse_pct")
+    counted = [step({"rt_mxu.table_builds": 1}), step({"rt_mxu.table_builds": 2})]
+    monkeypatch.setattr(profiling, "records", lambda: counted)
+    assert read(traced) == pytest.approx(100.0 * (1 - 3 / 128))
+    bare = [_rec("graphs.call", 60.0, [_rec("graphs.replay", 59.0)]) for _ in range(2)]
+    monkeypatch.setattr(profiling, "records", lambda: bare)
+    assert read(traced) is None
+    monkeypatch.delattr(profiling, "by_step")
+    assert read(traced) is None
 
 
 def test_rederive_roofline_reader_counts_live_work(monkeypatch):

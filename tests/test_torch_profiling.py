@@ -290,6 +290,57 @@ def test_cpu_render_spans_and_k1_count(scene, fresh):
     assert shade.count("rt_mxu.any_hit_blocks") > 0
 
 
+def _table_counts(root):
+    return {n: root.count(n) for n in ("rt_mxu.table_calls", "rt_mxu.table_builds")}
+
+
+def test_cpu_table_counters_on_an_mxtile_render(scene, fresh):
+    """A depth-2 render on the mxtile route under the profiler: each of its four
+    searches counts one `rt_mxu.table_calls` on its `rt_mxu.prepass` span, and
+    only the first, which builds the scene tables the other three reuse, counts
+    `rt_mxu.table_builds`."""
+    cfg = RenderConfig(backend="mxtile", depth=2)
+    with torch.no_grad(), torch.profiler.profile():
+        render(scene, CAM, W, H, cfg)
+    spans = [s for r in profiling.records() for s in r.find("rt_mxu.prepass")]
+    assert [s.counts for s in spans] == (
+        [{"rt_mxu.table_calls": 1, "rt_mxu.table_builds": 1}]
+        + [{"rt_mxu.table_calls": 1}] * 3)
+
+
+def test_table_counters_inside_a_graph_replay(fake_card, fresh):
+    """The graphed depth-2 mxtile render's spanned twin: each replay counts the
+    eager profiled render's four calls and one build."""
+    sc = b.scene_from_mesh([b.icosphere_mesh(subdivisions=1, radius=1.0, center=(0.0, 1.0, 0.0)),
+                            b._ground_plane(), b._area_light(center=(0.0, 6.0, 2.0), half=1.5)],
+                           device="cpu")
+    cfg = RenderConfig(backend="mxtile", depth=2)
+    with torch.no_grad():
+        with graphs.disabled(), torch.profiler.profile():
+            render(sc, CAM, W, H, cfg)
+        want = _table_counts(_root(profiling.records()))
+        assert want == {"rt_mxu.table_calls": 4, "rt_mxu.table_builds": 1}
+        profiling.reset()
+        render(sc, CAM, W, H, cfg)  # the plain graph's eager first call
+        render(sc, CAM, W, H, cfg)  # its capture
+        with torch.profiler.profile():
+            for _ in range(3):  # the twin's capture and replays
+                render(sc, CAM, W, H, cfg)
+    roots = [r for r in profiling.records() if r.name == "graphs.call"]
+    assert len(roots) == 3
+    for root in roots:
+        (replay,) = root.find("graphs.replay")
+        assert _table_counts(replay) == want
+    graphs.clear()
+
+
+def _root(roots):
+    """Records under one root, to count over."""
+    rec = profiling.Record("roots")
+    rec.children = list(roots)
+    return rec
+
+
 def test_cpu_fit_step_spans(scene, fresh):
     """The fit step's spans on the CPU, where nothing is graphed: the render
     and loss, the backward and the Adam update, each a root; the allocator's
