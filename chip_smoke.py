@@ -22,7 +22,7 @@ E. BASELINE config 5: random_scene(100_000) (100,004 triangles, 784
    kernels K5 (camera rays) and K6 (shadow rays); forward and fwd+bwd
    each run the 8,294,400-ray frame as one wavefront;
 F. random_scene(500_000), 1920x1080, depth 1: "auto" resolves to tile,
-   through four 131,072-triangle segments (`_sliced`);
+   through four 131,072-triangle segments (`tables.Tables.segments`);
 G. the reference's own entry point, `python -m esctp1raytracer_tpu_torch`
    (`cli.main`), in process: the Cornell OBJ (`write_cornell_obj`) at
    1024x768 with --ispc ("auto" -> fused: the table build and K3); the
@@ -267,7 +267,7 @@ from esctp1raytracer_tpu_torch.grad import fit_scene, optimize
 from esctp1raytracer_tpu_torch.io import native_ppm
 from esctp1raytracer_tpu_torch.io.ppm import read_ppm, write_ppm, write_ppm_python
 from esctp1raytracer_tpu_torch.kernels import (
-    _build, fused_pallas, lane_pallas, launches, rt_mxu, rt_tile, winner,
+    _build, fused_pallas, lane_pallas, launches, rt_mxu, rt_tile, tables, winner,
 )
 from esctp1raytracer_tpu_torch.kernels.cull import block_cull_mask
 from esctp1raytracer_tpu_torch.parallel import (
@@ -522,16 +522,27 @@ def time_pair(name, fn_k, fn_p, iters_k, iters_p, card, what):
     return ms, plain_ms
 
 
+def mxu_segments(tris, exclude_oversized=False):
+    """mxtile's packed segments of `tris`, built afresh (kernels/tables.py)."""
+    return tables.Tables(tris).segments(rt_mxu._pack_mxu, rt_mxu.MXU_TRI_LIMIT, exclude_oversized)
+
+
+def tile_segments(tris, exclude_oversized=False):
+    """The tile route's packed segments of `tris`, built afresh."""
+    return tables.Tables(tris).segments(tables.pack_planes, rt_tile.TILE_TRI_LIMIT,
+                                        exclude_oversized)
+
+
 def mxtile_args(wavefront):
     """K1's or K2's arguments on one captured wavefront, as the entry points
     pass them: (wrapper name, args, ov_buf or None). K2 gets the oversized
     sub-block, as mxu_tile_occlusion's first segment does."""
     occl, oo, dd, tris, eps, t_limit = wavefront
-    segs, ov_buf, _ = rt_mxu._segments(tris, occl)
-    (tfq, aabbs, _), = list(segs)
-    rays_, eps_t = rt_tile._pad_rays(oo, dd, t_limit), rt_mxu._eps_tensor(eps, oo.device)
+    found = tables.Tables(tris)
+    (tfq, aabbs, _), = found.segments(rt_mxu._pack_mxu, rt_mxu.MXU_TRI_LIMIT, occl)
+    rays_, eps_t = tables.pad_rays(oo, dd, t_limit), tables.eps_tensor(eps, oo.device)
     if occl:
-        return "mxu_occl_kernel", (eps_t, rays_, aabbs, tfq, rt_tile._pack_sub(ov_buf)[0]), ov_buf
+        return "mxu_occl_kernel", (eps_t, rays_, aabbs, tfq, found.oversized()), found.sort()[3]
     return "mxu_kernel", (eps_t, rays_, aabbs, tfq), None
 
 
@@ -1032,10 +1043,11 @@ def tile_args(wavefront):
     pass them: (wrapper name, args, ov_buf or None). K6 gets the oversized
     sub-block, as tile_occlusion's first segment does."""
     occl, oo, dd, tris, eps, t_limit = wavefront
-    tc, aabbs, _, ov_buf, _ = rt_tile.tri_constants_sub(tris, exclude_oversized=occl)
-    rays_, eps_t = rt_tile._pad_rays(oo, dd, t_limit), rt_tile._eps_tensor(eps, oo.device)
+    found = tables.Tables(tris)
+    (tc, aabbs, _), = found.segments(tables.pack_planes, rt_tile.TILE_TRI_LIMIT, occl)
+    rays_, eps_t = tables.pad_rays(oo, dd, t_limit), tables.eps_tensor(eps, oo.device)
     if occl:
-        return "tile_occl_kernel", (eps_t, rays_, aabbs, tc, rt_tile._pack_sub(ov_buf)[0]), ov_buf
+        return "tile_occl_kernel", (eps_t, rays_, aabbs, tc, found.oversized()), found.sort()[3]
     return "tile_kernel", (eps_t, rays_, aabbs, tc), None
 
 
@@ -1242,12 +1254,12 @@ def tile_kernels(card, seen, w, results, what="config 5 3840x2160", key=None, li
 
 def tile_segment_kernels(card, seen, w, results):
     """K5 and K6 on the 500k soup's camera and shadow wavefronts, for each of
-    `_sliced`'s segments, as the entry points call them: each kernel runs on
-    the whole wavefront against the segment's table (K6 with the oversized
-    sub-block in segment 0), with cnt_out held equal to the plain path's
-    list lengths, and its output on TILE_SLICE rays of whole image rows,
-    centred on the row with the longest mean list over all segments, held
-    bit-identical to the plain version's. The plain outputs, combined as
+    the table's segments (`tables.Tables.segments`), as the entry points call
+    them: each kernel runs on the whole wavefront against the segment's
+    table (K6 with the oversized sub-block in segment 0), with cnt_out held
+    equal to the plain path's list lengths, and its output on TILE_SLICE
+    rays of whole image rows, centred on the row with the longest mean list
+    over all segments, held bit-identical to the plain version's. The plain outputs, combined as
     the entry points combine segments (first-wins for the search, OR for
     the occlusion), are then held equal to `tile_tri_search` /
     `tile_occlusion` on the slice. Timed: the kernel on the whole wavefront
@@ -1256,11 +1268,12 @@ def tile_segment_kernels(card, seen, w, results):
         occl, oo, dd, tris, eps, t_limit = wavefront
         name = "tile_occl_kernel" if occl else "tile_kernel"
         what = "shadow" if occl else "camera"
-        r, eps_t = oo.shape[0], rt_tile._eps_tensor(eps, oo.device)
+        r, eps_t = oo.shape[0], tables.eps_tensor(eps, oo.device)
         with torch.no_grad():
-            segs, ov_buf, _ = rt_tile._sliced(tris, exclude_oversized=occl)
-            ov = rt_tile._pack_sub(ov_buf)[0]
-            rays_ = rt_tile._pad_rays(oo, dd, t_limit)
+            found = tables.Tables(tris)
+            segs = found.segments(tables.pack_planes, rt_tile.TILE_TRI_LIMIT, occl)
+            ov_buf, ov = found.sort()[3], found.oversized()
+            rays_ = tables.pad_rays(oo, dd, t_limit)
             segs = [((eps_t, rays_, aabbs, tc) + ((ov if k == 0 else None,) if occl else ()),
                      perm_k) for k, (tc, aabbs, perm_k) in enumerate(segs)]
             sweeps = [tile_sweeps(name, args) for args, _ in segs]
@@ -1282,7 +1295,7 @@ def tile_segment_kernels(card, seen, w, results):
                 if occl:
                     comb = plain > 0 if comb is None else comb | (plain > 0)
                 else:
-                    t_k, i_k = plain[0], rt_tile._orig(plain[1], perm_k)
+                    t_k, i_k = plain[0], tables.orig_index(plain[1], perm_k)
                     if comb is None:
                         comb = (t_k, i_k)
                     else:
@@ -1447,21 +1460,22 @@ def layer_phase(card, seen):
     script's checks); they are timed here for comparison."""
     _, po, pd, tris, eps, ptl = seen[0]
     _, so, sd, _, _, stl = seen[1]
-    (tfq_p, ab_p, _), = list(rt_mxu._segments(tris, False)[0])
-    segs, ov_buf, _ = rt_mxu._segments(tris, True)
-    (tfq_s, ab_s, _), = list(segs)
-    eps_t = rt_mxu._eps_tensor(eps, po.device)
+    found = tables.Tables(tris)
+    (tfq_p, ab_p, _), = found.segments(rt_mxu._pack_mxu, rt_mxu.MXU_TRI_LIMIT)
+    (tfq_s, ab_s, _), = found.segments(rt_mxu._pack_mxu, rt_mxu.MXU_TRI_LIMIT, True)
+    ov_buf = found.sort()[3]
+    eps_t = tables.eps_tensor(eps, po.device)
     with torch.no_grad():
-        ov = rt_tile._pack_sub(ov_buf)[0]
-        prim, shad = rt_tile._pad_rays(po, pd, ptl), rt_tile._pad_rays(so, sd, stl)
+        ov = found.oversized()
+        prim, shad = tables.pad_rays(po, pd, ptl), tables.pad_rays(so, sd, stl)
         entries = {"mxu_tile_search": lambda: rt_mxu.mxu_tile_search(po, pd, tris, eps, ptl),
                    "mxu_tile_occlusion": lambda: rt_mxu.mxu_tile_occlusion(so, sd, stl, tris,
                                                                            eps)}
         for what, fn in entries.items():
             say(f"layer flagship: {what}: peak {gib_above(fn):.2f} GiB above its inputs  [{card}]")
         layers = {
-            "cluster sort + pack (per search)": lambda: list(rt_mxu._segments(tris, False)[0]),
-            "pad rays (per search)": lambda: rt_tile._pad_rays(po, pd, ptl),
+            "cluster sort + pack (per search)": lambda: mxu_segments(tris),
+            "pad rays (per search)": lambda: tables.pad_rays(po, pd, ptl),
             "K1 alone (cull + sweep)": lambda: rt_mxu.mxu_kernel(eps_t, prim, ab_p, tfq_p),
             "mxu_tile_search (incl. K1)": entries["mxu_tile_search"],
             "K2 alone (cull + sweep + oversized)": lambda: rt_mxu.mxu_occl_kernel(
@@ -1525,19 +1539,20 @@ def tile_layer_phase(card, seen):
     the plain path (CPU tensors); it is timed here for comparison."""
     _, po, pd, tris, eps, ptl = seen[0]
     _, so, sd, _, _, stl = seen[1]
-    tc_p, ab_p, _, _, _ = rt_tile.tri_constants_sub(tris)
-    tc_s, ab_s, _, ov_buf, _ = rt_tile.tri_constants_sub(tris, exclude_oversized=True)
-    eps_t = rt_tile._eps_tensor(eps, po.device)
+    found = tables.Tables(tris)
+    (tc_p, ab_p, _), = found.segments(tables.pack_planes, rt_tile.TILE_TRI_LIMIT)
+    (tc_s, ab_s, _), = found.segments(tables.pack_planes, rt_tile.TILE_TRI_LIMIT, True)
+    eps_t = tables.eps_tensor(eps, po.device)
     with torch.no_grad():
-        ov = rt_tile._pack_sub(ov_buf)[0]
-        prim, shad = rt_tile._pad_rays(po, pd, ptl), rt_tile._pad_rays(so, sd, stl)
+        ov = found.oversized()
+        prim, shad = tables.pad_rays(po, pd, ptl), tables.pad_rays(so, sd, stl)
         entries = {"tile_tri_search": lambda: rt_tile.tile_tri_search(po, pd, tris, eps, ptl),
                    "tile_occlusion": lambda: rt_tile.tile_occlusion(so, sd, stl, tris, eps)}
         for what, fn in entries.items():
             say(f"layer config 5: {what}: peak {gib_above(fn):.2f} GiB above its inputs  [{card}]")
         layers = {
-            "cluster sort + pack (per search)": lambda: rt_tile.tri_constants_sub(tris),
-            "pad rays (per search)": lambda: rt_tile._pad_rays(po, pd, ptl),
+            "cluster sort + pack (per search)": lambda: tile_segments(tris),
+            "pad rays (per search)": lambda: tables.pad_rays(po, pd, ptl),
             "K5 alone (cull + sweep)": lambda: rt_tile.tile_kernel(eps_t, prim, ab_p, tc_p),
             "tile_tri_search (incl. K5)": entries["tile_tri_search"],
             "K6 alone (cull + sweep + oversized)": lambda: rt_tile.tile_occl_kernel(
@@ -3202,9 +3217,8 @@ def graph_phase(card, results, flag, flag_cam, corn, corn_cam, mixed, mixed_cam)
     # 9a): its device time, which no graph removes.
     with torch.no_grad():
         for what, exclude in (("search", False), ("occlusion", True)):
-            list(rt_mxu._segments(flag.triangles, exclude)[0])
-            prof = profiling.device_time(lambda: list(rt_mxu._segments(flag.triangles,
-                                                                      exclude)[0]))
+            mxu_segments(flag.triangles, exclude)
+            prof = profiling.device_time(lambda: mxu_segments(flag.triangles, exclude))
             out[f"sort_pack_{what}"] = prof
             say(f"M flagship sort + pack per {what}: {prof['device_ms']:.3f} ms of device time "
                 f"in {prof['device_ops']} operations, {prof['wall_ms']:.3f} ms of wall time "

@@ -27,7 +27,7 @@ import torch
 from esctp1raytracer_tpu_torch.core.camera import Camera
 from esctp1raytracer_tpu_torch.core.intersect import EPS, any_hit, closest_hit
 from esctp1raytracer_tpu_torch.core.shading import shade
-from esctp1raytracer_tpu_torch.kernels import lane_pallas, rt_mxu, rt_tile
+from esctp1raytracer_tpu_torch.kernels import lane_pallas, rt_mxu, rt_tile, tables
 from esctp1raytracer_tpu_torch.kernels.fused_pallas import (
     _fallback_cfg, fused_supported, fused_trace_diff,
 )
@@ -111,10 +111,11 @@ def trace_rays(o, d, scene: Scene, ray_ids: torch.Tensor, cfg: RenderConfig,
     searched and shaded again at each later bounce, then masked out; while
     spans are on, each bounce after the first adds the rays it traces to
     the counter `render.reflect_rays` and the active ones among them to
-    `render.reflect_live` (summed on the device). The mxtile search's scene
-    tables are built once for all chunks and bounces (`rt_mxu.search_tables`).
+    `render.reflect_live` (summed on the device). The segmented searches'
+    scene tables are built once for all chunks and bounces
+    (`tables.search_tables`).
     """
-    with rt_mxu.search_tables():
+    with tables.search_tables():
         return _trace_rays(o, d, scene, ray_ids, cfg, tri_search)
 
 

@@ -34,7 +34,7 @@ import torch
 
 from esctp1raytracer_tpu_torch.accel import clusters
 from esctp1raytracer_tpu_torch.core.intersect import BIG, NO_HIT, take_rows
-from esctp1raytracer_tpu_torch.kernels import _build, lane_pallas, rt_mxu
+from esctp1raytracer_tpu_torch.kernels import _build, lane_pallas, tables
 from esctp1raytracer_tpu_torch.kernels.lane_pallas import (
     PLAIN_BLOCK, TCS_W, _lane_search_plain, lane_plane_hits, valid_prefix,
 )
@@ -453,9 +453,9 @@ def fused_trace(o, d, scene: Scene, ray_ids, cfg) -> torch.Tensor:
 class _FusedTraceDiff(torch.autograd.Function):
     """Forward: the fused kernel. Backward: re-derive the frame through
     `trace_rays` on `_bwd_cfg`'s backend at the same draws, one ray chunk
-    at a time (only one chunk's graph is alive at once), and sum; the mxtile
+    at a time (only one chunk's graph is alive at once), and sum; the
     search's scene tables are built once for every chunk
-    (`rt_mxu.search_tables`). While spans are on, the re-derivation is the
+    (`tables.search_tables`). While spans are on, the re-derivation is the
     span `fused.rederive`, with the counters `fused.rederive_chunks` and
     `fused.rederive_rays`."""
 
@@ -476,7 +476,7 @@ class _FusedTraceDiff(torch.autograd.Function):
         chunk = fb.ray_chunk or o.shape[0]
         fb = fb.replace(ray_chunk=0)
         g_o, g_d, g_leaf = [], [], [None] * len(leaves)
-        with torch.enable_grad(), profiling.annotate("fused.rederive"), rt_mxu.search_tables():
+        with torch.enable_grad(), profiling.annotate("fused.rederive"), tables.search_tables():
             profiling.count("fused.rederive_chunks", -(-o.shape[0] // chunk))
             profiling.count("fused.rederive_rays", o.shape[0])
             ps = [p.detach().requires_grad_(need) for p, need in zip(leaves, need_leaf)]

@@ -10,14 +10,14 @@ Triangles are Morton-sorted and packed into blocks of SUB = 128, each a
 (`aabbs` [8, NSUB]). Rays go in groups of RAY_TILE = 128; a group visits,
 in ascending order, the blocks whose box one of its rays keeps in a slab
 test (`kernels/cull.py:block_cull_mask`). Two kernels, hand-written in
-CUDA (`csrc/rt_mxu.cu`), take the padded rays (`rt_tile._pad_rays`), the
+CUDA (`csrc/rt_mxu.cu`), take the padded rays (`tables.pad_rays`), the
 boxes and the table, and cull and sweep per group:
 
 * `mxu_kernel` (K1): closest hit per ray — minimum t, ties to the lowest
   sorted index;
 * `mxu_occl_kernel` (K2): any hit with t < t_limit per ray, over the
   culled blocks and, when given, one extra sub-block of plane constants
-  that every ray tests (the oversized triangles, `rt_tile._pack_sub`).
+  that every ray tests (the oversized triangles, `tables.Tables.oversized`).
 
 The JAX package builds each group's list and feature rows in device
 memory first (`_prep_mxu`, a slab-test pre-pass compacted by a stable
@@ -33,10 +33,9 @@ the plain version; given CUDA tensors it launches the kernel or raises.
 Each wrapper counts its kernel launches in its `launches` attribute.
 
 The scene tables (the cluster sort, the packed segments, the oversized
-sub-block) depend on the triangles alone. Inside a `search_tables()` block
-(`core/render.py:trace_rays`, the fused backward's re-derivation) they are
-built by the first search call on a triangle table and shared by the later
-ones: one sort and pack for every chunk and bounce of a trace.
+sub-block) are `kernels/tables.py`'s, shared with the tile route: inside a
+`tables.search_tables()` block one sort and pack serve every chunk and
+bounce of a trace.
 
 Precision: the contraction must be float32-faithful. The JAX package
 measured bf16x3 flipping ~1% of winners and ~6% of shadow tests, so the
@@ -57,24 +56,20 @@ where the contraction runs on float32 CUDA cores and not on an MXU.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import threading
 
 import torch
 
 from esctp1raytracer_tpu_torch.core.intersect import BIG, NO_HIT, ray_features, tri_features
-from esctp1raytracer_tpu_torch.kernels import _build
+from esctp1raytracer_tpu_torch.kernels import _build, tables
 from esctp1raytracer_tpu_torch.kernels.cull import block_cull_mask, extract_lists, group_cull_mask
-from esctp1raytracer_tpu_torch.kernels.rt_tile import (
-    COHERENT, RAY_W, ROWS, _clustered_tables, _eps_tensor, _orig, _pack_sub, _pad_rays, _ptr,
-    _sweep_occl as _tile_sweep_occl,
+from esctp1raytracer_tpu_torch.kernels.tables import (
+    RAY_W, ROWS, SUB, eps_tensor, orig_index, pad_rays, ptr, sweep_oversized,
 )
 from esctp1raytracer_tpu_torch.scene.types import TriangleBuffer
 from esctp1raytracer_tpu_torch.utils import profiling
 
 RAY_TILE = 128  # rays per group = threads per CUDA block
-SUB = 128  # triangles per block = 128 columns per quantity
 MXU_TRI_LIMIT = 32_768  # triangles per segment (256 blocks)
 
 _INT_BIG = 2**31 - 1
@@ -98,9 +93,7 @@ def _pack_mxu(sorted_tris: TriangleBuffer, exclude=None):
     columns (det = 0 fails the window) and an inverted box.
     """
     npad = sorted_tris.capacity
-    keep = sorted_tris.valid
-    if exclude is not None:
-        keep = keep & ~exclude
+    keep = sorted_tris.valid if exclude is None else sorted_tris.valid & ~exclude
     tf = tri_features(sorted_tris.v0, sorted_tris.v1, sorted_tris.v2)
     tf = torch.where(keep[:, None, None], tf, 0.0)  # [N, 16, 4]
     nsub = npad // SUB
@@ -108,14 +101,7 @@ def _pack_mxu(sorted_tris: TriangleBuffer, exclude=None):
            .permute(0, 2, 3, 1)  # [NSUB, 16, 4, 128]
            .reshape(nsub, 16, 4 * SUB)
            .contiguous())
-
-    v = torch.stack([sorted_tris.v0, sorted_tris.v1, sorted_tris.v2], dim=1)
-    bmin = torch.where(keep[:, None], torch.amin(v, dim=1), 1e30)
-    bmax = torch.where(keep[:, None], torch.amax(v, dim=1), -1e30)
-    blk_min = torch.amin(bmin.reshape(nsub, SUB, 3), dim=1)
-    blk_max = torch.amax(bmax.reshape(nsub, SUB, 3), dim=1)
-    aabbs = torch.cat([blk_min.T, blk_max.T, torch.zeros_like(blk_min.T[:2])], dim=0)
-    return tfq, aabbs
+    return tfq, tables.block_boxes(sorted_tris, keep)
 
 
 def _prep_mxu(o, d, aabbs, t_limit, m: int = RAY_TILE, cull_mode: str = "argsort"):
@@ -231,13 +217,12 @@ def _mxu_search_plain(eps, rays, aabbs, tfq, cnt_out=None, mode="argsort"):
 def _mxu_occl_plain(eps, rays, aabbs, tfq, ov=None, cnt_out=None, mode="argsort"):
     """Plain version of K2: `_prep_mxu`'s lists in `mode`, swept by
     `_sweep_occl`, ORed with every ray against the sub-block of plane
-    constants `ov` [1, 16, 128] when given (`rt_tile._sweep_occl`, as
+    constants `ov` [1, 16, 128] when given (`tables.sweep_oversized`, as
     K6's plain version does). Returns occluded [Rp] int32."""
     rf, ids, cnt, tl = _plain_lists(rays, aabbs, cnt_out, mode)
     occ = _sweep_occl(eps, ids, cnt, rf, tl, tfq).reshape(-1)
     if ov is not None:
-        b = rays.shape[0] // COHERENT
-        occ |= _tile_sweep_occl(eps, rays, ids.new_zeros((b, 1)), cnt.new_ones((b,)), ov)
+        occ |= sweep_oversized(eps, rays, ov)
     return occ
 
 
@@ -290,7 +275,7 @@ def mxu_kernel(eps, rays, aabbs, tfq, cnt_out=None, mode="argsort"):
     """K1, closest hit per ray over the blocks each 128-ray group keeps.
 
     eps f32 [1]; rays f32 [128G, 8] (o, d, t_limit, pad; from
-    `rt_tile._pad_rays`; t_limit only culls, t is never clamped to it);
+    `tables.pad_rays`; t_limit only culls, t is never clamped to it);
     aabbs f32 [8, NSUB] (NSUB <= 256); tfq f32 [NSUB, 16, 512]; cnt_out
     int32 [G] or None: receives each group's list length (padding-only
     blocks included); mode: the pre-pass mode whose lists the kernel walks
@@ -305,7 +290,7 @@ def mxu_kernel(eps, rays, aabbs, tfq, cnt_out=None, mode="argsort"):
     idx = torch.empty((RAY_TILE * g,), dtype=torch.int32, device=rays.device)
     if g:
         stream = torch.cuda.current_stream(rays.device).cuda_stream
-        ptrs = (_ptr(x) for x in (eps, rays, aabbs, tfq, t, idx, cnt_out))
+        ptrs = (ptr(x) for x in (eps, rays, aabbs, tfq, t, idx, cnt_out))
         if m == 0:
             err = _lib().rt_mxu_search(*ptrs, g, nsub, stream)
         else:
@@ -328,7 +313,7 @@ def mxu_occl_kernel(eps, rays, aabbs, tfq, ov=None, cnt_out=None, mode="argsort"
     occ = torch.empty((RAY_TILE * g,), dtype=torch.int32, device=rays.device)
     if g:
         stream = torch.cuda.current_stream(rays.device).cuda_stream
-        ptrs = (_ptr(x) for x in (eps, rays, aabbs, tfq, ov, occ, cnt_out))
+        ptrs = (ptr(x) for x in (eps, rays, aabbs, tfq, ov, occ, cnt_out))
         if m == 0:
             err = _lib().rt_mxu_occl(*ptrs, g, nsub, stream)
         else:
@@ -342,120 +327,15 @@ mxu_kernel.launches = 0
 mxu_occl_kernel.launches = 0
 
 
-def _sorted(tris: TriangleBuffer):
-    """Cluster-sort the table and pad it to whole segments.
-
-    Returns (sorted_tris, perm, exclude, nseg, ov_buf, ov_orig).
-    """
-    sorted_tris, perm, exclude, ov_buf, ov_orig = _clustered_tables(tris)
-    seg = MXU_TRI_LIMIT
-    nseg = -(-tris.capacity // seg)
-    pad = nseg * seg - tris.capacity if nseg > 1 else (-tris.capacity) % SUB
-    if pad:
-        filler = TriangleBuffer.empty(pad, device=perm.device)
-        sorted_tris = sorted_tris.map(lambda name, a: torch.cat([a, getattr(filler, name)]))
-        perm = torch.cat([perm, perm.new_full((pad,), NO_HIT)])
-        exclude = torch.cat([exclude, exclude.new_zeros((pad,))])
-    return sorted_tris, perm, exclude, nseg, ov_buf, ov_orig
-
-
-def _packed(sorted_tris, perm, exclude, nseg: int, exclude_oversized: bool) -> list:
-    """The segments of `_sorted`'s table: [(tfq, aabbs, perm_k)]."""
-    seg = sorted_tris.capacity // nseg
-    out = []
-    for k in range(nseg):
-        sl = slice(k * seg, (k + 1) * seg)
-        tfq, aabbs = _pack_mxu(sorted_tris.map(lambda _, a: a[sl]),
-                               exclude[sl] if exclude_oversized else None)
-        out.append((tfq, aabbs, perm[sl]))
-    return out
-
-
-def _segments(tris: TriangleBuffer, exclude_oversized: bool):
-    """Cluster-sort + slice into MXU_TRI_LIMIT-sized segments.
-
-    Returns (list of (tfq, aabbs, perm_k), ov_buf, ov_orig).
-    """
-    sorted_tris, perm, exclude, nseg, ov_buf, ov_orig = _sorted(tris)
-    return _packed(sorted_tris, perm, exclude, nseg, exclude_oversized), ov_buf, ov_orig
-
-
-class _Tables:
-    """One triangle table's search tables: the cluster sort (`_sorted`), the
-    packed segments with and without the oversized triangles and the
-    oversized sub-block. Each is built under no_grad from the detached
-    triangles the first time a search asks for it; the sort counts one
-    `rt_mxu.table_builds` on the innermost span."""
-
-    def __init__(self, tris: TriangleBuffer):
-        self.tris = tris.detach()  # holds the storages its key names
-        self._sorted = None
-        self._segments = {}
-        self._ov = None
-
-    def sorted(self):
-        if self._sorted is None:
-            profiling.count("rt_mxu.table_builds", 1)
-            with torch.no_grad():
-                self._sorted = _sorted(self.tris)
-        return self._sorted
-
-    def segments(self, exclude_oversized: bool) -> list:
-        if exclude_oversized not in self._segments:
-            sorted_tris, perm, exclude, nseg, _, _ = self.sorted()
-            with torch.no_grad():
-                self._segments[exclude_oversized] = _packed(sorted_tris, perm, exclude, nseg,
-                                                            exclude_oversized)
-        return self._segments[exclude_oversized]
-
-    def oversized(self) -> torch.Tensor:
-        if self._ov is None:
-            ov_buf = self.sorted()[4]
-            with torch.no_grad():
-                self._ov = _pack_sub(ov_buf)[0]
-        return self._ov
-
-
-_scope = threading.local()  # `memo`: the open `search_tables` block's tables by key
-
-
-@contextlib.contextmanager
-def search_tables():
-    """Share the searches' scene tables inside the block: the first search
-    call on a triangle table builds its `_Tables`, the later calls on the same
-    table reuse them. A nested block joins the open one; the tables go when
-    the outermost block closes, so none outlives the trace that built it, and
-    a CUDA graph captures the one build, which each replay runs again on its
-    inputs. Outside a block each call builds its own."""
-    if getattr(_scope, "memo", None) is not None:
-        yield
-        return
-    _scope.memo = {}
-    try:
-        yield
-    finally:
-        _scope.memo = None
-
-
-def _key(tris: TriangleBuffer) -> tuple:
-    """The identity of the triangles' storage, which `detach()` keeps: device,
-    address, shape, strides and version counter (an in-place write moves it)
-    of v0, v1, v2 and valid. Host metadata only: no read of the card."""
-    return tuple((t.device, t.data_ptr(), t.shape, t.stride(), t._version)
-                 for t in (tris.v0, tris.v1, tris.v2, tris.valid))
-
-
-def _tables(tris: TriangleBuffer) -> _Tables:
-    """`tris`' tables in the open `search_tables` block, else tables of this
-    call's own. Counts one `rt_mxu.table_calls` on the innermost span."""
+def _tables(tris: TriangleBuffer) -> tables.Tables:
+    """`tris`' tables (`tables.lookup`), counted on the innermost span: one
+    `rt_mxu.table_calls`, and one `rt_mxu.table_builds` where this call
+    builds the cluster sort."""
+    found = tables.lookup(tris)
     profiling.count("rt_mxu.table_calls", 1)
-    memo = getattr(_scope, "memo", None)
-    if memo is None:
-        return _Tables(tris)
-    key = _key(tris)
-    if key not in memo:
-        memo[key] = _Tables(tris)
-    return memo[key]
+    if not found.built:
+        profiling.count("rt_mxu.table_builds", 1)
+    return found
 
 
 def _tested(rays):
@@ -472,14 +352,14 @@ def mxu_tile_search(o, d, tris: TriangleBuffer, eps, t_limit=None):
     `t_limit` only culls (see `mxu_kernel`). Segments combine first-wins:
     an earlier segment keeps a tie. The span `rt_mxu.prepass` holds the
     rays' padding and the sort and pack where this call builds them
-    (`search_tables`); while spans are on, the counters `rt_mxu.table_calls`
+    (`tables.search_tables`); while spans are on, the counters `rt_mxu.table_calls`
     and `rt_mxu.table_builds` count the call and its build, and
     `rt_mxu.closest_hit_blocks` sums the blocks K1's groups test.
     """
     with profiling.annotate("rt_mxu.prepass"):
-        eps_arr = _eps_tensor(eps, o.device)
-        rays = _pad_rays(o, d, t_limit)
-        segments = _tables(tris).segments(exclude_oversized=False)
+        eps_arr = eps_tensor(eps, o.device)
+        rays = pad_rays(o, d, t_limit)
+        segments = _tables(tris).segments(_pack_mxu, MXU_TRI_LIMIT)
     r = o.shape[0]
     best_t = torch.full((r,), BIG, dtype=torch.float32, device=o.device)
     best_i = torch.full((r,), NO_HIT, dtype=torch.int32, device=o.device)
@@ -492,7 +372,7 @@ def mxu_tile_search(o, d, tris: TriangleBuffer, eps, t_limit=None):
         t_k, idx_k = t_k[:r], idx_k[:r]
         better = t_k < best_t
         best_t = torch.where(better, t_k, best_t)
-        best_i = torch.where(better, _orig(idx_k, perm_k), best_i)
+        best_i = torch.where(better, orig_index(idx_k, perm_k), best_i)
     return best_t, best_i
 
 
@@ -501,11 +381,11 @@ def mxu_tile_occlusion(o, d, t_limit, tris: TriangleBuffer, eps) -> torch.Tensor
     triangles go to the first segment's K2 launch as one extra sub-block.
     Spans and counter as `mxu_tile_search` (`rt_mxu.any_hit_blocks`)."""
     with profiling.annotate("rt_mxu.prepass"):
-        eps_arr = _eps_tensor(eps, o.device)
-        rays = _pad_rays(o, d, t_limit)
-        tables = _tables(tris)
-        segments = tables.segments(exclude_oversized=True)
-        ov = tables.oversized()
+        eps_arr = eps_tensor(eps, o.device)
+        rays = pad_rays(o, d, t_limit)
+        found = _tables(tris)
+        segments = found.segments(_pack_mxu, MXU_TRI_LIMIT, exclude_oversized=True)
+        ov = found.oversized()
     r = o.shape[0]
     occluded = torch.zeros((r,), dtype=torch.bool, device=o.device)
     mode = _resolve_cull_mode()

@@ -2,10 +2,11 @@
 
 Counterpart of `esctp1raytracer_tpu/kernels/rt_tile.py`. Triangles are
 cluster-sorted (Morton order, oversized ones segregated) and packed into
-sub-blocks of SUB = 128, each a [16, 128] slab of plane/barycentric
-constants: the table `tc` [NSUB, 16, 128] holds per triangle the normal,
-n.v0, w_u, b_u, w_v, b_v and keep (13 rows, padded to 16); dropped
-triangles have a zero normal, so det == 0 rejects them. Rays go in
+sub-blocks of SUB = 128 by the scene-table layer the mxtile search
+shares (`kernels/tables.py`, `pack_planes`), each a [16, 128] slab of
+plane/barycentric constants: the table `tc` [NSUB, 16, 128] holds per
+triangle the normal, n.v0, w_u, b_u, w_v, b_v and keep (13 rows, padded
+to 16); dropped triangles have a zero normal, so det == 0 rejects them. Rays go in
 bundles of COHERENT = 8. A bundle visits, in ascending order, the
 sub-blocks whose box (`aabbs` [8, NSUB]) one of its rays keeps in a slab
 test (`kernels/cull.py:block_cull_mask`). Two kernels, hand-written in
@@ -69,24 +70,21 @@ search 7-11x slower on the card.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 
 import torch
 
-from esctp1raytracer_tpu_torch.accel.clusters import build_clusters
-from esctp1raytracer_tpu_torch.core.intersect import BIG, NO_HIT, vec3
-from esctp1raytracer_tpu_torch.kernels import _build
+from esctp1raytracer_tpu_torch.core.intersect import BIG, NO_HIT
+from esctp1raytracer_tpu_torch.kernels import _build, tables
 from esctp1raytracer_tpu_torch.kernels.cull import block_cull_mask, extract_lists, group_cull_mask
 from esctp1raytracer_tpu_torch.kernels.lane_pallas import plane_pair
+from esctp1raytracer_tpu_torch.kernels.tables import (
+    RAY_GROUP, RAY_W, ROWS, SUB, eps_tensor, orig_index, pack_planes, pad_rays, plane_hits, ptr,
+    sweep_oversized,
+)
 from esctp1raytracer_tpu_torch.scene.types import TriangleBuffer
 
-RAY_GROUP = 128  # rays are padded to a multiple of this, as in the JAX package
 COHERENT = 8  # rays per bundle = one warp's rays in the kernels
-SUB = 128  # triangles per sub-block
 TILE_TRI_LIMIT = 131_072  # triangles per segment: NSUB <= 1024
-OVER_CAP = 128  # oversized triangles excluded from the occlusion tables: one sub-block
-ROWS = 16  # constant rows per sub-block (13 used)
-RAY_W = 8  # floats per ray: o, d, t_limit, pad
 # The list builder holds ~40 bytes per (ray, sub-block) pair of slab
 # temporaries at its peak (kernels/cull.py), so it streams in ray chunks
 # of about this many pairs: 64M pairs keep the peak near 2.7 GB, and
@@ -114,60 +112,11 @@ def _resolve_cull_mode() -> str:
     return "argsort" if CULL_MODE is None else CULL_MODE
 
 
-def _clustered_tables(tris: TriangleBuffer):
-    """Cluster-sort + segregate oversized triangles.
-
-    Returns (sorted_tris, perm, exclude [N] bool in sorted order,
-    ov_buf TriangleBuffer[OVER_CAP], ov_orig [OVER_CAP] original indices).
-    """
-    clustered = build_clusters(tris)
-    st, perm, ov = clustered.tris, clustered.perm, clustered.oversized
-    n = tris.capacity
-    pos = torch.arange(n, dtype=torch.int64, device=perm.device)
-    # Sorted layout is [normal | oversized | invalid]: the oversized run
-    # starts right after the normal ones; exclude at most OVER_CAP of them.
-    n_norm = torch.sum(st.valid & ~ov)
-    exclude = ov & (pos < n_norm + OVER_CAP)
-    idx = torch.clamp(n_norm + torch.arange(OVER_CAP, device=perm.device), max=n - 1)
-    ov_buf = dataclasses.replace(st.take(idx), valid=exclude[idx])
-    ov_orig = perm[idx]
-    return st, perm, exclude, ov_buf, ov_orig
-
-
 def _oversized_hits(o, d, ov_buf: TriangleBuffer, eps):
-    """One-pass sweep over the oversized set: (t [R, K], ok [R, K]).
-
-    The plane-constant formulation and op order of the JAX package's tile
-    kernels, so the merged result equals what the kernel would give.
-    """
-    v0, v1, v2 = ov_buf.v0, ov_buf.v1, ov_buf.v2
-    e1 = v1 - v0
-    e2 = v2 - v0
-    nrm = torch.linalg.cross(e1, e2)
-    nrm = torch.where(ov_buf.valid[:, None], nrm, 0.0)
-    nn = torch.sum(nrm * nrm, dim=-1, keepdim=True)
-    w_u = torch.linalg.cross(e2, nrm) / nn
-    w_v = torch.linalg.cross(nrm, e1) / nn
-    nv0 = torch.sum(nrm * v0, dim=-1)[None]
-    bu = -torch.sum(w_u * v0, dim=-1)[None]
-    bv = -torch.sum(w_v * v0, dim=-1)[None]
-
-    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
-    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-    nx, ny, nz = nrm[None, :, 0], nrm[None, :, 1], nrm[None, :, 2]
-    wux, wuy, wuz = w_u[None, :, 0], w_u[None, :, 1], w_u[None, :, 2]
-    wvx, wvy, wvz = w_v[None, :, 0], w_v[None, :, 1], w_v[None, :, 2]
-    det = -(dx * nx + dy * ny + dz * nz)
-    ok_det = torch.abs(det) >= eps
-    inv = 1.0 / torch.where(ok_det, det, 1.0)
-    t = ((ox * nx + oy * ny + oz * nz) - nv0) * inv
-    px = ox + t * dx
-    py = oy + t * dy
-    pz = oz + t * dz
-    u = wux * px + wuy * py + wuz * pz + bu
-    v = wvx * px + wvy * py + wvz * pz + bv
-    ok = ok_det & (torch.minimum(u, v) >= eps) & (u + v <= 1.0) & (t >= eps)
-    return t, ok
+    """One-pass sweep over the oversized set: (t [R, K], ok [R, K]), with
+    the kernels' constants (`tables.pack_planes`) and per-pair test, so the
+    merged result equals what the kernel would give."""
+    return plane_hits(o, d, pack_planes(ov_buf)[0][0], eps)
 
 
 def _oversized_occl(o, d, t_limit, ov_buf: TriangleBuffer, eps):
@@ -182,113 +131,8 @@ def _oversized_occl(o, d, t_limit, ov_buf: TriangleBuffer, eps):
 
 
 # --------------------------------------------------------------------------
-# Packing
+# The JAX package's per-bundle lists
 # --------------------------------------------------------------------------
-
-
-def _pad_sorted(sorted_tris: TriangleBuffer, perm, exclude, capacity: int):
-    """Pad the sorted table with invalid triangles to `capacity`."""
-    pad = capacity - sorted_tris.capacity
-    if not pad:
-        return sorted_tris, perm, exclude
-    filler = TriangleBuffer.empty(pad, device=perm.device)
-    sorted_tris = sorted_tris.map(lambda name, a: torch.cat([a, getattr(filler, name)]))
-    return (sorted_tris, torch.cat([perm, perm.new_full((pad,), NO_HIT)]),
-            torch.cat([exclude, exclude.new_zeros((pad,))]))
-
-
-def _pack_sub(sorted_tris: TriangleBuffer, exclude=None):
-    """Pack constants at SUB granularity: tc [NSUB, 16, 128], aabbs [8, NSUB].
-
-    Invalid or excluded triangles get a zero normal (det == 0 rejects
-    them; their w rows are NaN, as in the JAX package, and never read
-    past the det test) and an inverted box. Given the OVER_CAP oversized
-    triangles, it computes `_oversized_hits`' constants with its ops.
-    """
-    npad = sorted_tris.capacity
-    keep = sorted_tris.valid
-    if exclude is not None:
-        keep = keep & ~exclude
-    v0 = sorted_tris.v0
-    e1 = sorted_tris.v1 - v0
-    e2 = sorted_tris.v2 - v0
-    nrm = torch.linalg.cross(e1, e2)
-    nrm = torch.where(keep[:, None], nrm, 0.0)
-    nn = torch.sum(nrm * nrm, dim=-1, keepdim=True)
-    w_u = torch.linalg.cross(e2, nrm) / nn
-    w_v = torch.linalg.cross(nrm, e1) / nn
-    rows = [
-        nrm[:, 0], nrm[:, 1], nrm[:, 2], torch.sum(nrm * v0, dim=-1),
-        w_u[:, 0], w_u[:, 1], w_u[:, 2], -torch.sum(w_u * v0, dim=-1),
-        w_v[:, 0], w_v[:, 1], w_v[:, 2], -torch.sum(w_v * v0, dim=-1),
-        keep.to(torch.float32),
-    ]
-    table = torch.cat([torch.stack(rows), nrm.new_zeros((ROWS - len(rows), npad))])
-    nsub = npad // SUB
-    tc = table.reshape(ROWS, nsub, SUB).permute(1, 0, 2).contiguous()  # [NSUB, 16, 128]
-
-    v = torch.stack([v0, sorted_tris.v1, sorted_tris.v2], dim=1)
-    bmin = torch.where(keep[:, None], torch.amin(v, dim=1), 1e30)
-    bmax = torch.where(keep[:, None], torch.amax(v, dim=1), -1e30)
-    blk_min = torch.amin(bmin.reshape(nsub, SUB, 3), dim=1)
-    blk_max = torch.amax(bmax.reshape(nsub, SUB, 3), dim=1)
-    aabbs = torch.cat([blk_min.T, blk_max.T, torch.zeros_like(blk_min.T[:2])], dim=0)
-    return tc, aabbs
-
-
-def _sliced(tris: TriangleBuffer, exclude_oversized: bool = False):
-    """Cluster-sort, pad and pack the table in segments: one, padded to a
-    multiple of SUB, up to TILE_TRI_LIMIT triangles; else TILE_TRI_LIMIT-sized
-    ones.
-
-    Returns (generator of (tc [NSUB, 16, 128], aabbs [8, NSUB], perm_k
-    [NSUB * 128] padded with -1), ov_buf, ov_orig). With exclude_oversized
-    the tables reject the (up to OVER_CAP) oversized triangles, and the
-    caller tests `ov_buf` once, outside the segments' tables.
-    """
-    sorted_tris, perm, exclude, ov_buf, ov_orig = _clustered_tables(tris)
-    nseg = -(-tris.capacity // TILE_TRI_LIMIT)
-    capacity = nseg * TILE_TRI_LIMIT if nseg > 1 else tris.capacity + (-tris.capacity) % SUB
-    sorted_tris, perm, exclude = _pad_sorted(sorted_tris, perm, exclude, capacity)
-    seg = capacity // nseg
-
-    def segments():
-        for k in range(nseg):
-            sl = slice(k * seg, (k + 1) * seg)
-            tc, aabbs = _pack_sub(sorted_tris.map(lambda _, a: a[sl]),
-                                  exclude[sl] if exclude_oversized else None)
-            yield tc, aabbs, perm[sl]
-
-    return segments(), ov_buf, ov_orig
-
-
-def tri_constants_sub(tris: TriangleBuffer, exclude_oversized: bool = False):
-    """The one segment of a table of up to TILE_TRI_LIMIT triangles: (tc,
-    aabbs, perm, ov_buf, ov_orig), as `_sliced` gives them."""
-    segments, ov_buf, ov_orig = _sliced(tris, exclude_oversized)
-    (tc, aabbs, perm), = segments
-    return tc, aabbs, perm, ov_buf, ov_orig
-
-
-# --------------------------------------------------------------------------
-# Rays and the JAX package's per-bundle lists
-# --------------------------------------------------------------------------
-
-
-def _pad_rays(o, d, t_limit=None):
-    """Pad rays to RAY_GROUP and pack them: rays [Rp, 8] (o, d, t_limit, 0).
-    Without a t_limit the column holds +inf, which culls nothing
-    (`tn > inf` is false, NaN included). Pad rays (origin 0, direction +z,
-    t_limit -1 when there is one) are the JAX package's, so the lists of a
-    partly padded bundle are too."""
-    pad = (-o.shape[0]) % RAY_GROUP
-    if pad:
-        o = torch.cat([o, o.new_zeros((pad, 3))])
-        d = torch.cat([d, vec3(d, 0.0, 0.0, 1.0).expand(pad, 3)])
-        if t_limit is not None:
-            t_limit = torch.cat([t_limit, t_limit.new_full((pad,), -1.0)])
-    tl = o.new_full((o.shape[0], 1), float("inf")) if t_limit is None else t_limit[:, None]
-    return torch.cat([o, d, tl, o.new_zeros((o.shape[0], RAY_W - 7))], dim=1)
 
 
 def _hier_cull_lists(o, d, t_limit, aabbs):
@@ -486,7 +330,7 @@ def _tile_occl_plain(eps, rays, aabbs, tc, ov=None, cnt_out=None, mode="argsort"
         cnt_out.copy_(cnt)
     occ = _sweep_occl(eps, rays, ids, cnt, tc, early_exit)
     if ov is not None:
-        occ |= _sweep_occl(eps, rays, ids.new_zeros((cnt.shape[0], 1)), torch.ones_like(cnt), ov)
+        occ |= sweep_oversized(eps, rays, ov)
     return occ
 
 
@@ -532,10 +376,6 @@ def _check(eps, rays, aabbs, tc, ov=None, cnt_out=None):
     return b, nsub
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
 def _group_boxes(aabbs):
     """The kernels' first cull level, [8, ceil(NSUB / 32)]: per run of 32
     sub-blocks, the union of the boxes that are not inverted (rows 0-5;
@@ -555,7 +395,7 @@ def _group_boxes(aabbs):
 def tile_kernel(eps, rays, aabbs, tc, cnt_out=None, mode="argsort"):
     """K5, closest hit per ray over the sub-blocks each bundle keeps.
 
-    eps f32 [1]; rays f32 [8B, 8] (o, d, t_limit, pad; from `_pad_rays`;
+    eps f32 [1]; rays f32 [8B, 8] (o, d, t_limit, pad; from `tables.pad_rays`;
     t_limit only culls, t is never clamped to it); aabbs f32 [8, NSUB]; tc
     f32 [NSUB, 16, 128]; cnt_out int32 [B] or None: receives each bundle's
     list length (padding-only sub-blocks included; counting them costs the
@@ -572,10 +412,10 @@ def tile_kernel(eps, rays, aabbs, tc, cnt_out=None, mode="argsort"):
     if b:
         stream = torch.cuda.current_stream(rays.device).cuda_stream
         if m == 0:
-            ptrs = (_ptr(x) for x in (eps, rays, aabbs, _group_boxes(aabbs), tc, t, idx, cnt_out))
+            ptrs = (ptr(x) for x in (eps, rays, aabbs, _group_boxes(aabbs), tc, t, idx, cnt_out))
             err = _lib().rt_tile_search(*ptrs, b, nsub, stream)
         else:
-            ptrs = (_ptr(x) for x in (eps, rays, aabbs, tc, t, idx, cnt_out))
+            ptrs = (ptr(x) for x in (eps, rays, aabbs, tc, t, idx, cnt_out))
             err = _lib().rt_tile_search_mode(*ptrs, b, nsub, m, HIER_GROUP, HIER_K, stream)
         _build.check_launch(_lib(), "rt_tile", err)
         tile_kernel.launches += 1
@@ -598,10 +438,10 @@ def tile_occl_kernel(eps, rays, aabbs, tc, ov=None, cnt_out=None, mode="argsort"
     if b:
         stream = torch.cuda.current_stream(rays.device).cuda_stream
         if m == 0 and not early_exit:
-            ptrs = (_ptr(x) for x in (eps, rays, aabbs, _group_boxes(aabbs), tc, ov, occ, cnt_out))
+            ptrs = (ptr(x) for x in (eps, rays, aabbs, _group_boxes(aabbs), tc, ov, occ, cnt_out))
             err = _lib().rt_tile_occl(*ptrs, b, nsub, stream)
         else:
-            ptrs = (_ptr(x) for x in (eps, rays, aabbs, tc, ov, occ, cnt_out))
+            ptrs = (ptr(x) for x in (eps, rays, aabbs, tc, ov, occ, cnt_out))
             err = _lib().rt_tile_occl_mode(*ptrs, b, nsub, m, HIER_GROUP, HIER_K,
                                            max(int(early_exit), 1), stream)
         _build.check_launch(_lib(), "rt_tile", err)
@@ -618,35 +458,25 @@ tile_occl_kernel.launches = 0
 # --------------------------------------------------------------------------
 
 
-def _eps_tensor(eps: float, device):
-    """eps as the kernels' f32 [1], by a fill (a CUDA graph can capture it)."""
-    return torch.full((1,), eps, dtype=torch.float32, device=device)
-
-
-def _orig(idx, perm):
-    """Sorted index -> original index through perm (-1 stays -1)."""
-    return torch.where(idx >= 0, perm[torch.clamp(idx, min=0).long()], NO_HIT)
-
-
 def tile_tri_search(o, d, tris: TriangleBuffer, eps, t_limit=None):
     """tri_search hook (core/intersect.py contract): (best_t [R], orig idx [R]).
 
     `t_limit` only culls (see the module docstring). Segments combine
-    first-wins: an earlier segment keeps a tie.
+    first-wins: an earlier segment keeps a tie. The tables are
+    `tables.lookup`'s: built by this call, or shared in an open scope.
     """
-    eps_arr = _eps_tensor(eps, o.device)
+    eps_arr = eps_tensor(eps, o.device)
     r = o.shape[0]
-    rays = _pad_rays(o, d, t_limit)
+    rays = pad_rays(o, d, t_limit)
     best_t = torch.full((r,), BIG, dtype=torch.float32, device=o.device)
     best_i = torch.full((r,), NO_HIT, dtype=torch.int32, device=o.device)
-    segments, _, _ = _sliced(tris)
     mode = _resolve_cull_mode()
-    for tc, aabbs, perm_k in segments:
+    for tc, aabbs, perm_k in tables.lookup(tris).segments(pack_planes, TILE_TRI_LIMIT):
         t_k, idx_k = tile_kernel(eps_arr, rays, aabbs, tc, mode=mode)
         t_k, idx_k = t_k[:r], idx_k[:r]
         better = t_k < best_t
         best_t = torch.where(better, t_k, best_t)
-        best_i = torch.where(better, _orig(idx_k, perm_k), best_i)
+        best_i = torch.where(better, orig_index(idx_k, perm_k), best_i)
     return best_t, best_i
 
 
@@ -660,13 +490,15 @@ def _occl_mode() -> str:
 
 def tile_occlusion(o, d, t_limit, tris: TriangleBuffer, eps) -> torch.Tensor:
     """Occlusion [R] bool: any accepted hit in (eps, t_limit). The oversized
-    triangles go to the first segment's K6 launch as one extra sub-block."""
-    eps_arr = _eps_tensor(eps, o.device)
+    triangles go to the first segment's K6 launch as one extra sub-block.
+    Tables as `tile_tri_search`."""
+    eps_arr = eps_tensor(eps, o.device)
     r = o.shape[0]
-    rays = _pad_rays(o, d, t_limit)
+    rays = pad_rays(o, d, t_limit)
     occluded = torch.zeros((r,), dtype=torch.bool, device=o.device)
-    segments, ov_buf, _ = _sliced(tris, exclude_oversized=True)
-    ov, _ = _pack_sub(ov_buf)
+    found = tables.lookup(tris)
+    segments = found.segments(pack_planes, TILE_TRI_LIMIT, exclude_oversized=True)
+    ov = found.oversized()
     mode = _occl_mode()
     for k, (tc, aabbs, _) in enumerate(segments):
         occluded |= tile_occl_kernel(eps_arr, rays, aabbs, tc, ov if k == 0 else None,

@@ -24,6 +24,7 @@ from esctp1raytracer_tpu.scene import builders as jb  # noqa: E402
 from esctp1raytracer_tpu_torch.accel.clusters import build_clusters, morton_codes  # noqa: E402
 from esctp1raytracer_tpu_torch.kernels import rt_mxu as pm  # noqa: E402
 from esctp1raytracer_tpu_torch.kernels import rt_tile as pt  # noqa: E402
+from esctp1raytracer_tpu_torch.kernels import tables  # noqa: E402
 from esctp1raytracer_tpu_torch.scene.types import scene_from_numpy  # noqa: E402
 
 EPS = np.float32(np.finfo(np.float32).eps)
@@ -74,7 +75,7 @@ def test_build_clusters_match(scenes):
 def test_clustered_tables_match(scenes):
     js, ps = scenes
     outs_j = jt._clustered_tables(js.triangles)
-    outs_p = pt._clustered_tables(ps.triangles)
+    outs_p = tables.cluster_sort(ps.triangles)
     np.testing.assert_array_equal(outs_p[1].numpy(), np.asarray(outs_j[1]))  # perm
     np.testing.assert_array_equal(outs_p[2].numpy(), np.asarray(outs_j[2]))  # exclude
     np.testing.assert_array_equal(outs_p[3].valid.numpy(), np.asarray(outs_j[3].valid))
@@ -86,7 +87,8 @@ def test_clustered_tables_match(scenes):
 def test_pack_and_prep_match(scenes, exclude_oversized):
     js, ps = scenes
     (tfq_j, ab_j, perm_j), = list(jm._segments(js.triangles, exclude_oversized)[0])
-    (tfq_p, ab_p, perm_p), = list(pm._segments(ps.triangles, exclude_oversized)[0])
+    (tfq_p, ab_p, perm_p), = tables.Tables(ps.triangles).segments(pm._pack_mxu, pm.MXU_TRI_LIMIT,
+                                                                  exclude_oversized)
     np.testing.assert_array_equal(perm_p.numpy(), np.asarray(perm_j))
     np.testing.assert_allclose(tfq_p.numpy(), np.asarray(tfq_j), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(ab_p.numpy(), np.asarray(ab_j), rtol=1e-6)
@@ -107,7 +109,7 @@ def test_pack_and_prep_match(scenes, exclude_oversized):
 
 def test_oversized_occlusion_match(scenes):
     js, ps = scenes
-    ov_j, ov_p = jt._clustered_tables(js.triangles)[3], pt._clustered_tables(ps.triangles)[3]
+    ov_j, ov_p = jt._clustered_tables(js.triangles)[3], tables.cluster_sort(ps.triangles)[3]
     o, d = rays(32, 32)
     o = o + np.asarray([0.0, 0.5, 0.0], np.float32)
     d = -d  # some rays now point at the ground and the light from below

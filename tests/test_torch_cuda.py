@@ -33,7 +33,9 @@ torch.set_num_threads(1)  # one intra-op thread: the suite's parallel workers sh
 from esctp1raytracer_tpu_torch.core.camera import Camera  # noqa: E402
 from esctp1raytracer_tpu_torch.core.intersect import EPS, closest_hit  # noqa: E402
 from esctp1raytracer_tpu_torch.core.render import RenderConfig, render  # noqa: E402
-from esctp1raytracer_tpu_torch.kernels import fused_pallas, lane_pallas, rt_mxu, rt_tile  # noqa: E402
+from esctp1raytracer_tpu_torch.kernels import (  # noqa: E402
+    fused_pallas, lane_pallas, rt_mxu, rt_tile, tables,
+)
 from esctp1raytracer_tpu_torch.parallel.sharding import float_params, merge_params  # noqa: E402
 from esctp1raytracer_tpu_torch.scene import builders as b  # noqa: E402
 from esctp1raytracer_tpu_torch.scene.types import MeshData, TriangleBuffer  # noqa: E402
@@ -64,9 +66,13 @@ def scene():
 CAM = Camera.look_at((0.0, 2.0, 6.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=4 / 3, device="cpu")
 
 
+def _mxu_segments(tris, exclude_oversized):
+    return tables.Tables(tris).segments(rt_mxu._pack_mxu, rt_mxu.MXU_TRI_LIMIT, exclude_oversized)
+
+
 def _mxu_args(tris, o, d, tl, exclude_oversized):
-    (tfq, aabbs, _), = list(rt_mxu._segments(tris, exclude_oversized)[0])
-    return torch.tensor([EPS], device=o.device), rt_tile._pad_rays(o, d, tl), aabbs, tfq
+    (tfq, aabbs, _), = _mxu_segments(tris, exclude_oversized)
+    return torch.tensor([EPS], device=o.device), tables.pad_rays(o, d, tl), aabbs, tfq
 
 
 def _mxu_cnt(rays, aabbs):
@@ -91,7 +97,7 @@ def test_search_kernel_matches_plain(dev, scene, name):
     "padded": 64 padding-only blocks, which every ray keeps and K1 skips."""
     tris = _mxu_tris(scene, dev, name)
     if name == "axis":
-        (_, aabbs, _), = list(rt_mxu._segments(tris, False)[0])
+        (_, aabbs, _), = _mxu_segments(tris, False)
         o, d = (x.to(dev) for x in _axis_rays(aabbs))
     else:
         o, d = (x.reshape(-1, 3) for x in CAM.to(dev).ray_grid(160, 117))
@@ -124,7 +130,7 @@ def test_occl_kernel_matches_plain(dev, scene, name):
     sits above the area light, so the oversized triangles occlude."""
     tris = _mxu_tris(scene, dev, name)
     if name == "axis":
-        (_, aabbs, _), = list(rt_mxu._segments(tris, True)[0])
+        (_, aabbs, _), = _mxu_segments(tris, True)
         hp, sd = (x.to(dev) for x in _axis_rays(aabbs))
         tl = torch.from_numpy(np.random.RandomState(1).uniform(
             -1.0, 6.0, hp.shape[0]).astype(np.float32)).to(dev)
@@ -138,8 +144,8 @@ def test_occl_kernel_matches_plain(dev, scene, name):
         sd, tl = lv / dist[:, None], torch.where(hit.hit, dist - 1e-4, -1.0)
     r = hp.shape[0]
     eps, rays, aabbs, tfq = _mxu_args(tris, hp, sd, tl, True)
-    _, ov_buf, _ = rt_mxu._segments(tris, True)
-    ov, _ = rt_tile._pack_sub(ov_buf)
+    ov_buf = tables.cluster_sort(tris)[3]
+    ov, _ = tables.pack_planes(ov_buf)
     cnt = torch.full((rays.shape[0] // 128,), -1, dtype=torch.int32, device=dev)
     n0 = rt_mxu.mxu_occl_kernel.launches
     occ = rt_mxu.mxu_occl_kernel(eps, rays, aabbs, tfq, ov, cnt)
@@ -183,8 +189,8 @@ def test_occl_kernel_two_light_shadow_wavefront(dev):
     r = hp.shape[0]
     assert r == 2 * o.shape[0] and torch.equal(hp[0::2], hp[1::2])
     eps, rays, aabbs, tfq = _mxu_args(tris, hp, sd, tl, True)
-    _, ov_buf, _ = rt_mxu._segments(tris, True)
-    ov, _ = rt_tile._pack_sub(ov_buf)
+    ov_buf = tables.cluster_sort(tris)[3]
+    ov, _ = tables.pack_planes(ov_buf)
     cnt = torch.full((rays.shape[0] // 128,), -1, dtype=torch.int32, device=dev)
     n0 = rt_mxu.mxu_occl_kernel.launches
     occ = rt_mxu.mxu_occl_kernel(eps, rays, aabbs, tfq, ov, cnt)
@@ -484,9 +490,15 @@ def test_lane_and_fused_wrappers_reject_bad_inputs(dev):
         fused_pallas.fused_tables(sc.map(lambda n, t: t.double() if n == "triangles.ns" else t))
 
 
+def _tile_segments(tris, exclude_oversized=False):
+    return tables.Tables(tris).segments(tables.pack_planes, rt_tile.TILE_TRI_LIMIT,
+                                        exclude_oversized)
+
+
 def _tile_args(tris, o, d, tl, exclude_oversized):
-    tc, aabbs, _, ov_buf, _ = rt_tile.tri_constants_sub(tris, exclude_oversized)
-    return torch.tensor([EPS], device=o.device), rt_tile._pad_rays(o, d, tl), aabbs, tc, ov_buf
+    (tc, aabbs, _), = _tile_segments(tris, exclude_oversized)
+    ov_buf = tables.cluster_sort(tris)[3]
+    return torch.tensor([EPS], device=o.device), tables.pad_rays(o, d, tl), aabbs, tc, ov_buf
 
 
 def _shadow_rays(sc, o, d, light):
@@ -532,7 +544,7 @@ def test_tile_kernels_match_plain(dev, name):
         filler = TriangleBuffer.empty(64 * 128, device=dev)
         tris = tris.map(lambda leaf, a: torch.cat([a, getattr(filler, leaf)]))
     if name == "axis":
-        o, d = (x.to(dev) for x in _axis_rays(rt_tile.tri_constants_sub(tris)[1]))
+        o, d = (x.to(dev) for x in _axis_rays(_tile_segments(tris)[0][1]))
     else:
         o, d = (x.reshape(-1, 3).contiguous() for x in cam.to(dev).ray_grid(160, 117))
     r = o.shape[0]
@@ -560,7 +572,7 @@ def test_tile_kernels_match_plain(dev, name):
         hp, sd, stl = _shadow_rays(sc, o, d, [0.3, 5.9, 2.2] if name != "soup"
                                    else [0.2, 5.9, 0.1])
     eps, rays, aabbs, tc, ov_buf = _tile_args(tris, hp, sd, stl, True)
-    ov, _ = rt_tile._pack_sub(ov_buf)
+    ov, _ = tables.pack_planes(ov_buf)
     cnt, cnt2 = (torch.full((rays.shape[0] // 8,), -1, dtype=torch.int32, device=dev)
                  for _ in range(2))
     n0 = rt_tile.tile_occl_kernel.launches
@@ -917,7 +929,7 @@ def test_tile_mode_kernels_match_plain(dev, monkeypatch, case, name):
             rt_tile.tile_kernel(*_tile_args(tris, o, d, None, False)[:4], mode=mode)
     hp, sd, stl = _shadow_rays(sc.to(dev), o, d, [0.3, 5.9, 2.2])
     eps, rays, aabbs, tc, ov_buf = _tile_args(tris, hp, sd, stl, True)
-    ov, _ = rt_tile._pack_sub(ov_buf)
+    ov, _ = tables.pack_planes(ov_buf)
     kw = dict(mode=mode, early_exit=period)
     occ, cnt = counted(rt_tile.tile_occl_kernel, eps, rays, aabbs, tc, ov, **kw)
     occ1 = rt_tile.tile_occl_kernel(eps, rays, aabbs, tc, ov, **kw)
@@ -961,7 +973,7 @@ def test_mxu_mode_kernels_match_plain(dev, scene, name, mode):
     dist = lv.norm(dim=-1)
     eps, rays, aabbs, tfq = _mxu_args(tris, hp, lv / dist[:, None],
                                       torch.where(hit.hit, dist - 1e-4, -1.0), True)
-    ov, _ = rt_tile._pack_sub(rt_mxu._segments(tris, True)[1])
+    ov, _ = tables.pack_planes(tables.cluster_sort(tris)[3])
     cnt = torch.full_like(cnt, -1)
     occ = rt_mxu.mxu_occl_kernel(eps, rays, aabbs, tfq, ov, cnt, mode=mode)
     torch.cuda.synchronize()
@@ -1089,8 +1101,8 @@ def test_spanned_twin_render_bit_equal_timed_and_counted(dev, scene):
             _spans_cover_replay(profiling, prof, replay)
             o, d = (x.reshape(-1, 3).contiguous() for x in cam.ray_grid(SPAN_W, SPAN_H))
             hint, _ = _sphere_best(o, d, sc.spheres, EPS)
-            (tfq, aabbs, _), = list(rt_mxu._segments(sc.triangles, False)[0])
-            want = int(_mxu_cnt(rt_tile._pad_rays(o, d, hint), aabbs).sum())
+            (tfq, aabbs, _), = _mxu_segments(sc.triangles, False)
+            want = int(_mxu_cnt(tables.pad_rays(o, d, hint), aabbs).sum())
             assert root.count("rt_mxu.closest_hit_blocks") == want > 0
             assert root.count("rt_mxu.any_hit_blocks") > 0
             assert root.counts["alloc.device_mallocs"] >= 0
@@ -1195,8 +1207,8 @@ def test_graphed_rederive_builds_its_search_tables_on_each_replay(dev, monkeypat
     monkeypatch.setattr(fused_pallas, "BWD_MIN_RAYS", 1)
     monkeypatch.setattr(fused_pallas, "BWD_RAY_CHUNK", 32768)
     builds = []
-    build = rt_tile.build_clusters
-    monkeypatch.setattr(rt_tile, "build_clusters", lambda tris: builds.append(1) or build(tris))
+    build = tables.build_clusters
+    monkeypatch.setattr(tables, "build_clusters", lambda tris: builds.append(1) or build(tris))
     sc = b.mixed_scene(device="cpu").to(dev)
     cam = Camera.look_at((0.0, 2.5, 7.0), (0.0, 1.0, 0.0), vfov=60.0, aspect=16 / 9,
                          device="cpu").to(dev)

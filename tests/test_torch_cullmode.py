@@ -30,6 +30,7 @@ from esctp1raytracer_tpu.scene.types import TriangleBuffer as JTriangleBuffer  #
 import esctp1raytracer_tpu_torch.kernels.cull as pc  # noqa: E402
 import esctp1raytracer_tpu_torch.kernels.rt_mxu as pm  # noqa: E402
 import esctp1raytracer_tpu_torch.kernels.rt_tile as pt  # noqa: E402
+from esctp1raytracer_tpu_torch.kernels import tables  # noqa: E402
 from esctp1raytracer_tpu_torch.scene.types import scene_from_numpy  # noqa: E402
 
 EPS = np.float32(np.finfo(np.float32).eps)
@@ -217,7 +218,7 @@ def test_prep_lists_match_jax(aabbs, mode, rays):
     tl = np.random.RandomState(5).uniform(1.0, 8.0, o.shape[0]).astype(np.float32)
     for limit in (None, tl):
         want = _jax_prep_lists(o, d, aabbs, limit, mode)
-        rays = pt._pad_rays(T(o), T(d), None if limit is None else T(limit))
+        rays = tables.pad_rays(T(o), T(d), None if limit is None else T(limit))
         assert_lists_equal(pt._lists(rays, T(aabbs), mode), want)
 
 

@@ -117,7 +117,7 @@ def test_port_imports_no_jax_and_renders_on_cpu():
 def test_wrapper_on_cpu_tensor_runs_plain_version_without_launch():
     import torch
 
-    from esctp1raytracer_tpu_torch.kernels import rt_mxu, rt_tile
+    from esctp1raytracer_tpu_torch.kernels import rt_mxu, tables
 
     gen = torch.Generator().manual_seed(0)
     tfq = torch.randn(3, 16, 512, generator=gen)
@@ -128,8 +128,8 @@ def test_wrapper_on_cpu_tensor_runs_plain_version_without_launch():
     o = torch.cat([torch.rand(256, 2, generator=gen) - 0.5, torch.zeros(256, 1)], 1)
     d = torch.tensor([0.0, 0.0, 1.0]).repeat(256, 1)
     d[128:, 2] = -1.0
-    rays = rt_tile._pad_rays(o, d)
-    rays_tl = rt_tile._pad_rays(o, d, torch.full((256,), 50.0))
+    rays = tables.pad_rays(o, d)
+    rays_tl = tables.pad_rays(o, d, torch.full((256,), 50.0))
     eps = torch.tensor([1e-7])
     cnt, cnt2 = torch.zeros(2, dtype=torch.int32), torch.zeros(2, dtype=torch.int32)
     before = (rt_mxu.mxu_kernel.launches, rt_mxu.mxu_occl_kernel.launches)

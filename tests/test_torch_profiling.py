@@ -20,7 +20,7 @@ from esctp1raytracer_tpu_torch.core.camera import Camera  # noqa: E402
 from esctp1raytracer_tpu_torch.core.intersect import EPS, _sphere_best  # noqa: E402
 from esctp1raytracer_tpu_torch.core.render import RenderConfig, render  # noqa: E402
 from esctp1raytracer_tpu_torch.grad import optimize  # noqa: E402
-from esctp1raytracer_tpu_torch.kernels import rt_mxu, rt_tile  # noqa: E402
+from esctp1raytracer_tpu_torch.kernels import rt_mxu, tables  # noqa: E402
 from esctp1raytracer_tpu_torch.parallel.sharding import float_params  # noqa: E402
 from esctp1raytracer_tpu_torch.scene import builders as b  # noqa: E402
 from esctp1raytracer_tpu_torch.utils import graphs, profiling  # noqa: E402
@@ -282,8 +282,9 @@ def test_cpu_render_spans_and_k1_count(scene, fresh):
         ("shading.shade", [("intersect.any_hit", [("rt_mxu.prepass", [])])])]
     o, d = (x.reshape(-1, 3) for x in CAM.ray_grid(W, H))
     hint, _ = _sphere_best(o, d, scene.spheres, EPS)
-    (_, aabbs, _), = list(rt_mxu._segments(scene.triangles, False)[0])
-    rays = rt_tile._pad_rays(o, d, hint)
+    (_, aabbs, _), = tables.Tables(scene.triangles).segments(rt_mxu._pack_mxu,
+                                                             rt_mxu.MXU_TRI_LIMIT)
+    rays = tables.pad_rays(o, d, hint)
     want = int(rt_mxu._prep_mxu(rays[:, 0:3], rays[:, 3:6], aabbs, rays[:, 6])[2].sum())
     search, shade = profiling.records()[1:]
     assert search.count("rt_mxu.closest_hit_blocks") == want > 0

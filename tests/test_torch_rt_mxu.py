@@ -24,6 +24,7 @@ from esctp1raytracer_tpu.core.intersect import closest_hit  # noqa: E402
 from esctp1raytracer_tpu.scene import builders as jb  # noqa: E402
 import esctp1raytracer_tpu_torch.kernels.rt_mxu as pm  # noqa: E402
 import esctp1raytracer_tpu_torch.kernels.rt_tile as pt  # noqa: E402
+from esctp1raytracer_tpu_torch.kernels import tables  # noqa: E402
 from esctp1raytracer_tpu_torch.scene.types import scene_from_numpy  # noqa: E402
 
 EPS = np.float32(np.finfo(np.float32).eps)
@@ -154,7 +155,7 @@ def test_plain_search_matches_jax_kernel(scenes, limit):
     tj, ij = jm._mxu_search(jnp.asarray(o), jnp.asarray(d), jnp.asarray(tfq), jnp.asarray(aabbs),
                             JEPS, None if tl is None else jnp.asarray(tl), interpret=True,
                             cull_mode="argsort")
-    rays_p = pt._pad_rays(T(o), T(d), None if tl is None else T(tl))
+    rays_p = tables.pad_rays(T(o), T(d), None if tl is None else T(tl))
     cnt = torch.full((rays_p.shape[0] // 128,), -1, dtype=torch.int32)
     tp, ip = pm.mxu_kernel(torch.tensor([EPS]), rays_p, T(aabbs), T(tfq), cnt_out=cnt)
     assert tp.shape == ip.shape == (rays_p.shape[0],)
@@ -186,7 +187,7 @@ def test_plain_occl_matches_jax_kernel(scenes):
     occ_j = np.asarray(jm._mxu_occl(jnp.asarray(o), jnp.asarray(d), jnp.asarray(tl),
                                     jnp.asarray(tfq), jnp.asarray(aabbs), JEPS,
                                     interpret=True, cull_mode="argsort"))
-    rays_p = pt._pad_rays(T(o), T(d), T(tl))
+    rays_p = tables.pad_rays(T(o), T(d), T(tl))
     cnt = torch.full((rays_p.shape[0] // 128,), -1, dtype=torch.int32)
     occ_p = pm.mxu_occl_kernel(torch.tensor([EPS]), rays_p, T(aabbs), T(tfq), cnt_out=cnt)
     assert occ_p.shape == (rays_p.shape[0],) and occ_p.dtype == torch.int32
@@ -194,8 +195,8 @@ def test_plain_occl_matches_jax_kernel(scenes):
     assert (occ_j == occ_p.numpy()).mean() > 0.999
     assert np.array_equal(cnt.numpy(), _jax_cnt(o, d, aabbs, tl))
 
-    _, ov_buf, _ = pm._segments(ps.triangles, exclude_oversized=True)
-    ov, _ = pt._pack_sub(ov_buf)
+    ov_buf = tables.cluster_sort(ps.triangles)[3]
+    ov, _ = tables.pack_planes(ov_buf)
     folded = pm.mxu_occl_kernel(torch.tensor([EPS]), rays_p, T(aabbs), T(tfq), ov)[:r] > 0
     over = pt._oversized_occl(T(o), T(d), T(tl), ov_buf, float(EPS))
     assert torch.equal(folded, occ_p | over)

@@ -1,13 +1,15 @@
-"""Port: the mxtile search's scene tables, built once per trace
-(`kernels/rt_mxu.py:search_tables`), on the CPU.
+"""Port: the segmented searches' scene tables, built once per trace
+(`kernels/tables.py:search_tables`), on the CPU.
 
 The cluster sort and the packed tables depend on the triangles alone, so a
 `trace_rays` call and the fused backward's re-derivation build them once and
-share them with every search call of their chunks and bounces. Held here on
-config 4's scene (`mixed_scene()`, depth 4) at a small size: one sort per
-trace or re-derivation, counted at `build_clusters`; the colour and every
-leaf's gradient bit-equal to a run with the scope replaced by a null
-context (a build per search call); and no table kept past its trace.
+share them with every search call of their chunks and bounces, on the
+mxtile route and on the tile route. Held here on config 4's scene
+(`mixed_scene()`, depth 4) at a small size: one sort per trace or
+re-derivation, counted at `build_clusters`; the colour and every leaf's
+gradient bit-equal to a run with the scope replaced by a null context (a
+build per search call); and no table kept past its trace. Both routes'
+packs take their block boxes from one function.
 """
 
 import contextlib
@@ -19,9 +21,11 @@ torch.set_num_threads(1)  # one intra-op thread: the suite's parallel workers sh
 
 from esctp1raytracer_tpu_torch.core.camera import Camera  # noqa: E402
 from esctp1raytracer_tpu_torch.core.render import RenderConfig, trace_rays  # noqa: E402
-from esctp1raytracer_tpu_torch.kernels import fused_pallas, rt_mxu, rt_tile  # noqa: E402
+from esctp1raytracer_tpu_torch.kernels import fused_pallas, rt_mxu, rt_tile, tables  # noqa: E402
 from esctp1raytracer_tpu_torch.scene import builders  # noqa: E402
-from esctp1raytracer_tpu_torch.scene.types import float_params, merge_params  # noqa: E402
+from esctp1raytracer_tpu_torch.scene.types import (  # noqa: E402
+    TriangleBuffer, float_params, merge_params,
+)
 
 W, H = 32, 18  # 576 camera rays
 DEPTH = 4
@@ -39,8 +43,8 @@ def builds(monkeypatch):
     """The search's cluster sorts, counted (the fused forward's table build
     calls `build_clusters` through its own module, and is not counted)."""
     calls = []
-    build = rt_tile.build_clusters
-    monkeypatch.setattr(rt_tile, "build_clusters", lambda tris: calls.append(1) or build(tris))
+    build = tables.build_clusters
+    monkeypatch.setattr(tables, "build_clusters", lambda tris: calls.append(1) or build(tris))
     return calls
 
 
@@ -73,21 +77,34 @@ def _chunks(chunk):
     return -(-W * H // chunk) if chunk else 1
 
 
-@pytest.mark.parametrize("chunk", [0, CHUNK])
-def test_one_build_per_trace_rays_call(scene, builds, chunk, monkeypatch):
-    """mxtile's plain route at depth 4, whole and in ray chunks: one cluster
-    sort for the call, where a search per call builds one for each of its
-    2 x depth x chunks searches; colour and gradients bit-equal."""
-    cfg = RenderConfig(backend="mxtile", depth=DEPTH, ray_chunk=chunk)
+def _one_build_per_call(scene, builds, cfg, monkeypatch):
+    """One cluster sort for a `trace_rays` call on `cfg`, where a search per
+    call builds one for each of its 2 x depth x chunks searches; colour and
+    gradients bit-equal."""
     shared = _color_and_grads(scene, cfg)
     assert len(builds) == 1
-    assert rt_mxu._scope.memo is None
+    assert tables._scope.memo is None
     builds.clear()
-    monkeypatch.setattr(rt_mxu, "search_tables", contextlib.nullcontext)
+    monkeypatch.setattr(tables, "search_tables", contextlib.nullcontext)
     per_call = _color_and_grads(scene, cfg)
-    assert len(builds) == 2 * DEPTH * _chunks(chunk)
+    assert len(builds) == 2 * DEPTH * _chunks(cfg.ray_chunk)
     _assert_bit_equal(shared, per_call)
     assert any(g is not None and bool(g.abs().sum() > 0) for g in shared[1])
+
+
+@pytest.mark.parametrize("chunk", [0, CHUNK])
+def test_one_build_per_trace_rays_call(scene, builds, chunk, monkeypatch):
+    """mxtile's plain route at depth 4, whole and in ray chunks."""
+    _one_build_per_call(scene, builds, RenderConfig(backend="mxtile", depth=DEPTH, ray_chunk=chunk),
+                        monkeypatch)
+
+
+@pytest.mark.parametrize("chunk", [0, CHUNK])
+def test_one_build_per_tile_trace_rays_call(scene, builds, chunk, monkeypatch):
+    """The tile route's plain version at depth 4, whole and in ray chunks: its
+    closest-hit and any-hit searches share one sort, as mxtile's do."""
+    _one_build_per_call(scene, builds, RenderConfig(backend="tile", depth=DEPTH, ray_chunk=chunk),
+                        monkeypatch)
 
 
 def test_one_build_per_rederivation(scene, builds, monkeypatch):
@@ -100,9 +117,9 @@ def test_one_build_per_rederivation(scene, builds, monkeypatch):
     assert fused_pallas.fused_supported(scene, DEPTH, cfg.light_mode)
     shared = _color_and_grads(scene, cfg)
     assert len(builds) == 1
-    assert rt_mxu._scope.memo is None
+    assert tables._scope.memo is None
     builds.clear()
-    monkeypatch.setattr(rt_mxu, "search_tables", contextlib.nullcontext)
+    monkeypatch.setattr(tables, "search_tables", contextlib.nullcontext)
     per_call = _color_and_grads(scene, cfg)
     assert len(builds) == 2 * DEPTH * _chunks(CHUNK)
     _assert_bit_equal(shared, per_call)
@@ -129,7 +146,7 @@ def test_no_table_outlives_its_trace(builds):
     first = _trace(scene, cfg)
     _moved(scene)
     second = _trace(scene, cfg)
-    assert len(builds) == 2 and rt_mxu._scope.memo is None
+    assert len(builds) == 2 and tables._scope.memo is None
     fresh = _trace(scene.map(lambda _, t: t.clone()), cfg)
     assert torch.equal(second, fresh) and not torch.equal(second, first)
 
@@ -142,9 +159,9 @@ def test_a_scope_keys_tables_by_triangle_storage(builds):
     scene = builders.mixed_scene(device="cpu")
     copy = scene.map(lambda _, t: t.clone())
     cfg = RenderConfig(backend="mxtile", depth=2)
-    with rt_mxu.search_tables():
+    with tables.search_tables():
         a = _trace(scene, cfg)
-        assert len(builds) == 1 and len(rt_mxu._scope.memo) == 1
+        assert len(builds) == 1 and len(tables._scope.memo) == 1
         assert torch.equal(_trace(scene, cfg), a) and len(builds) == 1
         assert torch.equal(_trace(copy, cfg), a) and len(builds) == 2
         _moved(scene)
@@ -152,7 +169,7 @@ def test_a_scope_keys_tables_by_triangle_storage(builds):
         b = _trace(scene, cfg)
         assert len(builds) == 3 and not torch.equal(b, a)
         assert torch.equal(_trace(copy.map(lambda _, t: t.clone()), cfg), b)
-    assert rt_mxu._scope.memo is None
+    assert tables._scope.memo is None
 
 
 def test_search_outside_a_scope_builds_per_call(scene, builds):
@@ -163,3 +180,49 @@ def test_search_outside_a_scope_builds_per_call(scene, builds):
         t0, i0 = rt_mxu.mxu_tile_search(o, d, scene.triangles, 1e-6)
         t1, i1 = rt_mxu.mxu_tile_search(o, d, scene.triangles, 1e-6)
     assert len(builds) == 2 and torch.equal(t0, t1) and torch.equal(i0, i1)
+
+
+def test_tile_search_outside_a_scope_builds_per_call(scene, builds):
+    """The tile route's searches, each called on its own, build their tables
+    for that call and keep none."""
+    o, d, _ = _rays()
+    tl = torch.full((o.shape[0],), 6.0)
+    with torch.no_grad():
+        t0, i0 = rt_tile.tile_tri_search(o, d, scene.triangles, 1e-6)
+        t1, i1 = rt_tile.tile_tri_search(o, d, scene.triangles, 1e-6)
+        occ = [rt_tile.tile_occlusion(o, d, tl, scene.triangles, 1e-6) for _ in range(2)]
+    assert len(builds) == 4 and torch.equal(t0, t1) and torch.equal(i0, i1)
+    assert torch.equal(*occ) and bool((i0 >= 0).any()) and bool(occ[0].any())
+
+
+def _box_table():
+    """Three blocks of random triangles: every third one invalid, the last
+    block all invalid (padding only)."""
+    n = 3 * 128
+    v = torch.randn(n, 3, 3, generator=torch.Generator().manual_seed(3)) * 4.0
+    valid = (torch.arange(n) % 3 != 0) & (torch.arange(n) < 256)
+    leaves = {"v0": v[:, 0], "v1": v[:, 1], "v2": v[:, 2], "valid": valid}
+    return TriangleBuffer.empty(n, device="cpu").map(lambda name, a: leaves.get(name, a))
+
+
+@pytest.mark.parametrize("exclude", [False, True], ids=["search", "occlusion"])
+def test_both_formats_share_the_block_boxes(exclude):
+    """mxtile's feature columns (`rt_mxu._pack_mxu`) and the plane constants
+    (`tables.pack_planes`) carry the boxes of `tables.block_boxes`: per block
+    of 128, the min and max of its kept triangles' vertices (a loop here),
+    inverted (1e30 > -1e30) where it keeps none; bit for bit, with and
+    without excluded triangles."""
+    tris = _box_table()
+    n = tris.capacity
+    drop = torch.arange(n) % 5 == 0 if exclude else None
+    keep = tris.valid if drop is None else tris.valid & ~drop
+    v = torch.stack([tris.v0, tris.v1, tris.v2], dim=1)
+    want = torch.zeros(8, n // 128)
+    for k in range(n // 128):
+        kv = v[k * 128:(k + 1) * 128][keep[k * 128:(k + 1) * 128]].reshape(-1, 3)
+        lo, hi = (kv.amin(0), kv.amax(0)) if kv.shape[0] else (1e30, -1e30)
+        want[0:3, k], want[3:6, k] = lo, hi
+    assert bool((want[0:3, :2] < want[3:6, :2]).all()) and bool((want[0:3, 2] > want[3:6, 2]).all())
+    assert torch.equal(tables.block_boxes(tris, keep), want)
+    for pack in (rt_mxu._pack_mxu, tables.pack_planes):
+        assert torch.equal(pack(tris, drop)[1], want)

@@ -28,6 +28,7 @@ from esctp1raytracer_tpu.core.camera import Camera  # noqa: E402
 from esctp1raytracer_tpu.core.intersect import argmin_hit  # noqa: E402
 from esctp1raytracer_tpu.scene import builders as jb  # noqa: E402
 import esctp1raytracer_tpu_torch.kernels.rt_tile as pt  # noqa: E402
+from esctp1raytracer_tpu_torch.kernels import tables  # noqa: E402
 from esctp1raytracer_tpu_torch.kernels.cull import block_cull_mask  # noqa: E402
 from esctp1raytracer_tpu_torch.core.intersect import BIG  # noqa: E402
 from esctp1raytracer_tpu_torch.scene.types import TriangleBuffer, scene_from_numpy  # noqa: E402
@@ -47,6 +48,16 @@ def to_port(scene):
     return scene_from_numpy({jax.tree_util.keystr(p)[1:]: np.asarray(v)
                              for p, v in jax.tree_util.tree_flatten_with_path(scene)[0]},
                             device="cpu")
+
+
+def tri_constants_sub(tris, exclude_oversized=False):
+    """The one segment of a table of up to TILE_TRI_LIMIT triangles, from the
+    shared scene tables: (tc, aabbs, perm, ov_buf, ov_orig), as the JAX
+    package's `tri_constants_sub` gives them."""
+    found = tables.Tables(tris)
+    (tc, aabbs, perm), = found.segments(tables.pack_planes, pt.TILE_TRI_LIMIT, exclude_oversized)
+    _, _, _, ov_buf, ov_orig = found.sort()
+    return tc, aabbs, perm, ov_buf, ov_orig
 
 
 def rays(cam, w, h):
@@ -95,7 +106,7 @@ def assert_search_agrees(tj, ij, tp, ip, min_hits=0.3):
 def test_tables_match_jax(name, exclude):
     js, ps, _, _ = case(name)
     tc_j, ab_j, perm_j, ov_j, orig_j = jt.tri_constants_sub(js.triangles, exclude)
-    tc_p, ab_p, perm_p, ov_p, orig_p = pt.tri_constants_sub(ps.triangles, exclude)
+    tc_p, ab_p, perm_p, ov_p, orig_p = tri_constants_sub(ps.triangles, exclude)
     a, b = np.asarray(tc_j), tc_p.numpy()
     assert b.shape == a.shape == (ps.num_triangles // 128, 16, 128)
     nan = np.isnan(a)  # dropped triangles' w rows: 0 / 0 in both packages
@@ -122,7 +133,7 @@ def test_prepass_matches_jax(name, with_limit):
     tl = hint(ps, o, d) if with_limit else None
     rays_j, ids_j, cnt_j, rp, nsub, _ = jt._prep(J(o), J(d), ab_j, None if tl is None else J(tl),
                                                  "argsort")
-    rays_p = pt._pad_rays(T(o), T(d), None if tl is None else T(tl))
+    rays_p = tables.pad_rays(T(o), T(d), None if tl is None else T(tl))
     ids_p, cnt_p = pt._lists(rays_p, T(np.asarray(ab_j)))
     ids_j, cnt_j = np.asarray(ids_j).reshape(-1, nsub), np.asarray(cnt_j).reshape(-1)
     assert ids_p.shape == (rp // 8, nsub) and ids_p.dtype == cnt_p.dtype == torch.int32
@@ -148,12 +159,12 @@ def test_plain_versions_sweep_jax_lists(name, with_limit):
     eps = torch.tensor([EPS])
     wavefronts = [("search", False)] + ([("occlusion", True)] if with_limit else [])
     for what, exclude in wavefronts:
-        tc, aabbs, _, _, _ = pt.tri_constants_sub(ps.triangles, exclude)
+        tc, aabbs, _, _, _ = tri_constants_sub(ps.triangles, exclude)
         _, ids_j, cnt_j, _, nsub, _ = jt._prep(J(o), J(d), J(aabbs.numpy()),
                                                None if tl is None else J(tl), "argsort")
         ids_j = T(np.asarray(ids_j).reshape(-1, nsub))
         cnt_j = T(np.asarray(cnt_j).reshape(-1))
-        rays = pt._pad_rays(T(o), T(d), None if tl is None else T(tl))
+        rays = tables.pad_rays(T(o), T(d), None if tl is None else T(tl))
         cnt_out = torch.full_like(cnt_j, -1)
         if what == "search":
             got = pt.tile_kernel(eps, rays, aabbs, tc, cnt_out)
@@ -232,8 +243,8 @@ def test_sliced_segments_match_resident(monkeypatch):
     _, ps, o, d = case("mesh3")  # capacity 1536: 2 segments of 1024
     ref = _search_and_occlusion(ps, o, d)
     monkeypatch.setattr(pt, "TILE_TRI_LIMIT", 1024)
-    segs, _, _ = pt._sliced(ps.triangles)
-    assert len(list(segs)) == 2
+    segs = tables.Tables(ps.triangles).segments(tables.pack_planes, pt.TILE_TRI_LIMIT)
+    assert len(segs) == 2
     for a, b in zip(ref, _search_and_occlusion(ps, o, d)):
         assert torch.equal(a, b)
     assert bool(ref[2].any()) and bool((ref[1] >= 0).any())
@@ -244,8 +255,8 @@ def test_chunked_prepass_matches_one_shot(monkeypatch):
     pairs; the lists, and so every result, of nine chunks equal those of
     one chunk (the default here) exactly."""
     _, ps, o, d = case("mesh2")  # 2304 rays x 4 sub-blocks
-    _, aabbs, _, _, _ = pt.tri_constants_sub(ps.triangles)
-    rays = pt._pad_rays(T(o), T(d), T(hint(ps, o, d)))
+    _, aabbs, _, _, _ = tri_constants_sub(ps.triangles)
+    rays = tables.pad_rays(T(o), T(d), T(hint(ps, o, d)))
     one = pt._lists(rays, aabbs)
     ref = _search_and_occlusion(ps, o, d)
     monkeypatch.setattr(pt, "_PREPASS_ELEMS", 4096)  # 9 chunks of 256 rays
@@ -262,7 +273,7 @@ def test_chunked_oversized_sweep_matches_one_shot(monkeypatch):
     its answers equal the one-shot sweep's exactly, and JAX's."""
     js, ps, o, d = case("mesh3")  # the ground plane and the light are oversized
     _, _, _, ov_j, _ = jt.tri_constants_sub(js.triangles, True)
-    _, _, _, ov_p, _ = pt.tri_constants_sub(ps.triangles, True)
+    _, _, _, ov_p, _ = tri_constants_sub(ps.triangles, True)
     tl = np.random.RandomState(5).uniform(0.0, 12.0, o.shape[0]).astype(np.float32)
     one = pt._oversized_occl(T(o), T(d), T(tl), ov_p, float(EPS))
     monkeypatch.setattr(pt, "_SWEEP_RAYS", 300)  # 4 chunks, the last partial
@@ -284,7 +295,7 @@ def _tie_table():
         v2[i] = torch.tensor([0.0, 1.0, 0.0])
         valid[i] = True
     tris = dataclasses.replace(TriangleBuffer.empty(n, device="cpu"), v0=v0, v1=v1, v2=v2, valid=valid)
-    tc, _ = pt._pack_sub(tris)
+    tc, _ = tables.pack_planes(tris)
     return tc
 
 
@@ -339,11 +350,12 @@ def test_padding_only_sub_blocks_change_nothing(monkeypatch):
     _, ps, o, d = case("mesh3")
     monkeypatch.setattr(pt, "TILE_TRI_LIMIT", 1024)
     tl = hint(ps, o, d)
-    rays = pt._pad_rays(T(o), T(d), T(tl))
+    rays = tables.pad_rays(T(o), T(d), T(tl))
     eps = torch.tensor([EPS])
     dropped = 0
     for exclude in (False, True):
-        segs, _, _ = pt._sliced(ps.triangles, exclude_oversized=exclude)
+        segs = tables.Tables(ps.triangles).segments(tables.pack_planes, pt.TILE_TRI_LIMIT,
+                                                    exclude)
         for tc, aabbs, _ in segs:
             ids, cnt = pt._lists(rays, aabbs)
             ids2, cnt2 = _without_padding_only(ids, cnt, aabbs)
@@ -364,10 +376,10 @@ def test_oversized_sub_block_folds_into_occlusion():
     exactly, and the entry point gives that answer."""
     _, ps, o, d = case("mesh3")  # the ground plane and the light are oversized
     tl = np.random.RandomState(5).uniform(0.0, 12.0, o.shape[0]).astype(np.float32)
-    tc, aabbs, _, ov_buf, _ = pt.tri_constants_sub(ps.triangles, True)
-    ov, _ = pt._pack_sub(ov_buf)
+    tc, aabbs, _, ov_buf, _ = tri_constants_sub(ps.triangles, True)
+    ov, _ = tables.pack_planes(ov_buf)
     assert ov.shape == (1, 16, 128)
-    rays, eps, r = pt._pad_rays(T(o), T(d), T(tl)), torch.tensor([EPS]), o.shape[0]
+    rays, eps, r = tables.pad_rays(T(o), T(d), T(tl)), torch.tensor([EPS]), o.shape[0]
     folded = pt._tile_occl_plain(eps, rays, aabbs, tc, ov)[:r] > 0
     segment = pt._tile_occl_plain(eps, rays, aabbs, tc)[:r] > 0
     oversized = pt._oversized_occl(T(o), T(d), T(tl), ov_buf, float(EPS))
