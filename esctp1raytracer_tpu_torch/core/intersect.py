@@ -13,6 +13,14 @@ function:
   detached inputs and then recomputes t/u/v differentiably at the single
   winning primitive per ray (an O(R) gather), so the backward never
   touches the search.
+
+The sphere sites (`argmin_hit`'s sphere search, `any_hit`'s sphere term,
+`closest_hit`'s sphere recompute and shading's `surface_attributes`) run
+over the sphere table's occupied slots [0, `SphereBuffer.slots`) and not
+at all when there are none: the padded slots can never win. While spans
+are on, each adds the rows it ran over and the table's slots to its
+innermost span as the counters `intersect.sphere_slots` and
+`intersect.sphere_capacity` (`count_sphere_slots`).
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch
 
 from esctp1raytracer_tpu_torch.kernels.winner import winner_fields
 from esctp1raytracer_tpu_torch.scene.types import Scene, SphereBuffer, TriangleBuffer
+from esctp1raytracer_tpu_torch.utils import profiling
 from esctp1raytracer_tpu_torch.utils.profiling import annotate
 
 # float32 machine epsilon (the reference's std::numeric_limits<float>::epsilon()).
@@ -32,6 +41,7 @@ EPS = float(np.finfo(np.float32).eps)
 T_MAX = float(torch.finfo(torch.float32).max)  # the largest float32, as in the JAX package
 BIG = 1e30  # miss sentinel
 NO_HIT = -1
+SELECT_LIMIT = 16  # the most rows `select_rows` reads by a select chain
 
 # Pass each ray's best sphere hit as a t-ceiling to the triangle search's
 # cull pre-pass (argmin_hit). A real sphere hit bounds the winner, so this
@@ -212,13 +222,24 @@ def _scan_blocks(o, d, tris: TriangleBuffer, eps, block_size: int, use_mxu: bool
     return best_t, best_idx
 
 
+def count_sphere_slots(spheres: SphereBuffer) -> None:
+    """A sphere site's counters (module docstring): Python ints, no tensor read."""
+    profiling.count("intersect.sphere_slots", spheres.slots)
+    profiling.count("intersect.sphere_capacity", spheres.capacity)
+
+
 def _sphere_best(o, d, spheres: SphereBuffer, eps):
-    """Masked argmin over the (small) sphere table."""
+    """Masked argmin over the sphere table's occupied slots; with none, every
+    ray misses."""
+    k = spheres.slots
+    if not k:
+        return (o.new_full((o.shape[0],), BIG),
+                torch.full((o.shape[0],), NO_HIT, dtype=torch.int32, device=o.device))
     t, ok = sphere_intersect(
         o[:, None, :], d[:, None, :],
-        spheres.center[None, :, :], spheres.radius[None, :], eps,
+        spheres.center[None, :k, :], spheres.radius[None, :k], eps,
     )
-    t = torch.where(ok & spheres.valid[None, :], t, BIG)
+    t = torch.where(ok & spheres.valid[None, :k], t, BIG)
     best_t, best_idx = torch.min(t, dim=1)
     best_idx = torch.where(best_t < BIG, best_idx.to(torch.int32), NO_HIT)
     return best_t, best_idx
@@ -231,6 +252,7 @@ def argmin_hit(o, d, scene: Scene, eps=EPS, block_size: int = 512,
     `tri_search(o, d, tris, eps, t_limit=...)` lets a backend replace the
     triangle scan; `t_limit` is a per-ray ceiling it may use to cull work.
     """
+    count_sphere_slots(scene.spheres)
     sph_t, sph_idx = _sphere_best(o, d, scene.spheres, eps)
     if tri_search is None:
         tri_t, tri_idx = _scan_blocks(o, d, scene.triangles, eps, block_size, use_mxu)
@@ -242,6 +264,9 @@ def argmin_hit(o, d, scene: Scene, eps=EPS, block_size: int = 512,
             tri_t, tri_idx = tri_search(o, d, scene.triangles, eps, t_limit=hint)
         else:
             tri_t, tri_idx = tri_search(o, d, scene.triangles, eps)
+    if not scene.spheres.slots:  # every winner is a triangle
+        prim = torch.where(tri_t < BIG, tri_idx, NO_HIT)
+        return tri_t, prim, torch.zeros_like(tri_t, dtype=torch.bool)
     is_sphere = sph_t < tri_t
     best_t = torch.where(is_sphere, sph_t, tri_t)
     prim = torch.where(is_sphere, sph_idx, tri_idx)
@@ -262,7 +287,8 @@ def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return flat.reshape(idx.shape + table.shape[1:])
 
 
-def select_rows(table: torch.Tensor, idx: torch.Tensor, limit: int = 16) -> torch.Tensor:
+def select_rows(table: torch.Tensor, idx: torch.Tensor,
+                limit: int = SELECT_LIMIT) -> torch.Tensor:
     """table[idx], as a select chain when the table has <= `limit` rows.
 
     The gather's backward is a scatter-add over every ray; for a tiny
@@ -275,6 +301,16 @@ def select_rows(table: torch.Tensor, idx: torch.Tensor, limit: int = 16) -> torc
     for j in range(n):
         out = torch.where((idx == j)[..., None], table[j], out)
     return out
+
+
+def sphere_rows(packed: torch.Tensor, idx: torch.Tensor, k: int) -> torch.Tensor:
+    """packed[idx] for a sphere table's packed columns [S, C] and sphere
+    indices below k: the select chain over its first k rows, or, for a
+    table too large for a chain, the gather the whole table takes."""
+    if packed.shape[0] > SELECT_LIMIT:
+        return take_rows(packed, idx)
+    # All rows: the table itself, with no slice in the autograd graph.
+    return select_rows(packed if k == packed.shape[0] else packed[:k], idx)
 
 
 def packed_tri_table(tris: TriangleBuffer) -> torch.Tensor:
@@ -316,12 +352,21 @@ def closest_hit(o, d, scene: Scene, eps=EPS, block_size: int = 512,
         # search yet rejected by this recompute: fall back to the search's t.
         t_tri = torch.where(t_tri < BIG, t_tri, best_t)
 
+        count_sphere_slots(scene.spheres)
+        k = scene.spheres.slots
+        if not k:  # no sphere: every winner is a triangle
+            t = torch.where(hit, t_tri, BIG)
+            u = torch.where(hit, u_tri, 0.0)
+            v = torch.where(hit, v_tri, 0.0)
+            rec = HitRecord(t=t, u=u, v=v, prim=prim, is_sphere=is_sphere, hit=hit)
+            return (rec, trow) if with_row else rec
+
         # Sphere recompute with sanitized masked lanes: non-sphere rays see a
         # benign unit sphere hit along the axis, so no inf * 0 reaches the grads.
         is_s = is_sphere
         sphere_prim = torch.where(is_s, prim, 0).long()
         sph_packed = torch.cat([scene.spheres.center, scene.spheres.radius[:, None]], dim=1)
-        srow = select_rows(sph_packed, sphere_prim)  # [R, 4]
+        srow = sphere_rows(sph_packed, sphere_prim, k)  # [R, 4]
         c, r = srow[:, 0:3], srow[:, 3]
         m = is_s[:, None]
         o_s = torch.where(m, o, vec3(o, 0.0, 0.0, 3.0))
@@ -352,6 +397,9 @@ def any_hit(o, d, t_limit, scene: Scene, eps=EPS, block_size: int = 512,
         occl_fn = getattr(tri_search, "occlusion", None)
         if occl_fn is not None:
             tri_occ = occl_fn(o, d, t_limit, scene.triangles, eps)
+            count_sphere_slots(scene.spheres)
+            if not scene.spheres.slots:
+                return tri_occ
             sph_t, _ = _sphere_best(o, d, scene.spheres, eps)
             return tri_occ | (sph_t < t_limit)
         best_t, _, _ = argmin_hit(o, d, scene, eps, block_size, use_mxu, tri_search,

@@ -17,7 +17,7 @@ from typing import Callable, Tuple
 import torch
 
 from esctp1raytracer_tpu_torch.core.intersect import (
-    HitRecord, packed_tri_table, select_rows, take_rows,
+    HitRecord, count_sphere_slots, packed_tri_table, sphere_rows, take_rows,
 )
 from esctp1raytracer_tpu_torch.kernels.winner import WinnerRow, winner_fields
 from esctp1raytracer_tpu_torch.scene.types import Scene
@@ -37,7 +37,8 @@ def surface_attributes(o, d, hit: HitRecord, scene: Scene, shadow_eps: float,
 
     Zero-safe for missed rays. trow is the winner's packed_tri_table row, as
     `winner_fields` gives it, when the caller already gathered it
-    (closest_hit with_row=True).
+    (closest_hit with_row=True). The sphere rows, normal and material run
+    over the occupied sphere slots, and not at all when there are none.
     """
     sph = scene.spheres
     if trow is None:  # missed rays and sphere winners read triangle row 0, as in closest_hit
@@ -56,6 +57,12 @@ def surface_attributes(o, d, hit: HitRecord, scene: Scene, shadow_eps: float,
     t_safe = torch.where(hit.hit, hit.t, 1.0)[:, None]
     hit_p = o + d * (t_safe - shadow_eps)
 
+    mask = hit.hit[:, None]
+    count_sphere_slots(sph)
+    if not sph.slots:  # no sphere: every winner is a triangle
+        mat = {"ka": trow.ka, "kd": trow.kd, "ks": trow.ks, "ke": trow.ke, "ns": trow.ns}
+        return torch.where(mask, hit_p, 0.0), torch.where(mask, n_tri, 0.0), mat
+
     # Sphere normal: sanitize the unselected branch completely (the
     # division's backward squares the denominator; padded radius-0
     # spheres would give 0/0).
@@ -64,7 +71,7 @@ def surface_attributes(o, d, hit: HitRecord, scene: Scene, shadow_eps: float,
     sph_packed = torch.cat(
         [sph.center, sph.radius[:, None], sph.ka, sph.kd, sph.ks, sph.ke,
          sph.ns[:, None]], dim=1)  # [M, 17]
-    srow = select_rows(sph_packed, sphere_prim)  # [R, 17]
+    srow = sphere_rows(sph_packed, sphere_prim, sph.slots)  # [R, 17]
     center, radius = srow[:, 0:3], srow[:, 3]
     r_safe = torch.where(hit.is_sphere, torch.clamp(radius, min=1e-6), 1.0)
     n_sph = torch.where(is_s, hit_p - center, 0.0) / r_safe[:, None]
@@ -82,7 +89,6 @@ def surface_attributes(o, d, hit: HitRecord, scene: Scene, shadow_eps: float,
         "ke": pick(trow.ke, srow[:, 13:16]),
         "ns": pick(trow.ns, srow[:, 16]),
     }
-    mask = hit.hit[:, None]
     hit_p = torch.where(mask, hit_p, 0.0)
     normal = torch.where(mask, normal, 0.0)
     return hit_p, normal, mat

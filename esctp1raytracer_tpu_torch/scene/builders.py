@@ -150,7 +150,7 @@ def make_spheres(
         valid[i] = True
     t = torch.from_numpy
     return SphereBuffer(center=t(center), radius=t(radius), ka=t(ka), kd=t(kd),
-                        ks=t(ks), ke=t(ke), ns=t(ns), valid=t(valid)).to(device)
+                        ks=t(ks), ke=t(ke), ns=t(ns), valid=t(valid)).occupy(valid).to(device)
 
 
 def _quad_mesh(name: str, quad: Sequence[Sequence[float]], material: Material) -> MeshData:

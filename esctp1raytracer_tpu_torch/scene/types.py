@@ -73,13 +73,20 @@ class _Table:
     """A dataclass whose fields are tensors or nested tables."""
 
     def map(self, fn: Callable[[str, torch.Tensor], torch.Tensor], prefix: str = ""):
-        """New table with fn(dotted_name, tensor) applied to every leaf."""
+        """New table with fn(dotted_name, tensor) applied to every leaf; the
+        values that are not leaves are carried over."""
         kw = {}
         for f in dataclasses.fields(self):
+            if not f.init:
+                continue
             v = getattr(self, f.name)
             name = prefix + f.name
             kw[f.name] = v.map(fn, name + ".") if isinstance(v, _Table) else fn(name, v)
-        return dataclasses.replace(self, **kw)
+        out = dataclasses.replace(self, **kw)
+        for f in dataclasses.fields(self):
+            if not f.init:
+                setattr(out, f.name, getattr(self, f.name))
+        return out
 
     def leaves(self, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
         """(dotted_name, tensor) for every leaf, in field order (JAX's leaf order)."""
@@ -145,7 +152,14 @@ class TriangleBuffer(_Table):
 
 @dataclass
 class SphereBuffer(_Table):
-    """Flat padded SoA sphere table (differentiable w.r.t. center/radius)."""
+    """Flat padded SoA sphere table (differentiable w.r.t. center/radius).
+
+    `occupied` is one past the last valid slot, a Python int that the
+    builders set (they place the valid spheres first); the sphere tests,
+    selects and normals run over the slots [0, slots) and not at all when
+    it is 0. A table built any other way (the constructor,
+    `dataclasses.replace`, `scene_from_numpy`) leaves it None: every slot.
+    """
 
     center: torch.Tensor  # [S, 3]
     radius: torch.Tensor  # [S]
@@ -155,10 +169,24 @@ class SphereBuffer(_Table):
     ke: torch.Tensor  # [S, 3]
     ns: torch.Tensor  # [S]
     valid: torch.Tensor  # [S] bool
+    occupied: Optional[int] = dataclasses.field(default=None, init=False)
 
     @property
     def capacity(self) -> int:
         return int(self.center.shape[0])
+
+    @property
+    def slots(self) -> int:
+        """The slots the sphere sites run over: [0, slots)."""
+        return self.capacity if self.occupied is None else self.occupied
+
+    def occupy(self, valid: np.ndarray) -> "SphereBuffer":
+        """This table with `occupied` read from `valid`, the valid mask as a
+        host array (the card is never read for it)."""
+        out = dataclasses.replace(self)
+        live = np.flatnonzero(np.asarray(valid))
+        out.occupied = int(live[-1]) + 1 if live.size else 0
+        return out
 
     @staticmethod
     def empty(capacity: int = 8, device="cuda") -> "SphereBuffer":
@@ -166,7 +194,7 @@ class SphereBuffer(_Table):
         z1 = torch.zeros((capacity,), dtype=torch.float32, device=device)
         zb = torch.zeros((capacity,), dtype=torch.bool, device=device)
         return SphereBuffer(center=z3, radius=z1, ka=z3, kd=z3, ks=z3, ke=z3,
-                            ns=z1, valid=zb)
+                            ns=z1, valid=zb).occupy(np.zeros(capacity, bool))
 
 
 @dataclass
@@ -230,7 +258,7 @@ def scene_from_numpy(d: Dict[str, np.ndarray], device="cuda") -> Scene:
 
     def table(cls, prefix):
         return cls(**{f.name: torch.as_tensor(np.array(d[prefix + f.name]), device=device)
-                      for f in dataclasses.fields(cls)})
+                      for f in dataclasses.fields(cls) if f.init})
 
     return Scene(
         triangles=table(TriangleBuffer, "triangles."),

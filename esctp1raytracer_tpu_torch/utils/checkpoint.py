@@ -10,6 +10,7 @@ package loads in the other, optimizer state included.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import tempfile
 from typing import Any, Dict, Optional, Tuple
@@ -84,4 +85,6 @@ def load_checkpoint(path: str, template: Scene) -> Tuple[Scene, int, Dict[str, n
         }
         scene = template.map(lambda name, leaf: torch.as_tensor(
             arrays[name], device=leaf.device).to(leaf.dtype))
+        # The sphere slots in use, read from the loaded mask on the host.
+        scene = dataclasses.replace(scene, spheres=scene.spheres.occupy(arrays["spheres.valid"]))
         return scene, int(data["__step__"]), extra

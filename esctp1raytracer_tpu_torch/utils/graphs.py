@@ -123,8 +123,13 @@ def _rebuild(obj, tensors: Iterator[torch.Tensor]):
     if isinstance(obj, torch.Tensor):
         return next(tensors)
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return dataclasses.replace(obj, **{f.name: _rebuild(getattr(obj, f.name), tensors)
-                                           for f in dataclasses.fields(obj)})
+        fields = dataclasses.fields(obj)
+        out = dataclasses.replace(obj, **{f.name: _rebuild(getattr(obj, f.name), tensors)
+                                          for f in fields if f.init})
+        for f in fields:  # a value set after construction (SphereBuffer.occupied)
+            if not f.init:
+                object.__setattr__(out, f.name, getattr(obj, f.name))
+        return out
     if isinstance(obj, (list, tuple)):
         return type(obj)(_rebuild(x, tensors) for x in obj)
     if isinstance(obj, dict):

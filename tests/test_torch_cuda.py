@@ -1393,3 +1393,43 @@ def test_graphed_flagship_fit_step_equals_eager(dev):
         assert sum(float(g.abs().sum()) for g in grads if g is not None) > 0
     finally:
         graphs.clear()
+
+
+def test_graphed_flagship_fit_step_skips_its_empty_sphere_table(dev):
+    """The flagship has no sphere (k = 0): its graphed 1080p fit step against
+    the same scene forced to run all 8 sphere slots. The frame and the loss
+    bit-equal; the sphere leaves get no gradient at k = 0 and exactly zero at
+    8; every other leaf's gradient within grads_agreement's bars (the winner
+    scatter's atomics add in another order each run, so no two runs of one
+    step are bit-equal there)."""
+    from esctp1raytracer_tpu_torch.grad import optimize
+    from esctp1raytracer_tpu_torch.utils import graphs
+
+    sc, cam, cfg = b.bench_scene(device=dev), CAM.to(dev), RenderConfig(backend="auto")
+    assert sc.spheres.occupied == 0
+    full = dataclasses.replace(sc, spheres=dataclasses.replace(sc.spheres))
+    assert full.spheres.slots == full.spheres.capacity == 8
+    with torch.no_grad():
+        target = render.__wrapped__(sc, cam, 1920, 1080, cfg) * 0.8
+    frozen = (False,) * len(float_params(sc))
+    names = [n for n, t in sc.leaves() if t.is_floating_point()]
+    runs = {}
+    try:
+        for key, scene in (("k", sc), ("full", full)):
+            with torch.no_grad():
+                frames = [render(scene, cam, 1920, 1080, cfg) for _ in range(3)]  # eager, capture, replay
+            assert all(torch.equal(f, frames[0]) for f in frames[1:])
+            for _ in range(3):  # eager, the capture, a replay
+                loss, grads = optimize.loss_and_grad(scene, target, cam, 1920, 1080, cfg, frozen)
+            runs[key] = frames[-1], loss, grads
+        assert len(render.cache) == 2 and len(optimize.loss_and_grad.cache) == 2
+    finally:
+        graphs.clear()
+    (img, loss, grads), (img_full, loss_full, grads_full) = runs["k"], runs["full"]
+    assert torch.equal(img, img_full) and torch.equal(loss, loss_full)
+    sphere = [n.startswith("spheres.") for n in names]
+    assert all(g is None for g, s in zip(grads, sphere) if s)
+    assert all(not bool(g.any()) for g, s in zip(grads_full, sphere) if s)
+    _grads_within([g for g, s in zip(grads, sphere) if not s],
+                  [g for g, s in zip(grads_full, sphere) if not s])
+    assert sum(float(g.abs().sum()) for g in grads if g is not None) > 0
