@@ -42,6 +42,15 @@ fails the direction test and the light's tight box fails the t-window.
 Tables over TILE_TRI_LIMIT triangles go through in segments, combined
 first-wins.
 
+While spans are on (`utils/profiling.py`), each search's table work -- the
+rays' padding, the one cluster sort of a trace (built by the first search
+that asks), each search's packed segments and the any-hit search's
+oversized sub-block -- is the span `rt_tile.prepass`, and the any-hit
+search counts, on its caller's innermost span (`intersect.any_hit`), the
+live shadow rays that each launch after the first tests
+(`rt_tile.occl_later_rays`) and those of them that an earlier launch
+already found occluded (`rt_tile.occl_settled_rays`): K6 tests them again.
+
 The JAX package's pre-pass switches, with its names, defaults and
 resolution rules (`tile_tri_search`, `tile_occlusion`):
 
@@ -82,6 +91,7 @@ from esctp1raytracer_tpu_torch.kernels.tables import (
     sweep_oversized,
 )
 from esctp1raytracer_tpu_torch.scene.types import TriangleBuffer
+from esctp1raytracer_tpu_torch.utils import profiling
 
 COHERENT = 8  # rays per bundle = one warp's rays in the kernels
 TILE_TRI_LIMIT = 131_072  # triangles per segment: NSUB <= 1024
@@ -463,15 +473,19 @@ def tile_tri_search(o, d, tris: TriangleBuffer, eps, t_limit=None):
 
     `t_limit` only culls (see the module docstring). Segments combine
     first-wins: an earlier segment keeps a tie. The tables are
-    `tables.lookup`'s: built by this call, or shared in an open scope.
+    `tables.lookup`'s: built by this call, or shared in an open scope. The
+    span `rt_tile.prepass` holds the rays' padding and the sort and pack
+    where this call builds them.
     """
-    eps_arr = eps_tensor(eps, o.device)
+    with profiling.annotate("rt_tile.prepass"):
+        eps_arr = eps_tensor(eps, o.device)
+        rays = pad_rays(o, d, t_limit)
+        segments = tables.lookup(tris).segments(pack_planes, TILE_TRI_LIMIT)
     r = o.shape[0]
-    rays = pad_rays(o, d, t_limit)
     best_t = torch.full((r,), BIG, dtype=torch.float32, device=o.device)
     best_i = torch.full((r,), NO_HIT, dtype=torch.int32, device=o.device)
     mode = _resolve_cull_mode()
-    for tc, aabbs, perm_k in tables.lookup(tris).segments(pack_planes, TILE_TRI_LIMIT):
+    for tc, aabbs, perm_k in segments:
         t_k, idx_k = tile_kernel(eps_arr, rays, aabbs, tc, mode=mode)
         t_k, idx_k = t_k[:r], idx_k[:r]
         better = t_k < best_t
@@ -491,16 +505,23 @@ def _occl_mode() -> str:
 def tile_occlusion(o, d, t_limit, tris: TriangleBuffer, eps) -> torch.Tensor:
     """Occlusion [R] bool: any accepted hit in (eps, t_limit). The oversized
     triangles go to the first segment's K6 launch as one extra sub-block.
-    Tables as `tile_tri_search`."""
-    eps_arr = eps_tensor(eps, o.device)
+    Tables and span as `tile_tri_search` (the oversized sub-block's pack
+    too); before each launch after the first, the two counters of the
+    module docstring, summed on the device (live: t_limit > 0)."""
+    with profiling.annotate("rt_tile.prepass"):
+        eps_arr = eps_tensor(eps, o.device)
+        rays = pad_rays(o, d, t_limit)
+        found = tables.lookup(tris)
+        segments = found.segments(pack_planes, TILE_TRI_LIMIT, exclude_oversized=True)
+        ov = found.oversized()
     r = o.shape[0]
-    rays = pad_rays(o, d, t_limit)
     occluded = torch.zeros((r,), dtype=torch.bool, device=o.device)
-    found = tables.lookup(tris)
-    segments = found.segments(pack_planes, TILE_TRI_LIMIT, exclude_oversized=True)
-    ov = found.oversized()
     mode = _occl_mode()
     for k, (tc, aabbs, _) in enumerate(segments):
+        if k and profiling.enabled():
+            live = t_limit > 0.0
+            profiling.count("rt_tile.occl_later_rays", live.sum())
+            profiling.count("rt_tile.occl_settled_rays", (live & occluded).sum())
         occluded |= tile_occl_kernel(eps_arr, rays, aabbs, tc, ov if k == 0 else None,
                                      mode=mode, early_exit=OCCL_EARLY_EXIT)[:r] > 0
     return occluded

@@ -12,7 +12,11 @@ the cull lists are exact. The interpret-mode kernels compile once per
 shape (~10 s each), so the cases share ray counts where they can.
 """
 
+import copy
 import dataclasses
+import json
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -32,6 +36,15 @@ from esctp1raytracer_tpu_torch.kernels import tables  # noqa: E402
 from esctp1raytracer_tpu_torch.kernels.cull import block_cull_mask  # noqa: E402
 from esctp1raytracer_tpu_torch.core.intersect import BIG  # noqa: E402
 from esctp1raytracer_tpu_torch.scene.types import TriangleBuffer, scene_from_numpy  # noqa: E402
+from esctp1raytracer_tpu_torch.core.camera import Camera as PortCamera  # noqa: E402
+from esctp1raytracer_tpu_torch.core.render import RenderConfig, trace_rays  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+from rtbench import loops, scenes  # noqa: E402
+from rtbench.reference import render as ref  # noqa: E402
 
 EPS = np.float32(np.finfo(np.float32).eps)
 CORNELL_CAM = Camera.look_at((0.0, 1.0, 2.0), (0.0, 1.0, 0.0), aspect=1.0)
@@ -479,3 +492,55 @@ def test_group_boxes_reject_only_what_every_member_rejects():
     d1 = T(np.array([[0.0, 1.0, 0.0]], np.float32))
     assert bool(block_cull_mask(o1, d1, aabbs)[0, 40])
     assert not bool(block_cull_mask(o1, d1, gb)[0, 1])
+
+
+def _small_soup(count, seed, extent):
+    """The `soup500k-1080p` recipe (rtbench/configs/) at `count` triangles of
+    half-extent `extent`, its ground and light scaled with it, as
+    `builders.random_scene(count, seed, extent)` builds them."""
+    spec = json.loads((ROOT / "rtbench" / "configs" / "soup500k-1080p.json").read_text())
+    scene = copy.deepcopy(spec["scene"])
+    scene["meshes"][0].update(count=count, seed=seed, extent=extent)
+    for mesh in scene["meshes"][1:]:
+        mesh["quads"] = [[[c * extent / 20.0 for c in p] for p in q] for q in mesh["quads"]]
+    return scene
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_segmented_soup_frame_matches_the_reference(seed, monkeypatch):
+    """A seeded soup of 6,000 triangles with its ground and light, through six
+    segments of 1,024 (TILE_TRI_LIMIT lowered, as the 500k soup's 131,072 cut
+    it into four), the oversized sub-block (the ground) in the
+    first any-hit launch only: a frame through `trace_rays` on the tile route
+    equals the plain reference's (`rtbench/reference/render.py`) on the same
+    arrays, every pixel within the benchmark's `loops.PIXEL_TOL`."""
+    spec = _small_soup(6000, seed, 4.0)
+    scene = scenes.port_scene(spec, "cpu")
+    cam = {"lookfrom": [0.0, 5.0, 11.0], "lookat": [0.0, 0.6, 0.0], "vup": [0.0, 1.0, 0.0],
+           "vfov": 60.0}
+    w, h = 64, 36
+    o, d = (x.reshape(-1, 3) for x in PortCamera.look_at(
+        cam["lookfrom"], cam["lookat"], cam["vup"], cam["vfov"], w / h, device="cpu"
+    ).ray_grid(w, h))
+    ids = torch.arange(w * h) + 12345
+    monkeypatch.setattr(pt, "TILE_TRI_LIMIT", 1024)
+    found = tables.Tables(scene.triangles)
+    assert len(found.segments(tables.pack_planes, pt.TILE_TRI_LIMIT)) == 6
+    assert int(found.sort()[3].valid.sum()) >= 2  # the ground's two at least: oversized
+    occl, launch = [], pt.tile_occl_kernel
+
+    def spy(eps, rays, aabbs, tc, ov=None, **kw):
+        out = launch(eps, rays, aabbs, tc, ov, **kw)
+        occl.append((ov is not None, bool((out > 0).any())))
+        return out
+
+    monkeypatch.setattr(pt, "tile_occl_kernel", spy)
+    with torch.no_grad():
+        img = trace_rays(o, d, scene, ids, RenderConfig(backend="tile", seed=seed))
+    assert [ov for ov, _ in occl] == [True] + [False] * 5
+    assert sum(any_hit for _, any_hit in occl) >= 3  # shadows in several segments
+    want = ref.image(ref.scene_from_arrays(scenes.scene_arrays(spec), "cpu"), cam, w, h, ids,
+                     seed, 1)
+    off = (img.reshape(h, w, 3) - want).abs().amax(-1)
+    assert float(off.max()) <= loops.PIXEL_TOL
+    assert 0.2 < float((want.sum(-1) > 0.2).float().mean()) < 0.8
