@@ -39,10 +39,10 @@ H. training on one rank, at the flagship's width: `fit_scene` on the
    flagship at 1920x1080 ("auto" -> mxtile: K1, K2), the target its true
    render, the start with the triangles' kd halved, `param_filter` fitting
    triangles.kd, 6 Adam steps at lr 0.05 with a checkpoint every 3; then a
-   second run resumed from the step-3 checkpoint. The loss falls, one K1
-   and one K2 launch per step, the resumed run equals the uninterrupted
-   one within RESUME_RTOL / RESUME_ATOL, and the checkpoint loaded into a
-   fresh template equals `scene_to_numpy` of the fitted scene;
+   second run resumed from the step-3 checkpoint. The loss falls, one K1,
+   one K2 and one Adam launch per step, the resumed run equals the
+   uninterrupted one within RESUME_RTOL / RESUME_ATOL, and the checkpoint
+   loaded into a fresh template equals `scene_to_numpy` of the fitted scene;
 I. the sharded renderer and trainer (`parallel/`), ranks of this script
    (`--rank-leg`, the torchrun environment, each with a time-out) on the
    one card: (a) one rank over NCCL: `loss_and_grad_sharded` on the
@@ -142,7 +142,7 @@ Phases, any failure exits non-zero (no phase catches its own failure):
 1. device: needs a CUDA device (there is no CPU path); prints the card's
    name and power limit (nvidia-smi), the torch and CUDA versions, and
    turns TF32 off;
-2. build: builds the five CUDA sources from csrc/ with nvcc and the three
+2. build: builds the six CUDA sources from csrc/ with nvcc and the three
    host C++ libraries from native/ with g++ (the OBJ loader, the PPM
    writer, the BVH builder), one process each, all started together; a
    host library that does not build fails the run; prints each kernel's
@@ -183,7 +183,13 @@ Phases, any failure exits non-zero (no phase catches its own failure):
    [R, 32] row, the scatter-add within 1e-5 of a float64 index_add_
    relative to the sum of the gradients' magnitudes, its group count equal
    to its plain version's; each timed beside its plain version, the library
-   call it replaced and its bound (bytes);
+   call it replaced and its bound (bytes). The Adam kernel (csrc/adam.cu)
+   over the flagship's and Cornell's 21 float leaves, five steps through
+   `optimize.adam_update` from adam_init with gradients that hold zeros,
+   +-1e-30 and +-1e6: one launch a step, its new parameters and moments
+   bit-equal to the tensor operations' on the card, its inputs unchanged,
+   its outputs one new buffer; its device time (50 launches in one CUDA
+   graph) beside its bound (bytes) and the tensor operations' time;
 4. main paths A-F: for each, every kernel's launch counter set to 0 just
    before a run and read just after (forward, then forward + backward),
    checks (finite, non-black image, finite gradients, counters > 0, a
@@ -267,7 +273,7 @@ from esctp1raytracer_tpu_torch.grad import fit_scene, optimize
 from esctp1raytracer_tpu_torch.io import native_ppm
 from esctp1raytracer_tpu_torch.io.ppm import read_ppm, write_ppm, write_ppm_python
 from esctp1raytracer_tpu_torch.kernels import (
-    _build, fused_pallas, lane_pallas, launches, rt_mxu, rt_tile, tables, winner,
+    _build, adam, fused_pallas, lane_pallas, launches, rt_mxu, rt_tile, tables, winner,
 )
 from esctp1raytracer_tpu_torch.kernels.cull import block_cull_mask
 from esctp1raytracer_tpu_torch.parallel import (
@@ -317,7 +323,13 @@ FETCH = {
                        "esctp1raytracer_tpu/core/intersect.py:431 the gather's gradient "
                        "(XLA's scatter-add fused with the slices', not a Pallas kernel)"),
 }
-SOURCES = ("rt_mxu", "lane", "fused", "rt_tile", "winner")
+# The fit step's Adam update (launches.ADAM), read apart too: one launch a fit step.
+ADAM = {
+    "adam_step": (adam._adam_plain, "adam.cu",
+                  "esctp1raytracer_tpu/grad/optimize.py:40 adam_update (eager jnp operations, "
+                  "not a Pallas kernel)"),
+}
+SOURCES = ("rt_mxu", "lane", "fused", "rt_tile", "winner", "adam")
 # The host C++ of path G: each library's availability check (built with g++).
 NATIVE = {"objloader": native_loader.native_available, "ppm": native_ppm.native_available,
           "bvh": native_bvh.native_bvh_available}
@@ -443,7 +455,7 @@ def build_phase():
         native = {name: pool.submit(fn) for name, fn in NATIVE.items()}
         libs = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
         native = {name: f.result() for name, f in native.items()}
-    for mod in (rt_mxu, lane_pallas, fused_pallas, rt_tile, winner):
+    for mod in (rt_mxu, lane_pallas, fused_pallas, rt_tile, winner, adam):
         mod._lib()
     say(f"build: {time.perf_counter() - t0:.2f} s ({len(SOURCES)} CUDA sources and "
         f"{len(NATIVE)} host libraries in parallel)")
@@ -863,6 +875,80 @@ def winner_kernels(card, label, scene, cam, w, h, search):
                  bound_ms=g_bound[0], bound_by=g_bound[1]),
             dict(common, max_abs_err=float(err.max()), max_rel_err=rel, groups=groups, ms=s_ms,
                  plain_ms=s_plain, library_ms=s_lib, bound_ms=s_bound[0], bound_by=s_bound[1]))
+
+
+def adam_grads(params, gen):
+    """Normal gradients with zeros, +-1e-30 and +-1e6 among them (5 of 16)."""
+    special = torch.tensor([0.0, 1e-30, -1e-30, 1e6, -1e6], device="cuda")
+    out = []
+    for p in params:
+        g = torch.randn(p.shape, generator=gen, device="cuda")
+        pick = torch.randint(0, 16, p.shape, generator=gen, device="cuda")
+        out.append(torch.where(pick < 5, special[pick.clamp(max=4)], g))
+    return out
+
+
+def bits(ts):
+    return [t.view(torch.int32) for t in ts]
+
+
+def adam_kernels(card, label, scene, steps=5, lr=0.05, b1=0.9, b2=0.999, eps=1e-8):
+    """The Adam kernel over `scene`'s float leaves for `steps` steps from
+    adam_init, through `optimize.adam_update`, with `adam_grads`: one launch a
+    step, every leaf through it; its new parameters, m and v bit-equal to the
+    tensor operations' (`adam._adam_plain`) on the card; its inputs unchanged;
+    its outputs in one buffer that is none of theirs. Timed: the kernel's
+    device time (50 launches in one CUDA graph), one eager call (host
+    dispatch included) and the tensor operations beside its bound (bytes:
+    four reads and three writes of each element)."""
+    params = [p.detach().contiguous() for p in float_params(scene)]
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    state = optimize.adam_init(params)
+    for step in range(steps):
+        grads = adam_grads(params, gen)
+        ins = [t.clone() for t in params + grads + state["m"] + state["v"]]
+        tf = (state["t"] + 1).to(torch.float32)
+        c1, c2 = 1 - b1 ** tf, 1 - b2 ** tf
+        want = adam._adam_plain(params, grads, state["m"], state["v"], lr, b1, b2, eps, c1, c2)
+        before = adam.adam_step.launches
+        new, st = optimize.adam_update(params, grads, state, lr=lr, b1=b1, b2=b2, eps=eps)
+        check(adam.adam_step.launches == before + 1,
+              f"adam_step [{label}]: {adam.adam_step.launches - before} launches in step {step}")
+        for what, got, ref in zip(("p", "m", "v"), (new, st["m"], st["v"]), want):
+            check(all(torch.equal(a, b) for a, b in zip(bits(got), bits(ref))),
+                  f"adam_step [{label}]: step {step}'s {what} differs from the tensor operations")
+        check(all(torch.equal(a, b) for a, b in zip(
+            bits(ins), bits(params + grads + state["m"] + state["v"]))),
+              f"adam_step [{label}]: step {step} changed its inputs")
+        storages = {t.untyped_storage().data_ptr() for t in new + st["m"] + st["v"]}
+        check(len(storages) == 1 and not storages & {
+            t.untyped_storage().data_ptr() for t in params + grads + state["m"] + state["v"]},
+              f"adam_step [{label}]: the outputs are not one new buffer")
+        params, state = new, st
+    m, v = state["m"], state["v"]
+    tf = (state["t"] + 1).to(torch.float32)
+    c1, c2 = 1 - b1 ** tf, 1 - b2 ** tf
+
+    def kernel():
+        return adam.adam_step(params, grads, m, v, lr, b1, b2, eps, c1, c2)
+
+    kernel()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(50):
+            kernel()
+    device_ms = statistics.median(elapsed_ms(graph.replay, "cuda", 3) for _ in range(3)) / 50
+    del graph
+    call_ms, plain_ms = time_pair("adam_step", kernel, lambda: adam._adam_plain(
+        params, grads, m, v, lr, b1, b2, eps, c1, c2), 50, 20, card, label)
+    n = sum(p.numel() for p in params)
+    limit = bound(0, 28 * n)
+    say(f"adam_step [{label}]: {len(params)} leaves, {n} elements, bit-equal to the tensor "
+        f"operations over {steps} steps; device {device_ms:.4f} ms a launch, bound "
+        f"{limit[0]:.4f} ms (bytes); eager call {call_ms:.3f} ms, tensor operations "
+        f"{plain_ms:.3f} ms  [{card}]")
+    return dict(leaves=len(params), elements=n, max_abs_err=0.0, ms=device_ms, call_ms=call_ms,
+                plain_ms=plain_ms, bound_ms=limit[0], bound_by=limit[1])
 
 
 def fused_tables_check(card, label, scene, results=None):
@@ -1866,7 +1952,8 @@ def training_phase(card, results, scene, cam, w, h, cfg, steps=6, every=3, lr=0.
     triangles.kd: `steps` Adam steps with a checkpoint every `every`, then a
     second run resumed from the step-`every` checkpoint (copied aside by a
     spy on `save_checkpoint` before the first run overwrites it). Checks:
-    the loss falls; one K1 and one K2 launch per step; the resumed run's
+    the loss falls; one K1, one K2 and one Adam launch per step (an eager
+    first call's strided gradients made contiguous); the resumed run's
     losses and kd equal the uninterrupted run's within RESUME_RTOL and
     RESUME_ATOL (the backward's `index_add_` atomics make the card's
     gradients differ in the last bits from run to run); the checkpoint
@@ -1920,6 +2007,7 @@ def training_phase(card, results, scene, cam, w, h, cfg, steps=6, every=3, lr=0.
                                 param_filter=fit_kd, checkpoint_path=ck, checkpoint_every=every,
                                 log_every=0)
                 counts = launches.read()
+                adam_counts = launches.read(launches.ADAM)
                 ends = [t_start] + log["ends"]
                 step_ms = [(b - a) * 1e3 - sum((s1 - s0) * 1e3 for s0, s1 in log["saves"]
                                                 if a <= s0 < b)
@@ -1936,6 +2024,9 @@ def training_phase(card, results, scene, cam, w, h, cfg, steps=6, every=3, lr=0.
                     check(counts[name] == want, f"H {what}: {name} launched {counts[name]} "
                           f"times in {n} steps, want {want}")
                     results[name]["launches"] += counts[name]
+                check(adam_counts == {"adam_step": n}, f"H {what}: Adam launched "
+                      f"{adam_counts} in {n} steps, want one a step")
+                results["adam_step"]["launches"] += n
         finally:
             optimize.adam_update, optimize.save_checkpoint = real_adam, real_save
         whole, rest = runs["uninterrupted"]["fit"], runs["resumed"]["fit"]
@@ -3555,7 +3646,7 @@ def main():
     build_phase()
     results = {name: {"name": name, "route": "cuda", "source": CSRC + src, "replaces": rep,
                       "launches": 0, "library_ms": None}
-               for name, (_, src, rep) in {**KERNELS, **FETCH}.items()}
+               for name, (_, src, rep) in {**KERNELS, **FETCH, **ADAM}.items()}
 
     # Scenes and frames of the six paths.
     flag = bench_scene()
@@ -3604,6 +3695,8 @@ def main():
         results[name].update({k: v for k, v in results[name]["flagship"].items()
                               if k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                        "library_ms")})
+    results["adam_step"].update(adam_kernels(card, "flagship", flag))
+    results["adam_step"]["cornell"] = adam_kernels(card, "Cornell", corn)
     o, d, ids = rays(mixed_cam, 1920, 1080)
     results["fused_kernel"]["config4"] = fused_kernel_check(
         card, o, d, mixed, ids, d4, "config 4, mixed 1920x1080, depth 4")
@@ -3676,12 +3769,13 @@ def main():
     say(json.dumps({"paths": paths}))
     say(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    for name in {**KERNELS, **FETCH}:
+    for name in {**KERNELS, **FETCH, **ADAM}:
         check(all(k in results[name] for k in keys), f"{name}: the kernels line lacks "
               f"{[k for k in keys if k not in results[name]]}")
-    check(all(results[name]["launches"] > 0 for name in FETCH),
-          f"the winner kernels' launches: {[results[name]['launches'] for name in FETCH]}")
-    say(json.dumps({"kernels": [results[name] for name in {**KERNELS, **FETCH}]}))
+    check(all(results[name]["launches"] > 0 for name in {**FETCH, **ADAM}),
+          f"the winner and Adam kernels' launches: "
+          f"{[results[name]['launches'] for name in {**FETCH, **ADAM}]}")
+    say(json.dumps({"kernels": [results[name] for name in {**KERNELS, **FETCH, **ADAM}]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -10,7 +10,8 @@ Each step is the loss and its gradients, `loss_and_grad` (the render and
 leaves that are fitted), then the Adam update under `torch.no_grad()`.
 On the card `loss_and_grad` replays one CUDA graph per shape, as the JAX
 package jits it (utils/graphs.py); Adam and the checkpoints run eagerly,
-as there. With a `mesh` the loss and gradients
+as there, Adam as one kernel launch for every leaf (kernels/adam.py).
+With a `mesh` the loss and gradients
 come from `loss_and_grad_sharded` (rays and prims split over the ranks,
 gradients all-reduced). Every rank loads the checkpoint, since all hold
 the replicated scene; only rank 0 of the mesh writes it, so that ranks
@@ -28,6 +29,7 @@ import torch
 
 from esctp1raytracer_tpu_torch.core.camera import Camera
 from esctp1raytracer_tpu_torch.core.render import RenderConfig, render
+from esctp1raytracer_tpu_torch.kernels import adam
 from esctp1raytracer_tpu_torch.parallel.sharding import (
     float_params,
     loss_and_grad_sharded,
@@ -37,7 +39,7 @@ from esctp1raytracer_tpu_torch.scene.types import Scene
 from esctp1raytracer_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from esctp1raytracer_tpu_torch.utils.debug import get_logger
 from esctp1raytracer_tpu_torch.utils.graphs import graphed
-from esctp1raytracer_tpu_torch.utils.profiling import annotate
+from esctp1raytracer_tpu_torch.utils.profiling import annotate, count
 
 logger = get_logger(__name__)
 
@@ -67,21 +69,21 @@ def adam_init(params: Sequence[torch.Tensor]):
 
 @torch.no_grad()
 def adam_update(params, grads, state, lr=1e-2, b1=0.9, b2=0.999, eps=1e-8):
-    """JAX's update formula, term for term, on new tensors (nothing in place).
-    The span `optimize.adam` counts the allocator's device allocations."""
+    """JAX's update formula, term for term, on new tensors (nothing in place):
+    on the card one launch of `kernels/adam.py`'s kernel for every leaf, on
+    CPU tensors the tensor operations. The span
+    `optimize.adam` counts the allocator's device allocations, the leaves
+    updated (`optimize.adam_leaves`) and those the kernel updated
+    (`optimize.adam_kernel_leaves`)."""
     with annotate("optimize.adam", allocs=True):
         t = state["t"] + 1
-        m = [b1 * m_ + (1 - b1) * g for m_, g in zip(state["m"], grads)]
-        v = [b2 * v_ + (1 - b2) * g * g for v_, g in zip(state["v"], grads)]
         tf = t.to(torch.float32)
         # 0-d float32 tensors on the host: a CUDA operand takes them as scalars.
         c1, c2 = 1 - b1 ** tf, 1 - b2 ** tf
-        mhat = [m_ / c1 for m_ in m]
-        vhat = [v_ / c2 for v_ in v]
-        new_params = [
-            p - lr * mh / (torch.sqrt(vh) + eps)
-            for p, mh, vh in zip(params, mhat, vhat)
-        ]
+        new_params, m, v, kernel_leaves = adam.adam_step(params, grads, state["m"], state["v"],
+                                                         lr, b1, b2, eps, c1, c2)
+        count("optimize.adam_leaves", len(params))
+        count("optimize.adam_kernel_leaves", kernel_leaves)
         return new_params, {"m": m, "v": v, "t": t}
 
 

@@ -31,8 +31,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # round every product and sum on its own, as their plain PyTorch versions
 # do: contracted FMAs moved last-ulp values that four bounces of
 # reflections grew past the image bar. (rt_mxu's contraction calls fmaf
-# explicitly, which the flag leaves alone.)
-SOURCE_FLAGS = {name: ["-fmad=false"] for name in ("lane", "fused", "rt_tile", "rt_mxu")}
+# explicitly, which the flag leaves alone.) The Adam update is held bit for
+# bit to PyTorch's tensor operations, which contract nothing across them.
+SOURCE_FLAGS = {name: ["-fmad=false"] for name in ("lane", "fused", "rt_tile", "rt_mxu", "adam")}
 
 
 def _nvcc() -> str:

@@ -9,7 +9,8 @@ A CUDA graph replay adds the launches its capture counted
 
 The winner-row fetch's two kernels (`FETCH`) run on every route that calls
 `closest_hit`, the plain jnp route included, so they are read apart: the
-counts of `WRAPPERS` tell the routes apart.
+counts of `WRAPPERS` tell the routes apart. So is the fit step's Adam update
+(`ADAM`), which runs outside the routes, once per step.
 """
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from esctp1raytracer_tpu_torch.kernels import fused_pallas, lane_pallas, rt_mxu, rt_tile, winner
+from esctp1raytracer_tpu_torch.kernels import (
+    adam, fused_pallas, lane_pallas, rt_mxu, rt_tile, winner,
+)
 
 # The wrapper of each hand-written kernel, by name (K1, K2, the fused table
 # build, K3, K4, K5, K6).
@@ -36,7 +39,9 @@ FETCH = {
     "winner_gather": winner.winner_gather,
     "winner_scatter": winner.winner_scatter,
 }
-COUNTED = {**WRAPPERS, **FETCH}  # every counter that reset() sets and a graph replay adds to
+# The fit step's Adam update of every leaf (kernels/adam.py).
+ADAM = {"adam_step": adam.adam_step}
+COUNTED = {**WRAPPERS, **FETCH, **ADAM}  # every counter that reset() sets and a graph replay adds to
 
 
 def reset() -> None:

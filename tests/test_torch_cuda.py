@@ -1433,3 +1433,158 @@ def test_graphed_flagship_fit_step_skips_its_empty_sphere_table(dev):
     _grads_within([g for g, s in zip(grads, sphere) if not s],
                   [g for g, s in zip(grads_full, sphere) if not s])
     assert sum(float(g.abs().sum()) for g in grads if g is not None) > 0
+
+
+# --------------------------------------------------------------------------
+# The Adam kernel (csrc/adam.cu): one launch for every leaf of a fit step
+# --------------------------------------------------------------------------
+
+# One element, 0-d, a size not a multiple of the kernel's 256-thread block, empty.
+ADAM_ODD = [(1,), (), (1000,), (0, 3)]
+ADAM_HP = dict(lr=0.05, b1=0.9, b2=0.999, eps=1e-8)
+
+
+def adam_leaves(shapes, rng, dev):
+    """float32 leaves of `shapes` from `rng`: normal values with zeros, +-1e-30
+    and +-1e6 among them (5 of 16), contiguous on `dev` (tests/test_torch_optimize.py
+    draws its CPU leaves here too)."""
+    special = np.array([0.0, 1e-30, -1e-30, 1e6, -1e6], np.float32)
+    out = []
+    for s in shapes:
+        g = np.asarray(rng.standard_normal(s), np.float32)
+        pick = np.asarray(rng.integers(0, 16, s))
+        g = np.where(pick < 5, special[np.minimum(pick, 4)], g).astype(np.float32)
+        out.append(torch.as_tensor(g, device=dev))
+    return out
+
+
+def _bits(ts):
+    return [t.view(torch.int32) for t in ts]
+
+
+def _adam_steps(dev, shapes, steps=5, seed=27):
+    """`steps` Adam steps through optimize.adam_update from random leaves,
+    each held bit for bit to the eager tensor operations on the card
+    (kernels/adam.py:_adam_plain): new p, m and v equal, t one more, the
+    inputs unchanged, the outputs one new buffer aliasing no input. Returns
+    the launches of each step."""
+    from esctp1raytracer_tpu_torch.grad import optimize
+    from esctp1raytracer_tpu_torch.kernels import adam
+
+    hp = ADAM_HP
+    rng = np.random.default_rng(seed)
+    params = adam_leaves(shapes, rng, dev)
+    state = optimize.adam_init(params)
+    launched = []
+    for step in range(steps):
+        grads = adam_leaves(shapes, rng, dev)
+        ins = params + grads + state["m"] + state["v"]
+        kept = [t.clone() for t in ins]
+        tf = (state["t"] + 1).to(torch.float32)
+        c1, c2 = 1 - hp["b1"] ** tf, 1 - hp["b2"] ** tf
+        want = adam._adam_plain(params, grads, state["m"], state["v"], hp["lr"], hp["b1"],
+                                hp["b2"], hp["eps"], c1, c2)
+        before = adam.adam_step.launches
+        new, st = optimize.adam_update(params, grads, state, **hp)
+        launched.append(adam.adam_step.launches - before)
+        assert int(st["t"]) == step + 1 and st["t"].dtype == torch.int32
+        for what, got, ref in zip(("p", "m", "v"), (new, st["m"], st["v"]), want):
+            for i, (a, b_) in enumerate(zip(_bits(got), _bits(ref))):
+                assert got[i].shape == ref[i].shape and torch.equal(a, b_), (step, what, i)
+        assert all(torch.equal(a, b_) for a, b_ in zip(_bits(kept), _bits(ins))), step
+        outs = new + st["m"] + st["v"]
+        assert len({t.untyped_storage().data_ptr() for t in outs}) == 1
+        assert not ({outs[0].untyped_storage().data_ptr()}
+                    & {t.untyped_storage().data_ptr() for t in ins})
+        params, state = new, st
+    return launched
+
+
+def test_adam_kernel_equals_the_tensor_ops_bit_for_bit(dev):
+    """The flagship's 21 float leaves and four odd ones: one launch a step,
+    five steps bit-equal to the eager update on the card."""
+    shapes = [tuple(p.shape) for p in float_params(b.bench_scene(device=dev))]
+    assert len(shapes) == 21 and sum(int(np.prod(s)) for s in shapes) > 390_000
+    assert _adam_steps(dev, shapes + ADAM_ODD) == [1] * 5
+
+
+def test_adam_kernel_takes_up_to_max_leaves(dev):
+    """MAX_LEAVES leaves, empty ones among them, in one launch, bit-equal."""
+    from esctp1raytracer_tpu_torch.kernels import adam
+
+    shapes = [(37 + i, 3) for i in range(adam.MAX_LEAVES - 3)] + [(0,)] * 3
+    assert _adam_steps(dev, shapes, steps=2, seed=5) == [1, 1]
+
+
+def test_adam_kernel_takes_strided_leaves(dev):
+    """Strided gradients and moments (as an eager first call of a fit's
+    `loss_and_grad` hands back slices of the packed table's gradient) go
+    through the one launch, bit-equal to the tensor operations on them."""
+    from esctp1raytracer_tpu_torch.grad import optimize
+    from esctp1raytracer_tpu_torch.kernels import adam
+
+    hp = ADAM_HP
+    rng = np.random.default_rng(3)
+    shapes = [(8, 3), (8,), (5, 3)]
+    params = adam_leaves(shapes, rng, dev)
+    table = adam_leaves([(8, 32)], rng, dev)[0]
+    grads = [table[:, 3:6], table[:, 30], adam_leaves([(3, 5)], rng, dev)[0].t()]
+    state = optimize.adam_init(params)
+    state["m"][0] = adam_leaves([(3, 8)], rng, dev)[0].t()
+    assert not any(g.is_contiguous() for g in grads)
+    tf = (state["t"] + 1).to(torch.float32)
+    want = adam._adam_plain(params, grads, state["m"], state["v"], hp["lr"], hp["b1"], hp["b2"],
+                            hp["eps"], 1 - hp["b1"] ** tf, 1 - hp["b2"] ** tf)
+    before = adam.adam_step.launches
+    new, st = optimize.adam_update(params, grads, state, **hp)
+    assert adam.adam_step.launches == before + 1
+    for got, ref in zip((new, st["m"], st["v"]), want):
+        assert all(a.is_contiguous() and torch.equal(a, b_)
+                   for a, b_ in zip(_bits(got), _bits(ref)))
+
+
+@pytest.mark.parametrize("odd", ["float64", "shape", "leaves", "device"])
+def test_adam_kernel_raises_on_leaves_it_does_not_take(dev, odd):
+    """On the card a leaf that is not float32, not of its parameter's shape or
+    not on the parameters' device, or more leaves than the launch takes,
+    raises before any launch: there is no second path on the card."""
+    from esctp1raytracer_tpu_torch.grad import optimize
+    from esctp1raytracer_tpu_torch.kernels import adam
+
+    rng = np.random.default_rng(3)
+    shapes = [(8, 3), (5,)] * (adam.MAX_LEAVES // 2 + 1 if odd == "leaves" else 1)
+    params = adam_leaves(shapes, rng, dev)
+    grads = adam_leaves(shapes, rng, dev)
+    if odd == "float64":
+        params = [p.double() for p in params]
+        grads = [g.double() for g in grads]
+    elif odd == "shape":
+        grads[1] = grads[1][None]
+    elif odd == "device":
+        grads[1] = grads[1].cpu()
+    state = optimize.adam_init(params)
+    before = adam.adam_step.launches
+    with pytest.raises(ValueError):
+        optimize.adam_update(params, grads, state)
+    assert adam.adam_step.launches == before
+
+
+def test_adam_update_spans_count_the_kernel_leaves(dev):
+    """Under spans on the card, `optimize.adam` counts the scene's 21 leaves,
+    all of them through the kernel, and times the one launch."""
+    from esctp1raytracer_tpu_torch.grad import optimize
+    from esctp1raytracer_tpu_torch.utils import profiling
+
+    params = float_params(b.cornell_box(device=dev))
+    grads = [torch.ones_like(p) for p in params]
+    state = optimize.adam_init(params)
+    profiling.reset()
+    try:
+        _profiled(lambda: optimize.adam_update(params, grads, state), 2)
+        recs = profiling.records()
+    finally:
+        profiling.reset()
+    assert [r.name for r in recs] == ["optimize.adam"] * 2
+    for rec in recs:
+        assert rec.counts["optimize.adam_leaves"] == rec.counts["optimize.adam_kernel_leaves"] == 21
+        assert rec.device_ms is not None and rec.device_ms > 0

@@ -54,6 +54,7 @@ from esctp1raytracer_tpu_torch.scene.types import (  # noqa: E402
     SphereBuffer, float_params, merge_params, scene_from_numpy, scene_to_numpy,
 )
 from esctp1raytracer_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
+from test_torch_cuda import adam_leaves  # noqa: E402
 
 CAM = Camera.look_at((0, 2, 6), (0, 1, 0), aspect=1.0, device="cpu")
 J_CAM = JCamera.look_at((0, 2, 6), (0, 1, 0), aspect=1.0)
@@ -262,6 +263,115 @@ def test_adam_update_matches_jax():
         for a, b in zip(p_p + p_state["m"] + p_state["v"],
                         j_p + j_state["m"] + j_state["v"]):
             np.testing.assert_array_max_ulp(a.numpy(), np.asarray(b), maxulp=2)
+
+
+def _eager_adam(params, grads, state, lr, b1=0.9, b2=0.999, eps=1e-8):
+    """The update's tensor operations as adam_update ran them before the kernel."""
+    t = state["t"] + 1
+    m = [b1 * m_ + (1 - b1) * g for m_, g in zip(state["m"], grads)]
+    v = [b2 * v_ + (1 - b2) * g * g for v_, g in zip(state["v"], grads)]
+    tf = t.to(torch.float32)
+    c1, c2 = 1 - b1 ** tf, 1 - b2 ** tf
+    mhat = [m_ / c1 for m_ in m]
+    vhat = [v_ / c2 for v_ in v]
+    new_params = [p - lr * mh / (torch.sqrt(vh) + eps) for p, mh, vh in zip(params, mhat, vhat)]
+    return new_params, {"m": m, "v": v, "t": t}
+
+
+@pytest.mark.parametrize("lr", [0.05, 1e-2])
+def test_adam_update_on_the_cpu_takes_the_tensor_ops(scene, monkeypatch, lr):
+    """CPU leaves never reach the kernel (no launch counted, the kernel path not
+    called) and stay bit-equal to the tensor operations, five steps running, on
+    the scene's 21 leaves plus one element, a 0-d leaf and an empty one."""
+    from esctp1raytracer_tpu_torch.kernels import adam
+
+    def refused(*a, **kw):
+        raise AssertionError("the kernel path ran on CPU tensors")
+
+    monkeypatch.setattr(adam, "_adam_kernel", refused)
+    rng = np.random.default_rng(7)
+    odd = adam_leaves([(1,), (), (0, 3)], rng, "cpu")
+    params = [p.clone() for p in float_params(scene)] + odd
+    shapes = [tuple(p.shape) for p in params]
+    assert len(shapes) == 24
+    state = ref_state = adam_init(params)
+    ref = params
+    before = adam.adam_step.launches
+    for _ in range(5):
+        grads = adam_leaves(shapes, rng, "cpu")
+        params, state = adam_update(params, grads, state, lr=lr)
+        ref, ref_state = _eager_adam(ref, grads, ref_state, lr)
+        assert torch.equal(state["t"], ref_state["t"]) and state["t"].dtype == torch.int32
+        for a, b in zip(params + state["m"] + state["v"], ref + ref_state["m"] + ref_state["v"]):
+            assert a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert adam.adam_step.launches == before
+
+
+class _Built(Exception):
+    pass
+
+
+@pytest.mark.parametrize("odd, raised, match", [
+    ("strided", _Built, None), ("float64", ValueError, "g0: want torch.float32"),
+    ("shape", ValueError, r"g1: want torch.float32 \(5,\)"), ("leaves", ValueError, "1 to 32")])
+def test_adam_kernel_path_checks_its_leaves(monkeypatch, odd, raised, match):
+    """The kernel's wrapper checks its leaves before it builds or launches
+    anything: strided ones are made contiguous and pass; a leaf not float32
+    or not of its parameter's shape, or more leaves than one launch takes,
+    raises (on the card there is no second path). Held here on CPU tensors,
+    the build replaced by a marker."""
+    from esctp1raytracer_tpu_torch.kernels import adam
+
+    def built():
+        raise _Built
+
+    monkeypatch.setattr(adam, "_lib", built)
+    shapes = [(8, 3), (5,)] * (adam.MAX_LEAVES // 2 + 1 if odd == "leaves" else 1)
+    params = adam_leaves(shapes, np.random.default_rng(3), "cpu")
+    grads = adam_leaves(shapes, np.random.default_rng(4), "cpu")
+    if odd == "strided":
+        table = adam_leaves([(8, 32), (5, 4)], np.random.default_rng(5), "cpu")
+        grads = [table[0][:, 3:6], table[1][:, 2]]
+    elif odd == "float64":
+        grads[0] = grads[0].double()
+    elif odd == "shape":
+        grads[1] = grads[1][None]
+    m, v = [torch.zeros_like(p) for p in params], [torch.zeros_like(p) for p in params]
+    c = torch.tensor(0.5)
+    with pytest.raises(raised, match=match):
+        adam._adam_kernel(params, grads, m, v, 0.01, 0.9, 0.999, 1e-8, c, c)
+
+
+def test_adam_outputs_are_views_of_one_buffer(scene):
+    """The kernel's outputs: three new tensors per leaf (p, then m, then v),
+    each shaped as its leaf, contiguous views of one buffer that they tile
+    without overlap, the odd leaves (one element, 0-d, empty) included."""
+    from esctp1raytracer_tpu_torch.kernels import adam
+
+    params = float_params(scene) + [torch.zeros(1), torch.zeros(()), torch.zeros((0, 3))]
+    outs = adam._outputs(params)
+    n = len(params)
+    assert len(outs) == 3 * n
+    for i, t in enumerate(outs):
+        assert t.shape == params[i % n].shape and t.dtype == torch.float32 and t.is_contiguous()
+    (base,) = {t.untyped_storage().data_ptr() for t in outs}
+    spans = sorted((t.storage_offset(), t.storage_offset() + t.numel()) for t in outs if t.numel())
+    assert spans[0][0] == 0 and all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    total = 3 * sum(p.numel() for p in params)
+    assert spans[-1][1] == total == outs[0].untyped_storage().nbytes() // 4
+    assert base not in {p.untyped_storage().data_ptr() for p in params}
+
+
+def test_adam_inverse_is_float32_division():
+    """The kernel's 1/c1 and 1/c2 are float32 reciprocals of the host's bias
+    corrections, as PyTorch takes a CPU scalar divisor's on the card."""
+    from esctp1raytracer_tpu_torch.kernels import adam
+
+    for t in (1, 2, 3, 7, 100, 1000, 65_536):
+        tf = torch.tensor(t, dtype=torch.int32).to(torch.float32)
+        for b in (0.9, 0.999):
+            c = 1 - b ** tf
+            assert adam._inverse(c) == float(torch.ones((), dtype=torch.float32) / c)
 
 
 def same_checkpoint_files(a, b):

@@ -345,7 +345,8 @@ def _root(roots):
 def test_cpu_fit_step_spans(scene, fresh):
     """The fit step's spans on the CPU, where nothing is graphed: the render
     and loss, the backward and the Adam update, each a root; the allocator's
-    counts need the card."""
+    counts need the card. The update counts the scene's 21 float leaves, none
+    of them through the kernel (CPU tensors take the tensor operations)."""
     cfg = RenderConfig(backend="auto")
     with torch.no_grad():
         target = render(scene, CAM, W, H, cfg) * 0.8
@@ -360,7 +361,9 @@ def test_cpu_fit_step_spans(scene, fresh):
     assert [r.name for r in roots] == ["optimize.loss", "optimize.backward", "optimize.adam"]
     assert [c.name for c in roots[0].children][:1] == ["camera.ray_grid"]
     assert roots[0].find("lane.search") or roots[0].find("fused.frame")
-    assert roots[2].counts == {} and all(r.host_ms > 0 for r in roots)
+    assert len(params) == 21
+    assert roots[2].counts == {"optimize.adam_leaves": 21, "optimize.adam_kernel_leaves": 0}
+    assert all(r.host_ms > 0 for r in roots)
 
 
 def _metric(name):
